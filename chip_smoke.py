@@ -9,14 +9,23 @@ that fails, with a non-zero exit:
 
   1. the card's name and power limit; build the CUDA vote kernels;
   2. each kernel against its plain PyTorch version at the serve shapes,
-     on samples packed from a planted 480×640 scene;
+     on samples packed from a planted 480×640 scene (K = 8 slots,
+     S = 1024 samples), with the kernel's and the plain version's times
+     and the kernel's bound; the exhaustive kernel's time beside the
+     coarse-to-fine pair's on the same samples;
   3. the planted scene through `hough_voting` on the card: the planted
      centres and depths are recovered;
   4. the whole model, small and in fp32, on the card against the CPU;
   5. the HTTP server at full width (22 classes, 480×640, num_units 64,
      fc_dim 4096, 1024 Hough samples, seeded random weights) answering
      POST /infer requests, with the kernel launch counts of that run
-     and the request and forward times.
+     and the request and forward times;
+  6. the checks of `python -m posecnn_torch.cli.validate`, in process:
+     c2f equals the exhaustive vote on a rendered 480×640 22-class
+     scene, and every backend finds both of two same-class instances
+     in multi-instance mode;
+  7. the full-width forward with the exhaustive backend, and with
+     multi-instance Hough on c2f: finite, with launch counts and times.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -38,6 +47,13 @@ import numpy as np
 
 HEIGHT, WIDTH, NUM_CLASSES = 480, 640, 22
 SAMPLES, MAX_CLASSES = 1024, 8
+# published dense peaks of one H100 SXM (NVIDIA's data sheet): fp32 on
+# the CUDA cores, and HBM3 bandwidth
+PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# fp32 additions, subtractions and multiplications of one tested
+# (cell, sample) pair of the vote body (csrc/hough_vote.cu vote_slot);
+# its comparisons and selects are not counted
+OPS_PER_TEST = 13
 # (cls, cx, cy, depth, half_w, half_h): three objects, known centres and
 # depths. Centres on the 1/8 grid keep the sampled direction field
 # symmetric about them, so the vote plateau is centred there too.
@@ -80,8 +96,9 @@ def planted_extents(num_classes):
 
 
 def packed_planted(device):
-    """(K, 8, S) samples and (K, 4) boxes of the planted scene, packed by
-    the port's `_prepare_slots` at the serve config."""
+    """(K, 8, S) samples, (K, 4) boxes and (K,) sample weights of the
+    planted scene, packed by the port's `_prepare_slots` at the serve
+    config."""
     import torch
 
     from posecnn_torch.ops.hough_voting import _prepare_slots
@@ -94,22 +111,7 @@ def packed_planted(device):
         num_classes=NUM_CLASSES, label_threshold=500, skip_pixels=10, num_samples=SAMPLES,
         max_classes=MAX_CLASSES, vertex_factor=8,
     )
-    return prep["packed"], prep["bboxes"]
-
-
-def cuda_ms(fn, n):
-    """Mean device milliseconds of `fn` over n runs, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    return prep["packed"], prep["bboxes"], prep["samp_w"]
 
 
 def rel_err(got, want):
@@ -121,16 +123,46 @@ def rel_err(got, want):
     return float(diff.max()) if diff.numel() else 0.0, ok
 
 
+def vote_bound(cells, in_bytes, out_bytes):
+    """The least time of a vote kernel on these inputs: the larger of its
+    operations over the fp32 peak and its bytes (inputs read once,
+    outputs written once) over the memory rate. `cells` is the tail
+    (in_grid, group, hit) of an `hough_kernels.*_cells` result: only
+    the in-grid cells of the groups a sample is tested in count.
+    Returns (bound ms, "operations" or "bytes", tested pairs)."""
+    import torch
+
+    in_grid, group, hit = cells
+    per_group = torch.zeros((in_grid.shape[0], hit.shape[2]), dtype=torch.float64,
+                            device=hit.device).index_add_(1, group, in_grid.double())
+    tests = float((hit.sum(1).double() * per_group).sum())
+    t_ops = tests * OPS_PER_TEST / PEAK_FP32_OPS
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", tests
+
+
 def phase_kernels(device):
     """Kernels against their plain versions at the serve shapes."""
     import torch
 
+    from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.hough_voting import _window_maxima
 
-    samples, bboxes = packed_planted(device)
-    k = samples.shape[0]
+    samples, bboxes, samp_w = packed_planted(device)
+    k, _, s = samples.shape
     coarse = dict(cell_stride=4, grid_h=HEIGHT // 4, grid_w=WIDTH // 4)
     fine = dict(cell_stride=1, grid_h=HEIGHT, grid_w=WIDTH)
+    in_bytes = samples.numel() * 4 + bboxes.numel() * 4
+
+    # the exhaustive kernel over the full stride-1 grid
+    tv, td = hk.hough_votes_exhaustive(samples, bboxes, **fine)
+    qv, qd = hk.hough_votes_exhaustive_plain(samples, bboxes, **fine)
+    assert tv.shape == (k, HEIGHT, WIDTH), tv.shape
+    tile_err, ok_v = rel_err(tv, qv)
+    _, ok_d = rel_err(td, qd)
+    if not (ok_v and ok_d):
+        raise AssertionError(f"tile_vote_kernel disagrees with its plain version: {tile_err}")
 
     kv, kd = hk.hough_votes_flat(samples, bboxes, **coarse)
     pv, pd = hk.hough_votes_flat_plain(samples, bboxes, **coarse)
@@ -164,18 +196,70 @@ def phase_kernels(device):
         raise AssertionError(f"c2f maximum {vk.tolist()} vs plain {vp.tolist()}")
     same_cell = bool(torch.equal(best_k[2].cpu(), best_p[2]) and torch.equal(best_k[3].cpu(), best_p[3]))
 
+    # kernel and plain times; each plain version runs twice in all at
+    # these shapes (the comparison above is its warm-up)
     times = {
-        "flat": (cuda_ms(lambda: hk.hough_votes_flat(samples, bboxes, **coarse), 200),
-                 cuda_ms(lambda: hk.hough_votes_flat_plain(samples, bboxes, **coarse), 2)),
-        "window": (cuda_ms(lambda: hk.hough_votes_windows(samples, origins, **fine), 200),
-                   cuda_ms(lambda: hk.hough_votes_windows_plain(samples, origins, **fine), 2)),
+        "tile": (device_ms(lambda: hk.hough_votes_exhaustive(samples, bboxes, **fine), device,
+                           50),
+                 device_ms(lambda: hk.hough_votes_exhaustive_plain(samples, bboxes, **fine),
+                           device, 1, warm=False)),
+        "flat": (device_ms(lambda: hk.hough_votes_flat(samples, bboxes, **coarse), device, 200),
+                 device_ms(lambda: hk.hough_votes_flat_plain(samples, bboxes, **coarse),
+                           device, 1, warm=False)),
+        "window": (device_ms(lambda: hk.hough_votes_windows(samples, origins, **fine), device,
+                             200),
+                   device_ms(lambda: hk.hough_votes_windows_plain(samples, origins, **fine),
+                             device, 1, warm=False)),
     }
-    print(f"phase 2 kernels vs plain at serve shapes: flat {tuple(kv.shape)} max_abs_err "
-          f"{flat_err:.3g}, windows {tuple(wv.shape)} max_abs_err {win_err:.3g}, c2f maximum "
-          f"votes equal, same cell {same_cell}; ms kernel/plain: flat {times['flat'][0]:.4f}/"
-          f"{times['flat'][1]:.1f}, window {times['window'][0]:.4f}/{times['window'][1]:.1f}",
-          flush=True)
-    return {"flat": flat_err, "window": win_err}, times
+    c2f_ms = device_ms(lambda: hk.hough_votes_c2f(samples, bboxes, **fine), device, 50)
+
+    # multi-instance c2f at the full-width model's object budget (16 RoIs
+    # per image, so 32 greedily picked windows per slot): the window
+    # kernel at the origins that path gives it, many overlapping and some
+    # disabled, against its plain version
+    multi = dict(fine, top_t=32, coarse_local_max=True)
+    win = hk.hough_votes_c2f_windows(samples, bboxes, **multi)
+    moy, mox, men = win[2:]
+    m_origins = torch.stack([moy, mox, men.long()], -1).reshape(-1, 3).int().contiguous()
+    mv, md = hk.hough_votes_windows(samples, m_origins, **fine)
+    qv, qd = hk.hough_votes_windows_plain(samples, m_origins, **fine)
+    multi_err, ok_v = rel_err(mv, qv)
+    _, ok_d = rel_err(md, qd)
+    if not (ok_v and ok_d):
+        raise AssertionError(f"window_vote_kernel disagrees with its plain version at the "
+                             f"multi-instance origins: {multi_err}")
+    # its time, split: the whole c2f windows call (flat pass, greedy
+    # pick, window kernel), the window kernel alone, and the maxima
+    # search with its decidability dedup that hough_voting runs after it
+    multi_ms = (
+        device_ms(lambda: hk.hough_votes_c2f_windows(samples, bboxes, **multi), device, 20),
+        device_ms(lambda: hk.hough_votes_windows(samples, m_origins, **fine), device, 50),
+        device_ms(lambda: _window_maxima(*win, samp_w, grid_h=HEIGHT, grid_w=WIDTH, m=16,
+                                         vote_threshold=1.0), device, 20),
+    )
+    out_cells = {"tile": k * HEIGHT * WIDTH, "flat": kv.numel(), "window": wv.numel()}
+    cells = {
+        "tile": hk.tile_cells(samples, bboxes, **fine)[2:],
+        "flat": hk.flat_cells(samples, bboxes, **coarse)[2:],
+        "window": hk.window_cells(samples, origins, **fine)[3:],
+    }
+    bounds = {
+        name: vote_bound(cells[name], in_bytes if name != "window" else
+                         samples.numel() * 4 + origins.numel() * 4, 2 * 4 * out_cells[name])
+        for name in cells
+    }
+    print(f"phase 2 kernels vs plain at serve shapes (K={k}, S={s}): tile {tuple(tv.shape)} "
+          f"max_abs_err {tile_err:.3g}, flat {tuple(kv.shape)} max_abs_err {flat_err:.3g}, "
+          f"windows {tuple(wv.shape)} max_abs_err {win_err:.3g}, c2f maximum votes equal, same "
+          f"cell {same_cell}; ms kernel/plain/bound (bound by, tested pairs): "
+          + ", ".join(f"{n} {times[n][0]:.4f}/{times[n][1]:.1f}/{bounds[n][0]:.4f} "
+                      f"({bounds[n][1]}, {bounds[n][2]:.4g})" for n in times)
+          + f"; exhaustive {times['tile'][0]:.4f} ms vs c2f pair with its glue {c2f_ms:.4f} ms "
+          f"on the same samples; multi-instance c2f: windows {tuple(mv.shape)} at the greedy "
+          f"origins ({int(men.sum())} live) max_abs_err {multi_err:.3g}, c2f windows call "
+          f"(flat + greedy pick + window kernel) {multi_ms[0]:.4f} ms, window kernel alone "
+          f"{multi_ms[1]:.4f} ms, window maxima with the dedup {multi_ms[2]:.4f} ms", flush=True)
+    return {"tile": tile_err, "flat": flat_err, "window": win_err}, times, bounds
 
 
 def phase_planted(device):
@@ -246,6 +330,7 @@ def phase_serve(card):
     import torch
 
     from posecnn_torch.cli.serve import build_engine, make_parser, make_server
+    from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.ops import hough_kernels as hk
 
     args = make_parser().parse_args(["--port", "0"])
@@ -295,7 +380,7 @@ def phase_serve(card):
             if abs(np.linalg.norm(det["quat_wxyz"]) - 1.0) > 1e-3:
                 raise AssertionError(f"quaternion not unit-norm: {det}")
             n_det += 1
-    if min(launches.values()) < 1:
+    if min(launches["flat"], launches["window"]) < 1:
         raise AssertionError(f"a kernel of the serving path never launched: {launches}")
 
     # the device outputs of one forward: finite, valid quaternions unit-norm
@@ -310,13 +395,68 @@ def phase_serve(card):
     q = poses_pred.reshape(len(rois), -1, 4)[torch.arange(len(rois)), cls]
     if keep.any() and not bool(((q.norm(dim=1) - 1).abs()[keep] < 1e-3).all()):
         raise AssertionError("valid rows' quaternions are not unit-norm")
-    fwd_ms = cuda_ms(lambda: engine.infer_device(data, meta), 20)
+    fwd_ms = device_ms(lambda: engine.infer_device(data, meta), engine.device, 20)
     lat = sorted(r[2] for r in results)
     print(f"phase 5 serve over HTTP ({cfg_line}): {len(results)} requests answered, "
           f"{n_det} detections, launches {launches}, engine set-up {setup_s:.1f} s; "
           f"median request {float(np.median(lat)):.2f} ms, forward {fwd_ms:.3f} ms "
           f"(CUDA events, batch 1, after warm-up) on {card}", flush=True)
     return launches
+
+
+def phase_validate(device):
+    """The validation entry point's checks, in process."""
+    from posecnn_torch.cli.validate import run_checks
+
+    result = run_checks(device)
+    print("phase 6 validate (posecnn_torch.cli.validate): " + json.dumps(result), flush=True)
+
+
+def phase_full_width(device, card):
+    """The full-width forward on the exhaustive backend, and with
+    multi-instance Hough on c2f; returns each run's launch counts."""
+    import torch
+
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.models.posecnn import PoseCNN, init_weights
+    from posecnn_torch.ops import hough_kernels as hk
+
+    rng = np.random.RandomState(2)
+    data = torch.from_numpy(rng.randn(1, HEIGHT, WIDTH, 3).astype(np.float32) * 40.0).to(device)
+    extents = torch.from_numpy(planted_extents(NUM_CLASSES)).to(device)
+    _, meta = intrinsics(HEIGHT, WIDTH)
+    meta = torch.from_numpy(meta[None]).to(device)
+    runs, parts = {}, []
+    for name, kw in (("exhaustive", dict(hough_backend="exhaustive")),
+                     ("multi-instance c2f", dict(hough_backend="c2f", vote_threshold=1.0,
+                                                 vote_percentage=1e-4))):
+        model = PoseCNN(NUM_CLASSES, num_units=64, fc_dim=4096, hough_num_samples=SAMPLES,
+                        compute_dtype=torch.bfloat16, **kw)
+        init_weights(model, 0)
+        model = model.to(device)
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        out = model(data, extents, meta)
+        torch.cuda.synchronize()
+        runs[name] = dict(hk.LAUNCHES)
+        for field in ("log_prob", "poses_pred"):
+            if not bool(torch.isfinite(getattr(out, field)).all()):
+                raise AssertionError(f"{name} forward: non-finite {field}")
+        for field in out.hough._fields:
+            t = getattr(out.hough, field)
+            if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"{name} forward: non-finite hough {field}")
+        ms = device_ms(lambda m=model: m(data, extents, meta), device, 10)
+        parts.append(f"{name}: {int(out.hough.valid.sum())} valid RoIs, launches {runs[name]}, "
+                     f"forward {ms:.3f} ms")
+        del model, out
+    if runs["exhaustive"]["tile"] < 1 or min(runs["multi-instance c2f"][k]
+                                             for k in ("flat", "window")) < 1:
+        raise AssertionError(f"a kernel of a full-width path never launched: {runs}")
+    print(f"phase 7 full-width forward ({NUM_CLASSES} classes, {HEIGHT}x{WIDTH}, num_units 64, "
+          f"fc_dim 4096, {SAMPLES} samples, bf16, batch 1, CUDA events after warm-up) on "
+          f"{card}: " + "; ".join(parts), flush=True)
+    return runs
 
 
 def main() -> int:
@@ -346,18 +486,25 @@ def main() -> int:
     print(f"phase 1 card {card}; kernels built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    errs, times = phase_kernels(device)
+    errs, times, bounds = phase_kernels(device)
     phase_planted(device)
     phase_small_model(device)
     launches = phase_serve(card)
+    phase_validate(device)
+    runs = phase_full_width(device, card)
+    # each kernel's launches on its main path: the exhaustive forward for
+    # the tile kernel, the HTTP serving run for the c2f pair
+    launches["tile"] = runs["exhaustive"]["tile"]
 
-    names = {"flat": ("flat_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:191"),
+    names = {"tile": ("tile_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:39"),
+             "flat": ("flat_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:191"),
              "window": ("window_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:333")}
     print(json.dumps({"kernels": [
         {"name": names[k][0], "route": "cuda", "source": "posecnn_torch/csrc/hough_vote.cu",
          "replaces": names[k][1], "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1]}
-        for k in ("flat", "window")
+         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": None}
+        for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

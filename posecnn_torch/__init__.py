@@ -7,8 +7,11 @@ package becomes a kernel written by hand for NVIDIA Hopper (`csrc/`),
 built at first use and bound with ctypes (`ops/_cuda.py`).
 
 Ported so far: the single-frame serving path (`cli/serve.py`) — VGG16
-trunk, seg and vertex skip heads, coarse-to-fine Hough voting with its
-two CUDA vote kernels, RoI pooling, the pose head and NMS.
+trunk, seg and vertex skip heads, Hough voting (single- and
+multi-instance; coarse-to-fine, exhaustive and dense) with the three
+CUDA vote kernels, RoI pooling, the pose head and NMS — the synthetic
+scene generator (`data/synthetic.py`) and the GPU validation entry
+point (`cli/validate.py`).
 """
 
 __version__ = "0.1.0"

@@ -1,24 +1,30 @@
-// Hough vote accumulation for NVIDIA Hopper (sm_90a): the two kernels
-// of the coarse-to-fine single-instance vote.
+// Hough vote accumulation for NVIDIA Hopper (sm_90a): the exhaustive
+// vote and the two kernels of the coarse-to-fine vote.
 //
-// Replaces two Pallas TPU kernels of posecnn_tpu/ops/hough_pallas.py:
+// Replaces the three Pallas TPU kernels of posecnn_tpu/ops/hough_pallas.py:
+//   tile_vote_kernel   <- _vote_kernel        (:39, exhaustive vote over the
+//                         full (grid_h, grid_w) cell grid, hough_votes_pallas)
 //   flat_vote_kernel   <- _flat_vote_kernel   (coarse pass over a flat,
 //                         row-major cell grid, hough_votes_flat)
 //   window_vote_kernel <- _window_vote_kernel (exact stride-1 re-vote on
 //                         one 32x32 window per (slot, candidate),
 //                         hough_votes_c2f_windows)
 //
-// Per cell and per sample of the cell's class slot, both run the same
+// Per cell and per sample of the cell's class slot, all run the same
 // vote body (vote_slot below): the algebraic cone test
 //   dot > 0  &&  dot^2 > (t*|uv|)^2 * dist^2  &&  |dx| < thr  &&  |dy| < thr
 // then votes += w and dsum += w*d. Samples are (K, 8, S) fp32 with
 // channels [x, y, u, v, d, (t*|uv|)^2, thr, w] (packed by
 // ops/hough_voting._prepare_slots).
 //
-// What bounds it on the card: arithmetic. At the serve config (480x640,
-// 8 slots, S = 1024) the flat pass makes ~1.6e8 cell-sample tests and the
-// windows ~3.4e7, each ~15 fp32 operations, on ~32 KB of input per slot;
-// no tensor-core work exists. Design:
+// What bounds it on the card: fp32 arithmetic on the CUDA cores. At the
+// serve config (480x640, 8 slots, S = 1024) the exhaustive vote makes at
+// most 8 * 307,200 * 1024 = 2.5e9 cell-sample tests, the flat pass 1.6e8
+// and the 32 windows 3.4e7, before their skips (on chip_smoke.py's
+// planted scene the skips leave 2.5e8, 2.8e7 and 1.3e7). Each test is
+// 13 fp32 adds and multiplies plus compares, on ~32 KB of input per
+// slot, against at most 19.7 MB of output for the exhaustive grid; no
+// tensor-core work exists. Design:
 //   * one thread per cell, 256 cells per block;
 //   * the slot's samples are staged through shared memory in chunks of
 //     256 (8 KB), so shared memory does not grow with S;
@@ -33,7 +39,9 @@
 //   * the skip tests are those of the Pallas kernels, on the Pallas
 //     kernels' 1024-cell tiles and windows (a block covers a quarter of
 //     one): skipping a sample is then exactly the Pallas kernel's skip,
-//     also when a depth d is inf and 0*d would be NaN.
+//     also when a depth d is inf and 0*d would be NaN;
+//   * tile_vote_kernel writes straight into the (K, grid_h, grid_w)
+//     output and masks the ragged edge of the (8, 128) tiles itself.
 //
 // Build (ops/_cuda.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
@@ -46,6 +54,8 @@
 namespace {
 
 constexpr int kTile = 1024;    // cells in a Pallas (8, 128) tile or a 32x32 window
+constexpr int kTileH = 8;      // rows of a Pallas tile
+constexpr int kTileW = 128;    // columns of a Pallas tile
 constexpr int kWindow = 32;    // refine-window side (hough_pallas.WINDOW)
 constexpr int kThreads = 256;  // one cell per thread
 constexpr int kChunk = 256;    // samples staged in shared memory at a time
@@ -95,13 +105,49 @@ struct RowSpan {
   }
 };
 
-// Sample's +-thr box reaches the window [x0, x1) x [y0, y1), hough_pallas.py:381-387.
+// Sample's +-thr box reaches the window or tile [x0, x1) x [y0, y1),
+// hough_pallas.py:381-387 (windows) and :97-103 (tiles).
 struct WindowBox {
   float x0, x1, y0, y1;
   __device__ bool operator()(float x, float y, float thr) const {
     return x + thr >= x0 && x - thr < x1 && y + thr >= y0 && y - thr < y1;
   }
 };
+
+// grid (tiles_y * tiles_x * kTile / kThreads, K); block kThreads. A block
+// covers kThreads / kTileW rows of one (kTileH, kTileW) Pallas tile; cell
+// (row, col) at pixel (col, row) * cell_stride.
+__global__ void __launch_bounds__(kThreads)
+tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bboxes,
+                 float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
+                 int cell_stride, int grid_h, int grid_w) {
+  constexpr int kParts = kTile / kThreads;
+  const int k = blockIdx.y;
+  const int tiles_x = (grid_w + kTileW - 1) / kTileW;
+  const int tile = blockIdx.x / kParts;
+  const int ti = tile / tiles_x, tj = tile % tiles_x;
+  const int row = ti * kTileH + (blockIdx.x % kParts) * (kThreads / kTileW) + threadIdx.x / kTileW;
+  const int col = tj * kTileW + threadIdx.x % kTileW;
+  const bool in_grid = row < grid_h && col < grid_w;
+
+  // the tile's pixel box [x0, x1) x [y0, y1), hough_pallas.py:72-81
+  const float x0 = static_cast<float>(tj * kTileW * cell_stride);
+  const float x1 = static_cast<float>((tj + 1) * kTileW * cell_stride);
+  const float y0 = static_cast<float>(ti * kTileH * cell_stride);
+  const float y1 = static_cast<float>((ti + 1) * kTileH * cell_stride);
+  const float* box = bboxes + k * 4;
+  float acc_v = 0.f, acc_d = 0.f;
+  if (box[1] >= x0 && box[0] < x1 && box[3] >= y0 && box[2] < y1) {
+    vote_slot(samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
+              WindowBox{x0, x1, y0, y1}, static_cast<float>(row * cell_stride),
+              static_cast<float>(col * cell_stride), in_grid, acc_v, acc_d);
+  }
+  if (in_grid) {
+    const size_t out = (static_cast<size_t>(k) * grid_h + row) * grid_w + col;
+    votes[out] = acc_v;
+    dsum[out] = acc_d;
+  }
+}
 
 // grid (n_tiles * kTile / kThreads, K); block kThreads. Cell idx is flat
 // row-major over (grid_h, grid_w) at pixel stride cell_stride.
@@ -167,6 +213,18 @@ window_vote_kernel(const float* __restrict__ samples, const int* __restrict__ or
 }  // namespace
 
 extern "C" {
+
+// votes, dsum: (K, grid_h, grid_w) fp32.
+int hough_tile_votes(const float* samples, const float* bboxes, float* votes, float* dsum,
+                     int num_slots, int num_samples, int cell_stride, int grid_h, int grid_w,
+                     void* stream) {
+  if (num_slots == 0 || grid_h == 0 || grid_w == 0) return 0;
+  const int n_tiles = ((grid_h + kTileH - 1) / kTileH) * ((grid_w + kTileW - 1) / kTileW);
+  const dim3 grid(n_tiles * (kTile / kThreads), num_slots);
+  tile_vote_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // votes, dsum: (K, grid_h * grid_w) fp32.
 int hough_flat_votes(const float* samples, const float* bboxes, float* votes, float* dsum,

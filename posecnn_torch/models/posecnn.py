@@ -8,7 +8,8 @@ COLOR-input eval forward the server runs:
              score, sum, 1×1 → C, ×8 up; log-softmax and argmax in fp32
   vertex     the same skip topology with 128 channels, 1×1 → 3C, kept at
              1/8 resolution for Hough (full resolution only on request)
-  hough      ops.hough_voting on the argmax labels (single instance)
+  hough      ops.hough_voting on the argmax labels: single instance, or
+             multi-instance with `vote_threshold > 0`
   pose head  dual-scale RoI pool → fc6 → fc7 → fc8 (fp32) → class mask →
              L2 normalise
 
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from posecnn_torch.models.vgg16 import VGG16Trunk, bilinear_upsample, conv, nchw, nhwc
-from posecnn_torch.ops.hough_voting import HoughOutputs, hough_voting
+from posecnn_torch.ops.hough_voting import BACKENDS, HoughOutputs, hough_voting
 from posecnn_torch.ops.roi_align import roi_pool_fused
 
 
@@ -117,6 +118,23 @@ def init_weights(model: nn.Module, seed: int) -> None:
             nn.init.zeros_(mod.bias)
 
 
+# the JAX package's backend names (`core/config.py` train.hough_backend,
+# `PoseCNN.hough_backend`) → the port's; "auto" is c2f on every device
+_JAX_BACKENDS = {"auto": "c2f", "pallas_c2f": "c2f", "pallas": "exhaustive", "xla": "dense"}
+
+
+def resolve_hough_backend(name: str) -> str:
+    """The port's Hough backend for a name in the port's terms
+    (`ops.hough_voting.BACKENDS`) or the JAX package's
+    (auto|xla|pallas|pallas_c2f). Raises on any other name."""
+    if name in BACKENDS:
+        return name
+    if name in _JAX_BACKENDS:
+        return _JAX_BACKENDS[name]
+    raise ValueError(f"unknown hough backend {name!r}; expected one of "
+                     f"{BACKENDS + tuple(_JAX_BACKENDS)}")
+
+
 def _eval_pose_weight(hough: HoughOutputs, num_classes: int) -> torch.Tensor:
     """Weight mask selecting each RoI's own class quaternion (`posecnn.py:374-382`)."""
     cls = hough.rois[:, 1].long().clamp(0, num_classes - 1)
@@ -128,16 +146,20 @@ class PoseCNN(nn.Module):
     tree, so `core.weights.params_from_jax` maps a checkpoint onto it."""
 
     def __init__(self, num_classes: int, num_units: int = 64, fc_dim: int = 4096, *,
-                 hough_num_samples: int = 256, max_objects: int = 16,
+                 vote_threshold: float = -1.0, vote_percentage: float = 0.02,
+                 skip_pixels: int = 10, hough_num_samples: int = 256, max_objects: int = 16,
+                 hough_cell_stride: int = 1, hough_backend: str = "auto",
                  pose_pool_size: int = 7, norm_features: bool = True,
                  quat_activation: str = "linear",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
-        # single instance, stride-1 cells, coarse-to-fine votes: the
-        # serving configuration (posecnn_tpu/cli/serve.py:70-79)
-        self.hough_kw = dict(num_samples=hough_num_samples, max_objects_per_image=max_objects,
-                             vertex_factor=8)
+        # the defaults are the serving configuration: single instance,
+        # stride-1 cells, coarse-to-fine votes (posecnn_tpu/cli/serve.py:70-79)
+        self.hough_kw = dict(vote_threshold=vote_threshold, vote_percentage=vote_percentage,
+                             skip_pixels=skip_pixels, num_samples=hough_num_samples,
+                             max_objects_per_image=max_objects, cell_stride=hough_cell_stride,
+                             backend=resolve_hough_backend(hough_backend), vertex_factor=8)
         self.pose_pool_size = pose_pool_size
         self.trunk = VGG16Trunk(compute_dtype=compute_dtype)
         self.seg_head = SkipHead(512, num_units, num_classes, relu_scores=True,

@@ -1,14 +1,15 @@
 """Hough vote accumulation: the CUDA kernels, their wrappers, their plain
 PyTorch versions and the coarse-to-fine glue.
 
-Counterpart of `posecnn_tpu/ops/hough_pallas.py`. Two of its three
-Pallas kernels are on the serving path and are ported here, to
-`posecnn_torch/csrc/hough_vote.cu` (its header says what bounds them on
-the card and what the design does about it):
+Counterpart of `posecnn_tpu/ops/hough_pallas.py`. Its three Pallas
+kernels are ported to `posecnn_torch/csrc/hough_vote.cu` (its header
+says what bounds them on the card and what the design does about it):
 
-  hough_votes_flat     → flat_vote_kernel    (was _flat_vote_kernel, :191-330)
-  hough_votes_windows  → window_vote_kernel  (was _window_vote_kernel, :333-415,
-                                              called in hough_votes_c2f_windows)
+  hough_votes_exhaustive → tile_vote_kernel    (was _vote_kernel, :39-188,
+                                                hough_votes_pallas)
+  hough_votes_flat       → flat_vote_kernel    (was _flat_vote_kernel, :191-330)
+  hough_votes_windows    → window_vote_kernel  (was _window_vote_kernel, :333-415,
+                                                called in hough_votes_c2f_windows)
 
 Each wrapper launches its kernel for a CUDA tensor and counts the launch
 in `LAUNCHES`; a failed build or launch raises. Only a tensor on the CPU
@@ -17,13 +18,11 @@ takes the plain version (`*_plain`), which is also what the tests and
 sample by sample with the kernels' arithmetic and skip tests, so the
 three (Pallas, CUDA, plain) agree bit for bit, ties included.
 
-The glue — top-`top_t` coarse cells, window-origin clamp, final argmax
+The glue — the top-`top_t` coarse cells or, for multi-instance, their
+greedy pick-and-suppress, the window-origin clamp and the final argmax
 (`hough_votes_c2f_windows`, `hough_votes_c2f`) — is plain tensor code on
 whatever device the samples are on. Hough is zero-gradient by contract
 (`posecnn_tpu/ops/hough_voting.py:1045`): nothing here has a backward.
-
-Still to port: the exhaustive `_vote_kernel` (`hough_votes_pallas`) and
-the multi-instance greedy candidate pick.
 """
 
 from __future__ import annotations
@@ -32,14 +31,15 @@ import torch
 
 from posecnn_torch.ops import _cuda
 
-TILE = 1024  # cells in one Pallas (8, 128) tile, and in one window
+TILE_H, TILE_W = 8, 128  # a Pallas tile of the exhaustive vote
+TILE = TILE_H * TILE_W  # cells in one Pallas tile, and in one window
 WINDOW = 32  # refine-window side (WINDOW² == TILE)
 TOP_T = 4  # refine windows per slot (hough_pallas.hough_votes_c2f default)
 COARSE = 4  # coarse-pass cell stride, in fine cells
 
 # kernel launches since the last reset, by kernel; chip_smoke.py reads
-# them to show that the serving path went through the kernels
-LAUNCHES = {"flat": 0, "window": 0}
+# them to show that each path went through its kernels
+LAUNCHES = {"tile": 0, "flat": 0, "window": 0}
 
 
 def votes_at(samples, cell_y, cell_x, in_grid, hit, group):
@@ -74,28 +74,57 @@ def votes_at(samples, cell_y, cell_x, in_grid, hit, group):
     return acc_v, acc_d
 
 
-def hough_votes_flat_plain(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
-    """Plain version of `hough_votes_flat`, with the Pallas tile skips."""
+def tile_cells(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
+    """The cells and skips of the exhaustive vote (`_vote_kernel`).
+
+    Returns (cy, cx, in_grid, group, hit): (1, N) pixel coordinates of the
+    grid's cells, row-major; (1, N) bool, all True; (N,) the Pallas
+    (TILE_H, TILE_W) tile of each cell; (K, S, n_tiles) whether the tile
+    overlaps the slot's vote box and sample j's ±thr box reaches it
+    (`hough_pallas.py:76-81, 97-103`)."""
     dev = samples.device
-    n_cells = grid_h * grid_w
-    n_tiles = -(-n_cells // TILE)
+    tiles_x = -(-grid_w // TILE_W)
+    tiles = torch.arange(-(-grid_h // TILE_H) * tiles_x, device=dev)
+    ti, tj = tiles // tiles_x, tiles % tiles_x
+    x0, x1 = (tj * TILE_W * cell_stride).float(), ((tj + 1) * TILE_W * cell_stride).float()
+    y0, y1 = (ti * TILE_H * cell_stride).float(), ((ti + 1) * TILE_H * cell_stride).float()
+    overlap = ((bboxes[:, 1, None] >= x0) & (bboxes[:, 0, None] < x1)
+               & (bboxes[:, 3, None] >= y0) & (bboxes[:, 2, None] < y1))  # (K, n_tiles)
+    x, y = samples[:, 0, :, None], samples[:, 1, :, None]
+    thr, w = samples[:, 6, :, None], samples[:, 7, :, None]
+    hit = (overlap[:, None] & (x + thr >= x0) & (x - thr < x1) & (y + thr >= y0)
+           & (y - thr < y1) & (w > 0.0))
+    row = torch.arange(grid_h, device=dev).repeat_interleave(grid_w)
+    col = torch.arange(grid_w, device=dev).repeat(grid_h)
+    group = (row // TILE_H) * tiles_x + col // TILE_W
+    in_grid = torch.ones((1, row.numel()), dtype=torch.bool, device=dev)
+    return ((row * cell_stride).float()[None], (col * cell_stride).float()[None], in_grid,
+            group, hit)
+
+
+def flat_cells(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
+    """The cells and skips of the flat vote (`_flat_vote_kernel`), the
+    same fields as `tile_cells`: N covers whole 1024-cell tiles, so
+    in_grid is False past the grid's last cell."""
+    dev = samples.device
+    n_tiles = -(-(grid_h * grid_w) // TILE)
     idx = torch.arange(n_tiles * TILE, device=dev)
     fy = idx // grid_w
-    cy = (fy.float() * cell_stride)[None]
-    cx = ((idx - fy * grid_w).float() * cell_stride)[None]
     base = torch.arange(n_tiles, device=dev) * TILE
     tile_y0 = ((base // grid_w) * cell_stride).float()
     tile_y1 = (((base + TILE - 1) // grid_w) * cell_stride).float()
     y, thr, w = samples[:, 1, :, None], samples[:, 6, :, None], samples[:, 7, :, None]
     overlap = (bboxes[:, 3, None] >= tile_y0) & (bboxes[:, 2, None] <= tile_y1)  # (K, T)
     hit = overlap[:, None] & (y + thr >= tile_y0) & (y - thr <= tile_y1) & (w > 0.0)
-    votes, dsum = votes_at(samples, cy, cx, (fy < grid_h)[None], hit, idx // TILE)
-    return votes[:, :n_cells], dsum[:, :n_cells]
+    return ((fy.float() * cell_stride)[None], ((idx - fy * grid_w).float() * cell_stride)[None],
+            (fy < grid_h)[None], idx // TILE, hit)
 
 
-def hough_votes_windows_plain(samples, origins, *, cell_stride: int, grid_h: int,
-                              grid_w: int):
-    """Plain version of `hough_votes_windows`, with the Pallas window skips."""
+def window_cells(samples, origins, *, cell_stride: int, grid_h: int, grid_w: int):
+    """The cells and skips of the window vote (`_window_vote_kernel`):
+    (rows, cy, cx, in_grid, group, hit) with rows the (K·T, 8, S) samples
+    each window votes with, cy, cx, in_grid (K·T, WINDOW²), group all 0
+    and hit (K·T, S, 1)."""
     dev = samples.device
     top_t = _windows_per_slot(samples, origins)
     rows = samples.repeat_interleave(top_t, dim=0)  # window p votes with slot p // top_t
@@ -110,10 +139,38 @@ def hough_votes_windows_plain(samples, origins, *, cell_stride: int, grid_h: int
     hit = (
         enable & (x + thr >= x0) & (x - thr < x1) & (y + thr >= y0) & (y - thr < y1) & (w > 0.0)
     )
-    return votes_at(
-        rows, fy.float() * cell_stride, fx.float() * cell_stride,
-        (fy < grid_h) & (fx < grid_w), hit[:, :, None], torch.zeros_like(widx),
+    return (rows, fy.float() * cell_stride, fx.float() * cell_stride,
+            (fy < grid_h) & (fx < grid_w), torch.zeros_like(widx), hit[:, :, None])
+
+
+def hough_votes_exhaustive_plain(samples, bboxes, *, cell_stride: int, grid_h: int,
+                                 grid_w: int):
+    """Plain version of `hough_votes_exhaustive`, with the Pallas tile skips."""
+    cy, cx, in_grid, group, hit = tile_cells(
+        samples, bboxes, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w
     )
+    votes, dsum = votes_at(samples, cy, cx, in_grid, hit, group)
+    k = samples.shape[0]
+    return votes.reshape(k, grid_h, grid_w), dsum.reshape(k, grid_h, grid_w)
+
+
+def hough_votes_flat_plain(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
+    """Plain version of `hough_votes_flat`, with the Pallas tile skips."""
+    cy, cx, in_grid, group, hit = flat_cells(
+        samples, bboxes, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w
+    )
+    votes, dsum = votes_at(samples, cy, cx, in_grid, hit, group)
+    n_cells = grid_h * grid_w
+    return votes[:, :n_cells], dsum[:, :n_cells]
+
+
+def hough_votes_windows_plain(samples, origins, *, cell_stride: int, grid_h: int,
+                              grid_w: int):
+    """Plain version of `hough_votes_windows`, with the Pallas window skips."""
+    rows, cy, cx, in_grid, group, hit = window_cells(
+        samples, origins, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w
+    )
+    return votes_at(rows, cy, cx, in_grid, hit, group)
 
 
 def _windows_per_slot(samples, origins) -> int:
@@ -131,6 +188,32 @@ def _require(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple) -> No
             f"{name}: need contiguous {dtype} {shape}, got {t.dtype} {tuple(t.shape)} "
             f"(contiguous={t.is_contiguous()})"
         )
+
+
+def hough_votes_exhaustive(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
+    """Exhaustive vote accumulation over the full (grid_h, grid_w) cell
+    grid at pixel stride `cell_stride` (`hough_pallas.hough_votes_pallas`).
+
+    samples: (K, 8, S) fp32; bboxes: (K, 4) fp32 [x_lo, x_hi, y_lo, y_hi].
+    Returns (votes, dsum), each (K, grid_h, grid_w) fp32."""
+    if samples.device.type == "cpu":
+        return hough_votes_exhaustive_plain(
+            samples, bboxes, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w
+        )
+    k, _, s = samples.shape
+    _require(samples, "samples", torch.float32, (k, 8, s))
+    _require(bboxes, "bboxes", torch.float32, (k, 4))
+    votes = torch.empty((k, grid_h, grid_w), dtype=torch.float32, device=samples.device)
+    dsum = torch.empty_like(votes)
+    lib = _cuda.library()
+    with torch.cuda.device(samples.device):
+        status = lib.hough_tile_votes(
+            samples.data_ptr(), bboxes.data_ptr(), votes.data_ptr(), dsum.data_ptr(),
+            k, s, cell_stride, grid_h, grid_w, torch.cuda.current_stream().cuda_stream,
+        )
+    _cuda.check(status, "tile_vote_kernel")
+    LAUNCHES["tile"] += 1
+    return votes, dsum
 
 
 def hough_votes_flat(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
@@ -190,23 +273,45 @@ def hough_votes_windows(samples, origins, *, cell_stride: int, grid_h: int, grid
     return votes, dsum
 
 
-def hough_votes_c2f_windows(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
-    """Coarse pass, then exact re-vote windows around the top coarse cells
-    (single-instance form of `hough_pallas.hough_votes_c2f_windows`, at its
-    defaults top_t = 4 and coarse_factor = 4).
+def hough_votes_c2f_windows(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int,
+                            top_t: int = TOP_T, coarse_factor: int = COARSE,
+                            coarse_local_max: bool = False):
+    """Coarse pass, then exact re-vote windows around `top_t` coarse
+    cells per slot (`hough_pallas.hough_votes_c2f_windows`).
 
-    Returns (votes_w, dsum_w, oy, ox, enable): (K, TOP_T, WINDOW²) fp32
-    window votes and depth sums, (K, TOP_T) long window origins in
-    fine-cell units, and (K, TOP_T) bool, False for dead candidates."""
+    The candidates are the top-`top_t` coarse cells or, with
+    `coarse_local_max` (multi-instance mode), `top_t` rounds of a greedy
+    pick: the slot's first maximum, then every coarse cell within
+    WINDOW / (2·coarse_factor) of it set to 0 (`hough_pallas.py:494-510`).
+
+    Returns (votes_w, dsum_w, oy, ox, enable): (K, top_t, WINDOW²) fp32
+    window votes and depth sums, (K, top_t) long window origins in
+    fine-cell units, and (K, top_t) bool, False for dead candidates."""
     k = samples.shape[0]
-    f, top_t = COARSE, TOP_T
+    f = coarse_factor
     ch, cw = -(-grid_h // f), -(-grid_w // f)
     votes_c, _ = hough_votes_flat(samples, bboxes, cell_stride=cell_stride * f,
                                   grid_h=ch, grid_w=cw)
-    # jax.lax.top_k puts the lower index first on ties; a stable
-    # descending sort does too (empty slots tie everywhere at 0)
-    top_v, top_i = torch.sort(votes_c, dim=1, descending=True, stable=True)
-    top_v, top_i = top_v[:, :top_t], top_i[:, :top_t]
+    if coarse_local_max:
+        r = WINDOW // (2 * f)
+        cy = torch.arange(ch, device=samples.device)[None, :, None]
+        cx = torch.arange(cw, device=samples.device)[None, None, :]
+        avail = votes_c.reshape(k, ch, cw)
+        picks_v, picks_i = [], []
+        for _ in range(top_t):
+            flat = avail.reshape(k, ch * cw)
+            i = torch.argmax(flat, dim=1)  # first maximum, as jnp.argmax
+            picks_v.append(flat.gather(1, i[:, None])[:, 0])
+            picks_i.append(i)
+            py, px = (i // cw)[:, None, None], (i % cw)[:, None, None]
+            supp = ((cy - py).abs() <= r) & ((cx - px).abs() <= r)
+            avail = torch.where(supp, 0.0, avail)
+        top_v, top_i = torch.stack(picks_v, 1), torch.stack(picks_i, 1)
+    else:
+        # jax.lax.top_k puts the lower index first on ties; a stable
+        # descending sort does too (empty slots tie everywhere at 0)
+        top_v, top_i = torch.sort(votes_c, dim=1, descending=True, stable=True)
+        top_v, top_i = top_v[:, :top_t], top_i[:, :top_t]
     oy = ((top_i // cw) * f + f // 2 - WINDOW // 2).clamp(0, max(grid_h - WINDOW, 0))
     ox = ((top_i % cw) * f + f // 2 - WINDOW // 2).clamp(0, max(grid_w - WINDOW, 0))
     enable = top_v > 0

@@ -1,22 +1,32 @@
 """Center-direction Hough voting for 3D translation + RoI emission.
 
-Counterpart of `posecnn_tpu/ops/hough_voting.py`, for the serving path:
-single-instance mode (`vote_threshold <= 0`) in eval (no training
+Counterpart of `posecnn_tpu/ops/hough_voting.py` in eval (no training
 jitters or GT matching). Per image, `_prepare_slots` picks up to
 `max_classes` present classes and packs `num_samples` evenly strided
 pixels of each into (K, 8, S) samples; the votes run batched over all
-(B·K) slots; `_maxima_tail` sizes the box at each slot's maximum; RoIs
-and initial poses are emitted into fixed (B·max_objects) buffers with a
-validity mask.
+(B·K) slots; the maxima are picked; `_maxima_tail` sizes the box at
+each maximum; RoIs and initial poses are emitted into fixed
+(B·max_objects) buffers with a validity mask.
 
-Backends: "c2f" (default) is the coarse-to-fine vote of
-`ops/hough_kernels.py`, whose two kernels are CUDA on the card;
-"dense" is the exhaustive masked reduction of the JAX "xla" backend
-(`hough_voting.py:480-527`), plain tensor code, kept as the exact
-reference the c2f path is checked against.
+Two modes, as in the original:
+- single instance (`vote_threshold <= 0`): each class slot's vote
+  maximum is one candidate;
+- multi-instance (`vote_threshold > 0`): every 7×7 local maximum above
+  the threshold is a candidate (`:393-478`, `:531-559`), the top
+  `max_objects_per_image` of them by votes are kept, and the
+  vote-percentage filter drops sparse ones (`:611-614`).
 
-Still to port: multi-instance mode (`:393-478`, `:531-559`), training
-emission with GT matching (`:952-1025`) and `append_gt_rois`.
+Backends (JAX name in brackets):
+- "c2f" [pallas_c2f], the default: the coarse-to-fine vote of
+  `ops/hough_kernels.py`, whose two kernels are CUDA on the card;
+  multi-instance maxima are found inside its refine windows;
+- "exhaustive" [pallas]: the exhaustive vote kernel over the whole grid,
+  the exact oracle the c2f path is held to;
+- "dense" [xla]: the exhaustive masked reduction of `:480-527`, plain
+  tensor code in chunks of 8 samples.
+
+Still to port: training emission with GT matching (`:952-1025`) and
+`append_gt_rois`.
 """
 
 from __future__ import annotations
@@ -26,9 +36,15 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from posecnn_torch.ops.hough_kernels import hough_votes_c2f
+from posecnn_torch.ops.hough_kernels import (
+    WINDOW,
+    hough_votes_c2f,
+    hough_votes_c2f_windows,
+    hough_votes_exhaustive,
+)
 
 VERTEX_CHANNELS = 3
+BACKENDS = ("c2f", "exhaustive", "dense")
 
 
 class HoughOutputs(NamedTuple):
@@ -222,11 +238,86 @@ def _dense_votes(prep, *, cell_stride, grid_h, grid_w, inlier_threshold, sample_
     return votes, dsum
 
 
+def _top_k(values, m):
+    """`jax.lax.top_k` of a 1-D tensor: ties go to the lower index."""
+    v, i = torch.sort(values, descending=True, stable=True)
+    return v[:m], i[:m]
+
+
+def _grid_maxima(votes, dsum, samp_w, *, grid_h, grid_w, m, vote_threshold):
+    """Multi-instance candidates of one image's full vote grid
+    (`hough_voting.py:531-559`): 7×7 local maxima above the threshold,
+    ties broken by a per-cell jitter below one vote quantum, then the
+    top `m` by votes over all slots. votes, dsum: (K, n_cells).
+    Returns (cand_slot, cand_cell, cand_votes, cand_dist, cand_valid)."""
+    k, n_cells = votes.shape
+    tie = torch.arange(n_cells, dtype=torch.float32, device=votes.device)[None] * (
+        samp_w[:, None] * 1e-6
+    )
+    vgrid = (votes + tie).reshape(k, 1, grid_h, grid_w)
+    # reduce_window(-inf, max, 7×7, SAME): max_pool2d pads with -inf
+    local_max = F.max_pool2d(vgrid, 7, stride=1, padding=3)
+    is_max = (vgrid >= local_max).reshape(k, n_cells) & (votes > vote_threshold)
+    top_v, top_i = _top_k(torch.where(is_max, votes, 0.0).reshape(-1), m)
+    slot, cell = top_i // n_cells, top_i % n_cells
+    dist = dsum[slot, cell] / torch.clamp(votes[slot, cell], min=1e-10)
+    return slot, cell, top_v, dist, top_v > 0
+
+
+def _window_maxima(votes_w, dsum_w, w_oy, w_ox, w_en, samp_w, *, grid_h, grid_w, m,
+                   vote_threshold):
+    """Multi-instance candidates of one image inside its c2f refine
+    windows (`hough_voting.py:393-478`). votes_w, dsum_w: (K, T, WINDOW²);
+    w_oy, w_ox, w_en: (K, T). A cell is a maximum only where its whole
+    in-grid 7×7 neighbourhood lies in the window, and a cell that several
+    windows can decide counts in the first of them only (containment is
+    not enough: `:441-448`). Returns (cand_slot, cand_fy, cand_fx,
+    cand_votes, cand_dist, cand_valid); cand_fy/fx in fine cells."""
+    k, t_w, n_win = votes_w.shape
+    widx = torch.arange(n_win, device=votes_w.device)
+    fy = w_oy[:, :, None] + widx // WINDOW  # (K, T, n_win) fine rows
+    fx = w_ox[:, :, None] + widx % WINDOW
+    in_grid = (fy < grid_h) & (fx < grid_w)
+    gidx = (fy * grid_w + fx).float()
+    vj = votes_w + gidx * (samp_w[:, None, None] * 1e-6)
+    vj = torch.where(in_grid, vj, -torch.inf)
+    lmax = F.max_pool2d(vj.reshape(k * t_w, 1, WINDOW, WINDOW), 7, stride=1, padding=3)
+    lmax = lmax.reshape(k, t_w, n_win)
+
+    def decides(oy, ox, cy, cx):
+        return (
+            ((cy - 3).clamp(min=0) >= oy)
+            & ((cy + 3).clamp(max=grid_h - 1) <= oy + WINDOW - 1)
+            & ((cx - 3).clamp(min=0) >= ox)
+            & ((cx + 3).clamp(max=grid_w - 1) <= ox + WINDOW - 1)
+        )
+
+    is_max = (
+        (vj >= lmax)
+        & (votes_w > vote_threshold)
+        & decides(w_oy[:, :, None], w_ox[:, :, None], fy, fx)
+        & in_grid
+        & w_en[:, :, None]
+    )
+    # decided_by[k, t, t', i]: window t' decides cell i of window t
+    decided_by = decides(w_oy[:, None, :, None], w_ox[:, None, :, None], fy[:, :, None],
+                         fx[:, :, None])
+    t_iota = torch.arange(t_w, device=votes_w.device)
+    earlier = (t_iota[:, None] > t_iota[None, :])[None, :, :, None]
+    dup = (decided_by & earlier & w_en[:, None, :, None]).any(dim=2)
+    is_max = is_max & ~dup
+    top_v, top_i = _top_k(torch.where(is_max, votes_w, 0.0).reshape(-1), m)
+    dist = dsum_w.reshape(-1)[top_i] / torch.clamp(top_v, min=1e-10)
+    return (top_i // (t_w * n_win), fy.reshape(-1)[top_i], fx.reshape(-1)[top_i], top_v, dist,
+            top_v > 0)
+
+
 def _maxima_tail(prep, extents, fx, fy, px, py, cand_slot, cand_cls, cand_x, cand_y,
-                 cand_votes, cand_dist, cand_valid, *, inlier_threshold=0.9):
-    """Box extent at each maximum, from the inlier samples of its slot
-    (`hough_voting.py:584-625`, single-instance: no vote-percentage test).
-    Returns (bb_width, bb_height, cand_valid)."""
+                 cand_votes, cand_dist, cand_valid, vote_threshold, vote_percentage, *,
+                 inlier_threshold=0.9):
+    """Box extent at each maximum, from the inlier samples of its slot,
+    then in multi-instance mode the vote-percentage filter
+    (`hough_voting.py:584-625`). Returns (bb_width, bb_height, cand_valid)."""
     mx = prep["samp_x"][cand_slot]  # (M, S)
     my = prep["samp_y"][cand_slot]
     mu = prep["samp_u"][cand_slot]
@@ -243,7 +334,11 @@ def _maxima_tail(prep, extents, fx, fy, px, py, cand_slot, cand_cls, cand_x, can
     inl = (cos > inlier_threshold) & (dx.abs() < mthresh) & (dy.abs() < mthresh) & mok
     bb_width = 2.0 * torch.where(inl, dx.abs(), -1.0).amax(1)
     bb_height = 2.0 * torch.where(inl, dy.abs(), -1.0).amax(1)
-    return bb_width, bb_height, cand_valid & (bb_width > 0) & (bb_height > 0)
+    cand_valid = cand_valid & (bb_width > 0) & (bb_height > 0)
+    if vote_threshold > 0:
+        frac = cand_votes / torch.clamp(bb_width * bb_height, min=1e-10)
+        cand_valid = cand_valid & (frac >= vote_percentage)
+    return bb_width, bb_height, cand_valid
 
 
 def hough_voting(
@@ -254,6 +349,8 @@ def hough_voting(
     *,
     inlier_threshold: float = 0.9,
     label_threshold: int = 500,
+    vote_threshold: float = -1.0,
+    vote_percentage: float = 0.02,
     skip_pixels: int = 10,
     num_samples: int = 256,
     max_classes: int = 8,
@@ -262,19 +359,21 @@ def hough_voting(
     backend: str = "c2f",
     vertex_factor: int = 1,
 ) -> HoughOutputs:
-    """Batched single-instance Hough voting, eval emission
-    (`hough_voting.hough_voting` with is_train=False, vote_threshold <= 0;
-    multi-instance mode is not ported).
+    """Batched Hough voting, eval emission (`hough_voting.hough_voting`
+    with is_train=False).
 
     label: (B, H, W) int; vertex_pred: (B, H/f, W/f, 3C) with
     f = vertex_factor; extents: (C, 3); meta_data: (B, 48) with the
-    intrinsics at [0:9]. Returns HoughOutputs with R = B·max_objects rows.
+    intrinsics at [0:9]. `vote_threshold > 0` selects multi-instance
+    mode; `backend` is one of BACKENDS. Returns HoughOutputs with
+    R = B·max_objects rows.
     """
-    if backend not in ("c2f", "dense"):
-        raise ValueError(f"unknown hough backend {backend!r}")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown hough backend {backend!r}; expected one of {BACKENDS}")
     b, height, width = label.shape
     num_classes = extents.shape[0]
     m = max_objects_per_image
+    multi = vote_threshold > 0
     if vertex_pred.shape[1] * vertex_factor != height or (
         vertex_pred.shape[2] * vertex_factor != width
     ):
@@ -284,6 +383,7 @@ def hough_voting(
         )
     vertex_f32 = vertex_pred.float().contiguous()
     hc, wc = height // cell_stride, width // cell_stride
+    grid = dict(cell_stride=cell_stride, grid_h=hc, grid_w=wc)
     preps = [
         _prepare_slots(
             label[i], vertex_f32[i], extents, meta_data[i],
@@ -294,54 +394,79 @@ def hough_voting(
         for i in range(b)
     ]
     k = preps[0]["packed"].shape[0]
+    packed = torch.cat([p["packed"] for p in preps])
+    bboxes = torch.cat([p["bboxes"] for p in preps])
 
-    if backend == "c2f":
-        best_v, best_d, best_cy, best_cx = hough_votes_c2f(
-            torch.cat([p["packed"] for p in preps]),
-            torch.cat([p["bboxes"] for p in preps]),
-            cell_stride=cell_stride, grid_h=hc, grid_w=wc,
-        )
-        slot_x = (best_cx * cell_stride).float().reshape(b, k)
-        slot_y = (best_cy * cell_stride).float().reshape(b, k)
-        slot_votes = best_v.reshape(b, k)
-        slot_dist = (best_d / torch.clamp(best_v, min=1e-10)).reshape(b, k)
-        dist_fill = [0.0] * b
-    else:
-        xs, ys, vs, ds, dist_fill = [], [], [], [], []
-        for p in preps:
-            votes, dsum = _dense_votes(
-                p, cell_stride=cell_stride, grid_h=hc, grid_w=wc,
-                inlier_threshold=inlier_threshold,
+    def cell_xy(cell):
+        return ((cell % wc) * cell_stride).float(), ((cell // wc) * cell_stride).float()
+
+    def padded(a, fill=0.0):
+        """K per-slot values → M candidate rows (single-instance mode)."""
+        return F.pad(a, (0, max(m - k, 0)), value=float(fill))[:m]
+
+    # per image: (cand_slot, cand_x, cand_y, cand_votes, cand_dist, cand_valid), M rows each
+    cands = []
+    if backend == "c2f" and multi:
+        # the per-class window budget scales with the caller's object
+        # budget, as in the original (hough_voting.py:792-806)
+        win = hough_votes_c2f_windows(packed, bboxes, **grid, top_t=max(16, 2 * m),
+                                      coarse_local_max=True)
+        for i, p in enumerate(preps):
+            slot, fy, fx, v, dist, ok = _window_maxima(
+                *(a[i * k:(i + 1) * k] for a in win), p["samp_w"], grid_h=hc, grid_w=wc, m=m,
+                vote_threshold=vote_threshold,
             )
+            cands.append((slot, (fx * cell_stride).float(), (fy * cell_stride).float(), v,
+                          dist, ok))
+    elif backend == "c2f":
+        best_v, best_d, best_cy, best_cx = hough_votes_c2f(packed, bboxes, **grid)
+        slot_dist = best_d / torch.clamp(best_v, min=1e-10)
+        for i, p in enumerate(preps):
+            sl = slice(i * k, (i + 1) * k)
+            cands.append((
+                padded(torch.arange(k, device=label.device)),
+                padded((best_cx[sl] * cell_stride).float()),
+                padded((best_cy[sl] * cell_stride).float()),
+                padded(best_v[sl]), padded(slot_dist[sl]),
+                padded(p["slot_valid"] & (best_v[sl] > 0)),
+            ))
+    else:
+        if backend == "exhaustive":
+            votes_all, dsum_all = hough_votes_exhaustive(packed, bboxes, **grid)
+            grids = [(votes_all[i * k:(i + 1) * k].reshape(k, hc * wc),
+                      dsum_all[i * k:(i + 1) * k].reshape(k, hc * wc)) for i in range(b)]
+        else:
+            grids = [_dense_votes(p, **grid, inlier_threshold=inlier_threshold) for p in preps]
+        for p, (votes, dsum) in zip(preps, grids):
+            if multi:
+                slot, cell, v, dist, ok = _grid_maxima(
+                    votes, dsum, p["samp_w"], grid_h=hc, grid_w=wc, m=m,
+                    vote_threshold=vote_threshold,
+                )
+                cands.append((slot, *cell_xy(cell), v, dist, ok))
+                continue
+            # single instance: each slot's first maximum; padding rows
+            # read (slot 0, cell 0), as the original's do
             cell = torch.argmax(votes, dim=1, keepdim=True)
             v = votes.gather(1, cell)[:, 0]
-            xs.append(((cell[:, 0] % wc) * cell_stride).float())
-            ys.append(((cell[:, 0] // wc) * cell_stride).float())
-            vs.append(v)
             distance = dsum / torch.clamp(votes, min=1e-10)
-            ds.append(distance.gather(1, cell)[:, 0])
-            # the JAX dense path reads padding rows at (slot 0, cell 0)
-            dist_fill.append(distance[0, 0] if k else 0.0)
-        slot_x, slot_y, slot_votes, slot_dist = (torch.stack(a) for a in (xs, ys, vs, ds))
+            x, y = cell_xy(cell[:, 0])
+            cands.append((
+                padded(torch.arange(k, device=label.device)), padded(x), padded(y), padded(v),
+                padded(distance.gather(1, cell)[:, 0], distance[0, 0] if k else 0.0),
+                padded(p["slot_valid"] & (v > 0)),
+            ))
 
-    # per image: pad the K slot maxima to M candidates, size their boxes
+    # per image: size the candidates' boxes
     rows = []
-    for i, p in enumerate(preps):
-        pad = max(m - k, 0)
-
-        def padded(a, fill=0.0):
-            return F.pad(a, (0, pad), value=float(fill))[:m]
-
-        cand_slot = padded(torch.arange(k, device=label.device))
+    for p, (cand_slot, cand_x, cand_y, cand_votes, cand_dist, cand_valid), meta in zip(
+        preps, cands, meta_data
+    ):
         cand_cls = p["slot_cls"][cand_slot]
-        cand_x, cand_y = padded(slot_x[i]), padded(slot_y[i])
-        cand_votes, cand_dist = padded(slot_votes[i]), padded(slot_dist[i], dist_fill[i])
-        cand_valid = padded(p["slot_valid"] & (slot_votes[i] > 0))
-        meta = meta_data[i]
         bb_w, bb_h, cand_valid = _maxima_tail(
             p, extents, meta[0], meta[4], meta[2], meta[5], cand_slot, cand_cls,
-            cand_x, cand_y, cand_votes, cand_dist, cand_valid,
-            inlier_threshold=inlier_threshold,
+            cand_x, cand_y, cand_votes, cand_dist, cand_valid, vote_threshold,
+            vote_percentage, inlier_threshold=inlier_threshold,
         )
         rows.append((cand_cls, cand_x, cand_y, cand_votes, cand_dist, bb_w, bb_h, cand_valid))
     cand_cls, cand_x, cand_y, cand_votes, cand_dist, bb_width, bb_height, cand_valid = (

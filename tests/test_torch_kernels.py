@@ -39,14 +39,14 @@ def packed(name, device="cpu", noise=0.05):
     return prep["packed"], prep["bboxes"]
 
 
-def run_hough(name, backend, device="cpu", noise=0.05):
+def run_hough(name, backend, device="cpu", noise=0.05, **kw):
     label, low = planted_scene(H, W, C, SCENES[name], noise=noise)
     _, meta = intrinsics(H, W, f=150.0)
     return hough_voting(
         torch.from_numpy(label[None]).to(device), torch.from_numpy(low[None]).to(device),
         torch.from_numpy(planted_extents(C)).to(device), torch.from_numpy(meta[None]).to(device),
         label_threshold=100, num_samples=S, max_classes=4, max_objects_per_image=6,
-        vertex_factor=8, backend=backend,
+        vertex_factor=8, backend=backend, **kw,
     )
 
 
@@ -62,6 +62,17 @@ def test_plain_c2f_finds_the_exhaustive_maximum(name):
     v = c2f.valid
     torch.testing.assert_close(c2f.rois[v], dense.rois[v], rtol=1e-5, atol=1e-4)
     torch.testing.assert_close(c2f.poses_init[v], dense.poses_init[v], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["two", "edge_three"])
+def test_plain_c2f_equals_plain_exhaustive(name):
+    """The c2f path equals the exhaustive kernel's path row for row: the
+    same sample-order sums at the picked cell."""
+    c2f, exh = run_hough(name, "c2f"), run_hough(name, "exhaustive")
+    assert torch.equal(c2f.valid, exh.valid)
+    v = c2f.valid
+    torch.testing.assert_close(c2f.rois[v], exh.rois[v], rtol=0, atol=1e-5)
+    torch.testing.assert_close(c2f.poses_init[v], exh.poses_init[v], rtol=0, atol=1e-5)
 
 
 def test_planted_centres_are_recovered():
@@ -119,6 +130,22 @@ def test_flat_kernel_matches_plain(cuda, name, stride):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("name", ["two", "edge_three", "empty"])
+def test_tile_kernel_matches_plain(cuda, name, stride):
+    samples, bboxes = packed(name, cuda)
+    kw = dict(cell_stride=stride, grid_h=H // stride, grid_w=W // stride)
+    n0 = hk.LAUNCHES["tile"]
+    kv, kd = hk.hough_votes_exhaustive(samples, bboxes, **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["tile"] == n0 + 1
+    assert kv.shape == (samples.shape[0], H // stride, W // stride)
+    pv, pd = hk.hough_votes_exhaustive_plain(samples, bboxes, **kw)
+    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=0)
+    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["two", "edge_three", "empty"])
 def test_window_kernel_and_c2f_match_plain(cuda, name):
     samples, bboxes = packed(name, cuda)
@@ -138,6 +165,29 @@ def test_hough_voting_on_card_matches_cpu(cuda):
     got, want = run_hough("edge_three", "c2f", cuda), run_hough("edge_three", "c2f")
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["exhaustive", "c2f", "dense"])
+def test_multi_instance_hough_on_card_matches_cpu(cuda, backend):
+    kw = dict(vote_threshold=2.0, vote_percentage=1e-4)
+    got = run_hough("edge_three", backend, cuda, **kw)
+    want = run_hough("edge_three", backend, **kw)
+    assert int(want.valid.sum()) >= len(SCENES["edge_three"])
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tile_kernel_refuses_bad_inputs(cuda):
+    samples, bboxes = packed("two", cuda)
+    kw = dict(cell_stride=1, grid_h=H, grid_w=W)
+    with pytest.raises(ValueError):
+        hk.hough_votes_exhaustive(samples.double(), bboxes, **kw)
+    with pytest.raises(ValueError):
+        hk.hough_votes_exhaustive(samples, bboxes.cpu(), **kw)
+    with pytest.raises(ValueError):
+        hk.hough_votes_exhaustive(samples[:, :, ::2], bboxes, **kw)
 
 
 @pytest.mark.cuda
