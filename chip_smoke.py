@@ -7,12 +7,18 @@ Run from the root of the repository on a machine with a CUDA card and
 nvcc. It drives the port's serving path and stops at the first phase
 that fails, with a non-zero exit:
 
-  1. the card's name and power limit; build the CUDA vote kernels;
-  2. each kernel against its plain PyTorch version at the serve shapes,
-     on samples packed from a planted 480×640 scene (K = 8 slots,
-     S = 1024 samples), with the kernel's and the plain version's times
-     and the kernel's bound; the exhaustive kernel's time beside the
-     coarse-to-fine pair's on the same samples;
+  1. the card's name and power limit; build the CUDA vote kernels and
+     print `ptxas -v`'s registers, shared memory and spills per kernel;
+  2. each kernel against its plain PyTorch version, bit for bit, at the
+     serve shapes, on samples packed from a planted 480×640 scene
+     (K = 8 slots, S = 1024 samples), and the coarse-to-fine pair at
+     the edge cases of `vote_edge_case`; each kernel's time from a CUDA
+     graph of n launches replayed between two CUDA events (`ms`: no
+     host work between the launches), the time per call of a Python
+     loop of wrapper calls (`call_ms`: what the serving path pays), the
+     plain version's time and the kernel's bound, with torch.profiler's
+     per-kernel device time as a cross-check; the exhaustive kernel's
+     time beside the coarse-to-fine pair's on the same samples;
   3. the planted scene through `hough_voting` on the card: the planted
      centres and depths are recovered;
   4. the whole model, small and in fp32, on the card against the CPU;
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import base64
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -114,13 +121,147 @@ def packed_planted(device):
     return prep["packed"], prep["bboxes"], prep["samp_w"]
 
 
-def rel_err(got, want):
-    """max |got - want| and whether every element is within 1e-5 of want, relatively."""
+# the kernels by their names in the source, the JSON line and LAUNCHES
+KERNELS = {"tile": "tile_vote_kernel", "flat": "flat_vote_kernel",
+           "window": "window_vote_kernel"}
+EDGE_CASES = ("s1", "s37", "s300", "s1100", "inf_depth", "short", "dead", "multi")
+
+
+def vote_edge_case(name):
+    """Vote inputs at the edges the coarse-to-fine kernels must hold bit
+    for bit, made with numpy from a seed. Returns (samples (K, 8, S)
+    fp32, bboxes (K, 4) fp32, (height, width) of the stride-1 cell grid,
+    c2f window options).
+
+    The coarse grid (stride 4) of a 150×172 grid is 38×43 cells: its
+    second 1024-cell tile is ragged, and its odd width puts row ends at
+    every offset within a block. `s*` have S = 1, 37, 300 and
+    1100 samples. `inf_depth` has a sample at d = inf that is tested in
+    the first coarse tile only (NaN in dsum there, none in the second
+    tile) and one at w = 0 that is never tested; slot 1 votes with one
+    at its centre, so its windows carry NaN. `short` is 20 rows high,
+    so its windows reach past the grid, and its objects sit at the
+    bottom-right, so their windows clamp there; slot 0 votes with one
+    sample at d = inf at its object's centre, which its windows test, so
+    their cells past the grid (weight 0) carry 0·inf = NaN. `dead` has no live
+    sample and no vote box. `multi` picks 32 windows per slot greedily,
+    as multi-instance Hough does."""
+    rng = np.random.RandomState(EDGE_CASES.index(name))
+    k, s = 3, {"s1": 1, "s37": 37, "s300": 300, "s1100": 1100}.get(name, 256)
+    height, width = (20, 172) if name == "short" else (150, 172)
+    if name == "short":
+        cx, cy = rng.uniform(150, 172, (k, 2)), rng.uniform(10, 20, (k, 2))
+    else:
+        cx, cy = rng.uniform(20, width - 20, (k, 2)), rng.uniform(20, height - 20, (k, 2))
+    # one object per slot, or two in `multi`
+    pick = rng.randint(0, 2 if name == "multi" else 1, (k, s))
+    tx, ty = np.take_along_axis(cx, pick, 1), np.take_along_axis(cy, pick, 1)
+    x, y = tx + rng.uniform(-45, 45, (k, s)), ty + rng.uniform(-45, 45, (k, s))
+    dx, dy = tx - x, ty - y
+    n = np.sqrt(dx * dx + dy * dy) + 1e-10
+    u, v = dx / n + rng.randn(k, s) * 0.05, dy / n + rng.randn(k, s) * 0.05
+    d = rng.uniform(0.5, 2.0, (k, s))
+    t2n2 = (0.9 * np.sqrt(u * u + v * v)) ** 2
+    thr = rng.uniform(8.0, 60.0, (k, s))
+    w = rng.uniform(0.5, 1.5, (k, s)) * (rng.uniform(size=(k, s)) > 0.1)
+    if name in ("s37", "s1100"):
+        w[1] = 0.0  # a dead slot among live ones
+    if name == "dead":
+        w[:] = 0.0
+    if name == "inf_depth":
+        # slot 0 spans all rows; sample 0 reaches rows 0-30 px only
+        y[0] = rng.uniform(0, height, s)
+        x[0, 0], y[0, 0], thr[0, 0], w[0, 0], d[0, 0] = 60.0, 10.0, 20.0, 1.0, np.inf
+        x[0, 1], y[0, 1], w[0, 1], d[0, 1] = 80.0, 120.0, 0.0, np.inf
+        x[1, 0], y[1, 0], thr[1, 0], w[1, 0], d[1, 0] = cx[1, 0], cy[1, 0], 60.0, 1.0, np.inf
+    if name == "short":
+        x[0, 0], y[0, 0], thr[0, 0], w[0, 0], d[0, 0] = cx[0, 0], cy[0, 0], 30.0, 1.0, np.inf
+    samples = np.stack([x, y, u, v, d, t2n2, thr, w], 1).astype(np.float32)
+    live = w > 0
+    big = np.float32(3e38)
+    bboxes = np.stack([np.where(live, x - thr, big).min(1), np.where(live, x + thr, -big).max(1),
+                       np.where(live, y - thr, big).min(1), np.where(live, y + thr, -big).max(1)],
+                      1).astype(np.float32)
+    top_t, local_max = (32, True) if name == "multi" else (4, False)
+    return samples, bboxes, (height, width), dict(top_t=top_t, coarse_local_max=local_max)
+
+
+def exact(got, want):
+    """max |got - want| and whether got equals want element for element,
+    NaN where want is NaN (bit for bit but for NaN payloads)."""
     import torch
 
-    diff = (got - want).abs()
-    ok = bool(torch.all(diff <= 1e-5 * want.abs() + 1e-6))
-    return float(diff.max()) if diff.numel() else 0.0, ok
+    got, want = got.cpu().double(), want.cpu().double()
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    if not same.numel():
+        return 0.0, True
+    return float(torch.where(same, 0.0, (got - want).abs()).max()), bool(same.all())
+
+
+def graph_ms(fn, n):
+    """Device milliseconds per call of `fn`: n calls captured in one CUDA
+    graph, replayed once to warm up, then timed over one replay by CUDA
+    events. No host work lies between the launches, so a kernel that is
+    faster than its wrapper's host code is still timed, not the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def profiler_ms(calls, n=20):
+    """torch.profiler's mean device milliseconds per launch of each
+    kernel over n calls of each of `calls` (name -> fn); a kernel the
+    profiler recorded no device time for is missing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls.values():
+            for _ in range(n):
+                fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in calls:
+            if KERNELS[name] in ev.key and total > 0:
+                out[name] = total / ev.count / 1e3
+    return out
+
+
+def ptxas_lines(report):
+    """Per kernel of `nvcc -Xptxas -v`'s report: registers, shared memory
+    bytes and spill bytes (stores + loads)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
+        if m:
+            name = next((k for k in KERNELS.values() if k in m.group(1)), None)
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out.setdefault(name, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.setdefault(name, {}).update(registers=int(m.group(1)),
+                                            smem_bytes=int(smem.group(1)) if smem else 0)
+    return out
 
 
 def vote_bound(cells, in_bytes, out_bytes):
@@ -142,12 +283,20 @@ def vote_bound(cells, in_bytes, out_bytes):
 
 
 def phase_kernels(device):
-    """Kernels against their plain versions at the serve shapes."""
+    """Kernels against their plain versions at the serve shapes and the
+    c2f pair at the edge cases, bit for bit; their times."""
     import torch
 
     from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.ops.hough_voting import _window_maxima
+
+    def check(name, got, want, where="at the serve shapes"):
+        err, ok = exact(got, want)
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version {where}: "
+                                 f"max_abs_err {err}")
+        return err
 
     samples, bboxes, samp_w = packed_planted(device)
     k, _, s = samples.shape
@@ -159,19 +308,13 @@ def phase_kernels(device):
     tv, td = hk.hough_votes_exhaustive(samples, bboxes, **fine)
     qv, qd = hk.hough_votes_exhaustive_plain(samples, bboxes, **fine)
     assert tv.shape == (k, HEIGHT, WIDTH), tv.shape
-    tile_err, ok_v = rel_err(tv, qv)
-    _, ok_d = rel_err(td, qd)
-    if not (ok_v and ok_d):
-        raise AssertionError(f"tile_vote_kernel disagrees with its plain version: {tile_err}")
+    errs = {"tile": max(check("tile_vote_kernel", tv, qv), check("tile_vote_kernel", td, qd))}
 
     kv, kd = hk.hough_votes_flat(samples, bboxes, **coarse)
     pv, pd = hk.hough_votes_flat_plain(samples, bboxes, **coarse)
     assert kv.shape == (k, (HEIGHT // 4) * (WIDTH // 4)), kv.shape
     assert float(pv.max()) > 0, "the planted scene gave no coarse votes"
-    flat_err, ok_v = rel_err(kv, pv)
-    _, ok_d = rel_err(kd, pd)
-    if not (ok_v and ok_d):
-        raise AssertionError(f"flat_vote_kernel disagrees with its plain version: {flat_err}")
+    errs["flat"] = max(check("flat_vote_kernel", kv, pv), check("flat_vote_kernel", kd, pd))
 
     # the window kernel on the origins that the plain coarse votes give
     _, top_i = torch.sort(pv, dim=1, descending=True, stable=True)
@@ -183,35 +326,34 @@ def phase_kernels(device):
     origins = torch.stack([oy, ox, en.long()], -1).reshape(k * hk.TOP_T, 3).int().contiguous()
     wv, wd = hk.hough_votes_windows(samples, origins, **fine)
     qv, qd = hk.hough_votes_windows_plain(samples, origins, **fine)
-    win_err, ok_v = rel_err(wv, qv)
-    _, ok_d = rel_err(wd, qd)
-    if not (ok_v and ok_d):
-        raise AssertionError(f"window_vote_kernel disagrees with its plain version: {win_err}")
+    errs["window"] = max(check("window_vote_kernel", wv, qv), check("window_vote_kernel", wd, qd))
 
-    # the c2f maximum the kernels pick holds the plain maximum's vote
+    # the c2f maximum the kernels pick is the plain one, cell and sums
     best_k = hk.hough_votes_c2f(samples, bboxes, **fine)
     best_p = hk.hough_votes_c2f(samples.cpu(), bboxes.cpu(), **fine)
-    vk, vp = best_k[0].cpu(), best_p[0]
-    if not bool(torch.all((vk - vp).abs() <= 1e-5 * vp.abs())):
-        raise AssertionError(f"c2f maximum {vk.tolist()} vs plain {vp.tolist()}")
-    same_cell = bool(torch.equal(best_k[2].cpu(), best_p[2]) and torch.equal(best_k[3].cpu(), best_p[3]))
+    for got, want in zip(best_k, best_p):
+        check("the c2f maximum", got, want)
 
-    # kernel and plain times; each plain version runs twice in all at
-    # these shapes (the comparison above is its warm-up)
-    times = {
-        "tile": (device_ms(lambda: hk.hough_votes_exhaustive(samples, bboxes, **fine), device,
-                           50),
-                 device_ms(lambda: hk.hough_votes_exhaustive_plain(samples, bboxes, **fine),
-                           device, 1, warm=False)),
-        "flat": (device_ms(lambda: hk.hough_votes_flat(samples, bboxes, **coarse), device, 200),
-                 device_ms(lambda: hk.hough_votes_flat_plain(samples, bboxes, **coarse),
-                           device, 1, warm=False)),
-        "window": (device_ms(lambda: hk.hough_votes_windows(samples, origins, **fine), device,
-                             200),
-                   device_ms(lambda: hk.hough_votes_windows_plain(samples, origins, **fine),
-                             device, 1, warm=False)),
+    # kernel times: from a CUDA graph of n launches (ms) and per call of a
+    # loop of wrapper calls (call_ms); the plain versions run twice in
+    # all at these shapes (the comparison above is their warm-up)
+    calls = {
+        "tile": (lambda: hk.hough_votes_exhaustive(samples, bboxes, **fine), 50,
+                 lambda: hk.hough_votes_exhaustive_plain(samples, bboxes, **fine)),
+        "flat": (lambda: hk.hough_votes_flat(samples, bboxes, **coarse), 200,
+                 lambda: hk.hough_votes_flat_plain(samples, bboxes, **coarse)),
+        "window": (lambda: hk.hough_votes_windows(samples, origins, **fine), 200,
+                   lambda: hk.hough_votes_windows_plain(samples, origins, **fine)),
     }
+    times = {name: (graph_ms(fn, n), device_ms(fn, device, n),
+                    device_ms(plain, device, 1, warm=False))
+             for name, (fn, n, plain) in calls.items()}
     c2f_ms = device_ms(lambda: hk.hough_votes_c2f(samples, bboxes, **fine), device, 50)
+    try:
+        prof = profiler_ms({name: fn for name, (fn, _, _) in calls.items()})
+        prof_note = ", ".join(f"{n} {prof[n]:.4f}" for n in prof) or "no device time recorded"
+    except RuntimeError as err:  # the profiler is a cross-check, not a gate
+        prof_note = f"profiler failed: {err}"
 
     # multi-instance c2f at the full-width model's object budget (16 RoIs
     # per image, so 32 greedily picked windows per slot): the window
@@ -223,20 +365,35 @@ def phase_kernels(device):
     m_origins = torch.stack([moy, mox, men.long()], -1).reshape(-1, 3).int().contiguous()
     mv, md = hk.hough_votes_windows(samples, m_origins, **fine)
     qv, qd = hk.hough_votes_windows_plain(samples, m_origins, **fine)
-    multi_err, ok_v = rel_err(mv, qv)
-    _, ok_d = rel_err(md, qd)
-    if not (ok_v and ok_d):
-        raise AssertionError(f"window_vote_kernel disagrees with its plain version at the "
-                             f"multi-instance origins: {multi_err}")
+    where = "at the multi-instance origins"
+    multi_err = max(check("window_vote_kernel", mv, qv, where),
+                    check("window_vote_kernel", md, qd, where))
     # its time, split: the whole c2f windows call (flat pass, greedy
-    # pick, window kernel), the window kernel alone, and the maxima
-    # search with its decidability dedup that hough_voting runs after it
+    # pick, window kernel), the window kernel alone (graph), and the
+    # maxima search with its decidability dedup that hough_voting runs
+    # after it
     multi_ms = (
         device_ms(lambda: hk.hough_votes_c2f_windows(samples, bboxes, **multi), device, 20),
-        device_ms(lambda: hk.hough_votes_windows(samples, m_origins, **fine), device, 50),
+        graph_ms(lambda: hk.hough_votes_windows(samples, m_origins, **fine), 50),
         device_ms(lambda: _window_maxima(*win, samp_w, grid_h=HEIGHT, grid_w=WIDTH, m=16,
                                          vote_threshold=1.0), device, 20),
     )
+
+    # the c2f pair at the edge cases: the flat pass, and the windows at
+    # the origins the c2f glue picks, on the card against the CPU
+    for case in EDGE_CASES:
+        e_samples, e_boxes, (h, w), opts = vote_edge_case(case)
+        e_samples, e_boxes = torch.from_numpy(e_samples), torch.from_numpy(e_boxes)
+        where = f"at edge case {case}"
+        kw = dict(cell_stride=4, grid_h=-(-h // 4), grid_w=-(-w // 4))
+        got = hk.hough_votes_flat(e_samples.to(device), e_boxes.to(device), **kw)
+        for a, b in zip(got, hk.hough_votes_flat_plain(e_samples, e_boxes, **kw)):
+            check("flat_vote_kernel", a, b, where)
+        kw = dict(cell_stride=1, grid_h=h, grid_w=w, **opts)
+        got = hk.hough_votes_c2f_windows(e_samples.to(device), e_boxes.to(device), **kw)
+        for a, b in zip(got, hk.hough_votes_c2f_windows(e_samples, e_boxes, **kw)):
+            check("window_vote_kernel", a, b, where)
+
     out_cells = {"tile": k * HEIGHT * WIDTH, "flat": kv.numel(), "window": wv.numel()}
     cells = {
         "tile": hk.tile_cells(samples, bboxes, **fine)[2:],
@@ -248,18 +405,19 @@ def phase_kernels(device):
                          samples.numel() * 4 + origins.numel() * 4, 2 * 4 * out_cells[name])
         for name in cells
     }
-    print(f"phase 2 kernels vs plain at serve shapes (K={k}, S={s}): tile {tuple(tv.shape)} "
-          f"max_abs_err {tile_err:.3g}, flat {tuple(kv.shape)} max_abs_err {flat_err:.3g}, "
-          f"windows {tuple(wv.shape)} max_abs_err {win_err:.3g}, c2f maximum votes equal, same "
-          f"cell {same_cell}; ms kernel/plain/bound (bound by, tested pairs): "
-          + ", ".join(f"{n} {times[n][0]:.4f}/{times[n][1]:.1f}/{bounds[n][0]:.4f} "
-                      f"({bounds[n][1]}, {bounds[n][2]:.4g})" for n in times)
-          + f"; exhaustive {times['tile'][0]:.4f} ms vs c2f pair with its glue {c2f_ms:.4f} ms "
-          f"on the same samples; multi-instance c2f: windows {tuple(mv.shape)} at the greedy "
-          f"origins ({int(men.sum())} live) max_abs_err {multi_err:.3g}, c2f windows call "
-          f"(flat + greedy pick + window kernel) {multi_ms[0]:.4f} ms, window kernel alone "
-          f"{multi_ms[1]:.4f} ms, window maxima with the dedup {multi_ms[2]:.4f} ms", flush=True)
-    return {"tile": tile_err, "flat": flat_err, "window": win_err}, times, bounds
+    print(f"phase 2 kernels vs plain at serve shapes (K={k}, S={s}), bit for bit: tile "
+          f"{tuple(tv.shape)}, flat {tuple(kv.shape)}, windows {tuple(wv.shape)}, c2f maximum "
+          f"equal; the c2f pair at the edge cases {', '.join(EDGE_CASES)}: equal; ms graph/call/"
+          f"plain/bound (bound by, tested pairs): "
+          + ", ".join(f"{n} {times[n][0]:.4f}/{times[n][1]:.4f}/{times[n][2]:.1f}/"
+                      f"{bounds[n][0]:.4f} ({bounds[n][1]}, {bounds[n][2]:.4g})" for n in times)
+          + f"; torch.profiler ms per launch: {prof_note}; exhaustive {times['tile'][0]:.4f} ms "
+          f"vs c2f pair with its glue {c2f_ms:.4f} ms on the same samples; multi-instance c2f: "
+          f"windows {tuple(mv.shape)} at the greedy origins ({int(men.sum())} live) equal "
+          f"(max_abs_err {multi_err:.3g}), c2f windows call (flat + greedy pick + window kernel) "
+          f"{multi_ms[0]:.4f} ms, window kernel alone {multi_ms[1]:.4f} ms (graph), window "
+          f"maxima with the dedup {multi_ms[2]:.4f} ms", flush=True)
+    return errs, times, bounds
 
 
 def phase_planted(device):
@@ -483,8 +641,8 @@ def main() -> int:
     print(card, flush=True)
     t0 = time.perf_counter()
     _cuda.library()
-    print(f"phase 1 card {card}; kernels built and loaded in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"phase 1 card {card}; kernels built and loaded in {time.perf_counter() - t0:.1f} s; "
+          f"ptxas: {json.dumps(ptxas_lines(_cuda.build_report()))}", flush=True)
 
     errs, times, bounds = phase_kernels(device)
     phase_planted(device)
@@ -496,14 +654,14 @@ def main() -> int:
     # the tile kernel, the HTTP serving run for the c2f pair
     launches["tile"] = runs["exhaustive"]["tile"]
 
-    names = {"tile": ("tile_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:39"),
-             "flat": ("flat_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:191"),
-             "window": ("window_vote_kernel", "posecnn_tpu/ops/hough_pallas.py:333")}
+    replaces = {"tile": "posecnn_tpu/ops/hough_pallas.py:39",
+                "flat": "posecnn_tpu/ops/hough_pallas.py:191",
+                "window": "posecnn_tpu/ops/hough_pallas.py:333"}
     print(json.dumps({"kernels": [
-        {"name": names[k][0], "route": "cuda", "source": "posecnn_torch/csrc/hough_vote.cu",
-         "replaces": names[k][1], "launches": launches[k], "max_abs_err": errs[k],
-         "ms": times[k][0], "plain_ms": times[k][1], "bound_ms": bounds[k][0],
-         "bound_by": bounds[k][1], "library_ms": None}
+        {"name": KERNELS[k], "route": "cuda", "source": "posecnn_torch/csrc/hough_vote.cu",
+         "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
+         "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,48 +4,97 @@
 // Replaces the three Pallas TPU kernels of posecnn_tpu/ops/hough_pallas.py:
 //   tile_vote_kernel   <- _vote_kernel        (:39, exhaustive vote over the
 //                         full (grid_h, grid_w) cell grid, hough_votes_pallas)
-//   flat_vote_kernel   <- _flat_vote_kernel   (coarse pass over a flat,
+//   flat_vote_kernel   <- _flat_vote_kernel   (:191, coarse pass over a flat,
 //                         row-major cell grid, hough_votes_flat)
-//   window_vote_kernel <- _window_vote_kernel (exact stride-1 re-vote on
-//                         one 32x32 window per (slot, candidate),
+//   window_vote_kernel <- _window_vote_kernel (:333, exact stride-1 re-vote
+//                         on one 32x32 window per (slot, candidate),
 //                         hough_votes_c2f_windows)
 //
-// Per cell and per sample of the cell's class slot, all run the same
-// vote body (vote_slot below): the algebraic cone test
+// Per cell and per tested sample of the cell's class slot, all three run
+// the same vote: the algebraic cone test
 //   dot > 0  &&  dot^2 > (t*|uv|)^2 * dist^2  &&  |dx| < thr  &&  |dy| < thr
-// then votes += w and dsum += w*d. Samples are (K, 8, S) fp32 with
-// channels [x, y, u, v, d, (t*|uv|)^2, thr, w] (packed by
-// ops/hough_voting._prepare_slots).
+// then votes += (inside ? w : 0) and dsum += (inside ? w : 0) * d.
+// Samples are (K, 8, S) fp32 with channels [x, y, u, v, d, (t*|uv|)^2,
+// thr, w] (packed by ops/hough_voting._prepare_slots).
 //
-// What bounds it on the card: fp32 arithmetic on the CUDA cores. At the
-// serve config (480x640, 8 slots, S = 1024) the exhaustive vote makes at
-// most 8 * 307,200 * 1024 = 2.5e9 cell-sample tests, the flat pass 1.6e8
-// and the 32 windows 3.4e7, before their skips (on chip_smoke.py's
-// planted scene the skips leave 2.5e8, 2.8e7 and 1.3e7). Each test is
-// 13 fp32 adds and multiplies plus compares, on ~32 KB of input per
-// slot, against at most 19.7 MB of output for the exhaustive grid; no
-// tensor-core work exists. Design:
-//   * one thread per cell, 256 cells per block;
-//   * the slot's samples are staged through shared memory in chunks of
-//     256 (8 KB), so shared memory does not grow with S;
-//   * every thread of a block reads the same sample, so the per-sample
-//     hit test is block-uniform and costs no divergence;
-//   * each thread accumulates in registers, in sample order, with no
-//     atomics: the result is deterministic and equal, bit for bit, to the
-//     Pallas kernel's and to the plain PyTorch loop in
-//     ops/hough_kernels.py. Products and sums use the _rn intrinsics so
-//     nvcc cannot contract them into FMAs, which would move the cone
-//     test's edge against those two;
-//   * the skip tests are those of the Pallas kernels, on the Pallas
-//     kernels' 1024-cell tiles and windows (a block covers a quarter of
-//     one): skipping a sample is then exactly the Pallas kernel's skip,
-//     also when a depth d is inf and 0*d would be NaN;
-//   * tile_vote_kernel writes straight into the (K, grid_h, grid_w)
-//     output and masks the ragged edge of the (8, 128) tiles itself.
+// What all three keep, so that they equal the Pallas kernels and the
+// plain PyTorch versions in ops/hough_kernels.py bit for bit:
+//   * a sample is tested at a cell exactly when the Pallas kernel tests
+//     it there: the cell's Pallas unit (the (8, 128) tile, the 1024-cell
+//     flat tile, the 32x32 window) passes the unit's test, the sample's
+//     +-thr box reaches the unit, and w > 0;
+//   * every tested sample adds, inside the cone or not, so a tested
+//     sample at d = inf adds 0 * inf = NaN to dsum outside its cone; a
+//     skipped one adds nothing;
+//   * each cell sums in sample order, in registers, with no atomics; the
+//     products and sums use the _rn intrinsics so nvcc cannot contract
+//     them into FMAs, which would move the cone test's edge.
+//
+// What bounds them on the card: fp32 instruction issue on the CUDA
+// cores. On chip_smoke.py's planted 480x640 scene (8 slots, 3 live,
+// S = 1024) the exhaustive vote tests 2.5e8 (cell, sample) pairs, the
+// flat pass 2.8e7 and the 32 windows 1.3e7, on ~32 KB of input per
+// slot. Each pair is 13 fp32 adds and multiplies, 4 compares and a
+// select; no tensor-core work exists. Without FMAs the fp32 pipes issue
+// at most 33.5e12 of those operations a second, half of the 67 TFLOP/s
+// peak that counts an FMA as two.
+//
+// tile_vote_kernel (vote_slot below): one thread per cell, 256 cells per
+// block, a quarter of a Pallas (8, 128) tile. The slot's samples are
+// staged through shared memory in chunks of 256 (8 KB); every thread
+// reads the same sample, so the per-sample skip is block-uniform. It
+// writes straight into (K, grid_h, grid_w) and masks the ragged edge of
+// the tiles itself.
+//
+// flat_vote_kernel and window_vote_kernel (vote_tested below). Run as
+// the tile kernel is, every thread evaluated the skip test of every
+// sample (8 scalar shared loads and a branch each, tested or not): on
+// the planted scene the flat pass tests ~486 of 1024 samples a tile, so
+// that was about as many instructions as the votes; the data-dependent
+// skip also kept nvcc from unrolling the loop, which left each vote a
+// dependent chain of ~10 operations with nothing to overlap it. Now:
+//   * per chunk of 256 samples, each thread loads its samples straight
+//     from the (K, 8, S) input (coalesced per channel) and evaluates the
+//     unit's skip test; a block-wide ordered compaction (__ballot_sync
+//     and __popc for the rank in the warp, the counts of the earlier
+//     warps for the offset) writes the tested ones into shared memory in
+//     sample order, as two float4 records [x, y, u, v], [d, t2n2, thr, w];
+//     zero records pad the count to a multiple of the unroll (w = d = 0
+//     adds +0, which leaves every sum as it was, NaN and inf included);
+//   * the vote loop walks only tested samples, with no branch: each step
+//     takes kUnroll samples, computes their weights side by side, then
+//     adds them in order, while the next step's records (two 128-bit
+//     broadcast loads a sample) are already in flight. Written as a plain
+//     unrolled loop, ptxas ran the samples' chains one after another and
+//     waited on each shared load at once;
+//   * two buffers of 256 + kUnroll records (16.6-16.9 KB in all): chunk
+//     c is compacted into one while chunk c - 1 is voted from the other
+//     and chunk c + 1 is loaded into registers, one __syncthreads a chunk;
+//   * a block covers part of a Pallas unit and compacts with the unit's
+//     test: the result is the unit's, and the compaction is repeated per
+//     block (a few percent of the work at the serve shapes).
+// The two differ in how much parallel work they have:
+//   * flat (~58k live cells at the serve shapes, ~486 tested samples
+//     each): 128 cells per block, one per thread, an eighth of a flat
+//     tile, unrolled by 4. The 3 live slots make 456 working blocks,
+//     1824 warps, ~3.5 per scheduler of the 528 (132 SMs x 4): enough
+//     warps to hide each other's latency, so the kernel is bound by
+//     issue. Several cells per thread (one sample's loads for all of them)
+//     measured slower: they cut the warps per scheduler below 1-2, and
+//     ptxas serialised the cells' chains.
+//   * window (12 live windows of 1024 cells at the serve shapes, every
+//     cell testing all 1024 samples): 12,288 cells make only 384 warps,
+//     fewer than the schedulers, and each cell's samples are a serial sum,
+//     so the kernel is bound by one warp's latency. One cell per thread
+//     keeps all 384 warps; unrolling by 8 gives each warp 8 independent
+//     weights a step. 8 blocks of 128 cells (4 rows) per window; the
+//     multi-instance path (96 live of 256 windows) gives 3072 warps.
+//     A cell past the grid votes with x = +inf, where |dx| < thr never
+//     holds: weight 0, as the Pallas kernel's in_grid mask gives.
 //
 // Build (ops/_cuda.py does this at first use):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \
-//        -Xcompiler -fPIC -o libhough_vote.so hough_vote.cu
+//        -Xcompiler -fPIC -Xptxas -v -o libhough_vote.so hough_vote.cu
 // The entry points have a plain C interface for ctypes; each launches on
 // the given stream and returns cudaGetLastError().
 
@@ -57,9 +106,15 @@ constexpr int kTile = 1024;    // cells in a Pallas (8, 128) tile or a 32x32 win
 constexpr int kTileH = 8;      // rows of a Pallas tile
 constexpr int kTileW = 128;    // columns of a Pallas tile
 constexpr int kWindow = 32;    // refine-window side (hough_pallas.WINDOW)
-constexpr int kThreads = 256;  // one cell per thread
-constexpr int kChunk = 256;    // samples staged in shared memory at a time
+constexpr int kThreads = 256;  // tile kernel: one cell per thread
+constexpr int kChunk = 256;    // samples staged (tile) or compacted (flat, window) at a time
 constexpr int kChannels = 8;
+constexpr int kFlatThreads = 128;   // one cell per thread, an eighth of a flat tile
+constexpr int kFlatUnroll = 4;      // tested samples per step of the flat vote loop
+constexpr int kWindowThreads = 128;  // one cell per thread, 4 rows of a window
+constexpr int kWindowUnroll = 8;
+constexpr int kFlatParts = kTile / kFlatThreads;      // blocks per flat tile
+constexpr int kWindowParts = kTile / kWindowThreads;  // blocks per window
 
 // The vote of every sample of one slot at this thread's cell. `hit`
 // decides per sample, uniformly across the block, whether the sample is
@@ -92,6 +147,125 @@ __device__ __forceinline__ void vote_slot(const float* __restrict__ slot, int nu
       acc_v = __fadd_rn(acc_v, wv);
       acc_d = __fadd_rn(acc_d, __fmul_rn(wv, d));
     }
+  }
+  votes = acc_v;
+  dsum = acc_d;
+}
+
+// This thread's samples of the chunk at `base`: sample base + p * kBlock +
+// threadIdx.x in r[p]; past the last sample, zeros (w = 0: never tested).
+template <int kBlock>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ slot, int num_samples,
+                                           int base, float (&r)[kChunk / kBlock][kChannels]) {
+#pragma unroll
+  for (int p = 0; p < kChunk / kBlock; ++p) {
+    const int j = base + p * kBlock + static_cast<int>(threadIdx.x);
+#pragma unroll
+    for (int c = 0; c < kChannels; ++c) r[p][c] = j < num_samples ? slot[c * num_samples + j] : 0.f;
+  }
+}
+
+// The vote of every sample of one slot that `hit` tests, at this thread's
+// cell, by compaction (see the header). `hit` is the test of the block's
+// Pallas unit; a cell past the grid comes with cx = +inf. Must be reached
+// by every thread of a block of kBlock threads.
+template <int kBlock, int kUnroll, class Hit>
+__device__ __forceinline__ void vote_tested(const float* __restrict__ slot, int num_samples,
+                                            Hit hit, float cy, float cx, float& votes,
+                                            float& dsum) {
+  static_assert(kChunk % kBlock == 0 && kChunk % kUnroll == 0, "chunk must split evenly");
+  constexpr int kPer = kChunk / kBlock;  // samples per thread per chunk
+  constexpr int kWarps = kBlock / 32;
+  // a chunk's tested samples, padded to a multiple of kUnroll; the vote
+  // loop reads up to kUnroll records past the padding, and drops them
+  __shared__ float4 tested[2][kChunk + kUnroll][2];
+  __shared__ int counts[2][kChunk / 32];  // tested samples per (p, warp) of a chunk
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc_v = 0.f, acc_d = 0.f;
+
+  float r[kPer][kChannels];
+  load_chunk<kBlock>(slot, num_samples, 0, r);
+  const int n_chunks = (num_samples + kChunk - 1) / kChunk;
+  int n_voted = 0;  // padded count of the chunk compacted last
+  for (int c = 0; c <= n_chunks; ++c) {
+    const int b = c & 1;
+    bool pass[kPer];
+    unsigned ballot[kPer];
+    if (c < n_chunks) {
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+        pass[p] = hit(r[p][0], r[p][1], r[p][6]) && r[p][7] > 0.f;
+        ballot[p] = __ballot_sync(0xffffffffu, pass[p]);
+        if (lane == 0) counts[b][p * kWarps + warp] = __popc(ballot[p]);
+      }
+    }
+    // chunk c's counts are in, chunk c - 1 is compacted into buffer b ^ 1,
+    // and every thread is done voting chunk c - 2 from buffer b
+    __syncthreads();
+    int n_next = 0;
+    if (c < n_chunks) {
+      int off[kPer], total = 0;
+#pragma unroll
+      for (int q = 0; q < kChunk / 32; ++q) {
+#pragma unroll
+        for (int p = 0; p < kPer; ++p) {
+          if (q == p * kWarps + warp) off[p] = total;
+        }
+        total += counts[b][q];
+      }
+      const unsigned below = (1u << lane) - 1u;
+#pragma unroll
+      for (int p = 0; p < kPer; ++p) {
+        if (pass[p]) {
+          const int e = off[p] + __popc(ballot[p] & below);
+          tested[b][e][0] = make_float4(r[p][0], r[p][1], r[p][2], r[p][3]);
+          tested[b][e][1] = make_float4(r[p][4], r[p][5], r[p][6], r[p][7]);
+        }
+      }
+      n_next = (total + kUnroll - 1) / kUnroll * kUnroll;
+      if (static_cast<int>(threadIdx.x) < n_next - total) {
+        tested[b][total + threadIdx.x][0] = make_float4(0.f, 0.f, 0.f, 0.f);
+        tested[b][total + threadIdx.x][1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (c + 1 < n_chunks) load_chunk<kBlock>(slot, num_samples, (c + 1) * kChunk, r);
+    }
+
+    // vote chunk c - 1: a step's records are loaded one step ahead; its
+    // kUnroll weights are computed side by side, then summed in order
+    const float4(*t)[2] = tested[b ^ 1];
+    float4 a[kUnroll], q[kUnroll];  // [x, y, u, v], [d, t2n2, thr, w]
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      a[u] = t[u][0];
+      q[u] = t[u][1];
+    }
+    for (int e = 0; e < n_voted; e += kUnroll) {
+      float4 a_next[kUnroll], q_next[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        a_next[u] = t[e + kUnroll + u][0];
+        q_next[u] = t[e + kUnroll + u][1];
+      }
+      float wv[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const float dx = __fsub_rn(cx, a[u].x);
+        const float dy = __fsub_rn(cy, a[u].y);
+        const float dot = __fadd_rn(__fmul_rn(a[u].z, dx), __fmul_rn(a[u].w, dy));
+        const float dist2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
+        const bool inl = (dot > 0.f) & (__fmul_rn(dot, dot) > __fmul_rn(q[u].y, dist2)) &
+                         (fabsf(dx) < q[u].z) & (fabsf(dy) < q[u].z);
+        wv[u] = inl ? q[u].w : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        acc_v = __fadd_rn(acc_v, wv[u]);
+        acc_d = __fadd_rn(acc_d, __fmul_rn(wv[u], q[u].x));
+        a[u] = a_next[u];
+        q[u] = q_next[u];
+      }
+    }
+    n_voted = n_next;
   }
   votes = acc_v;
   dsum = acc_d;
@@ -149,28 +323,29 @@ tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
   }
 }
 
-// grid (n_tiles * kTile / kThreads, K); block kThreads. Cell idx is flat
+// grid (n_tiles * kFlatParts, K); block kFlatThreads. Cell idx is flat
 // row-major over (grid_h, grid_w) at pixel stride cell_stride.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFlatThreads)
 flat_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bboxes,
                  float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
                  int cell_stride, int grid_h, int grid_w) {
   const int k = blockIdx.y;
-  const int idx = blockIdx.x * kThreads + threadIdx.x;
+  const int idx = blockIdx.x * kFlatThreads + threadIdx.x;
   const int base = (idx / kTile) * kTile;  // first cell of this Pallas tile
   const int tile_y0 = (base / grid_w) * cell_stride;
   const int tile_y1 = ((base + kTile - 1) / grid_w) * cell_stride;
   const int fy = idx / grid_w;
-  const int fx = idx - fy * grid_w;
   const float cy = static_cast<float>(fy * cell_stride);
-  const float cx = static_cast<float>(fx * cell_stride);
+  const float cx = static_cast<float>((idx - fy * grid_w) * cell_stride);
 
+  // cells at or past grid_h * grid_w (fy >= grid_h) are not written, so
+  // they need no in_grid mask
   float acc_v = 0.f, acc_d = 0.f;
   const float y_lo = bboxes[k * 4 + 2], y_hi = bboxes[k * 4 + 3];
   if (y_hi >= static_cast<float>(tile_y0) && y_lo <= static_cast<float>(tile_y1)) {
-    vote_slot(samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
-              RowSpan{static_cast<float>(tile_y0), static_cast<float>(tile_y1)}, cy, cx,
-              fy < grid_h, acc_v, acc_d);
+    vote_tested<kFlatThreads, kFlatUnroll>(
+        samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
+        RowSpan{static_cast<float>(tile_y0), static_cast<float>(tile_y1)}, cy, cx, acc_v, acc_d);
   }
   const int n_cells = grid_h * grid_w;
   if (idx < n_cells) {
@@ -179,23 +354,24 @@ flat_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
   }
 }
 
-// grid (K * top_t * kTile / kThreads); block kThreads. origins is
+// grid (K * top_t * kWindowParts); block kWindowThreads. origins is
 // (K * top_t, 3) int32 [oy, ox, enable] in fine-cell units; window p
 // belongs to slot p / top_t. Window cell i is (i / 32, i % 32).
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kWindowThreads)
 window_vote_kernel(const float* __restrict__ samples, const int* __restrict__ origins,
                    float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
                    int cell_stride, int grid_h, int grid_w, int top_t) {
-  constexpr int kParts = kTile / kThreads;
-  const int p = blockIdx.x / kParts;
+  const int p = blockIdx.x / kWindowParts;
   const int k = p / top_t;
   const int oy = origins[p * 3 + 0], ox = origins[p * 3 + 1];
   const bool enable = origins[p * 3 + 2] > 0;
-  const int widx = (blockIdx.x % kParts) * kThreads + threadIdx.x;
+  const int widx = (blockIdx.x % kWindowParts) * kWindowThreads + threadIdx.x;
   const int fy = oy + widx / kWindow;
   const int fx = ox + widx % kWindow;
   const float cy = static_cast<float>(fy * cell_stride);
-  const float cx = static_cast<float>(fx * cell_stride);
+  // a cell past the grid votes at x = +inf, where |dx| < thr never holds
+  const float cx = fy < grid_h && fx < grid_w ? static_cast<float>(fx * cell_stride)
+                                              : __int_as_float(0x7f800000);
 
   float acc_v = 0.f, acc_d = 0.f;
   if (enable) {
@@ -203,8 +379,9 @@ window_vote_kernel(const float* __restrict__ samples, const int* __restrict__ or
                         static_cast<float>((ox + kWindow) * cell_stride),
                         static_cast<float>(oy * cell_stride),
                         static_cast<float>((oy + kWindow) * cell_stride)};
-    vote_slot(samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples, box, cy,
-              cx, fy < grid_h && fx < grid_w, acc_v, acc_d);
+    vote_tested<kWindowThreads, kWindowUnroll>(
+        samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples, box, cy, cx,
+        acc_v, acc_d);
   }
   votes[static_cast<size_t>(p) * kTile + widx] = acc_v;
   dsum[static_cast<size_t>(p) * kTile + widx] = acc_d;
@@ -233,8 +410,8 @@ int hough_flat_votes(const float* samples, const float* bboxes, float* votes, fl
   const int n_cells = grid_h * grid_w;
   if (num_slots == 0 || n_cells == 0) return 0;
   const int n_tiles = (n_cells + kTile - 1) / kTile;
-  const dim3 grid(n_tiles * (kTile / kThreads), num_slots);
-  flat_vote_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n_tiles * kFlatParts, num_slots);
+  flat_vote_kernel<<<grid, kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w);
   return static_cast<int>(cudaGetLastError());
 }
@@ -244,8 +421,8 @@ int hough_window_votes(const float* samples, const int* origins, float* votes, f
                        int num_windows, int num_samples, int cell_stride, int grid_h,
                        int grid_w, int top_t, void* stream) {
   if (num_windows == 0) return 0;
-  const dim3 grid(num_windows * (kTile / kThreads));
-  window_vote_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(num_windows * kWindowParts);
+  window_vote_kernel<<<grid, kWindowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       samples, origins, votes, dsum, num_samples, cell_stride, grid_h, grid_w, top_t);
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,7 +3,9 @@
 The sources have a plain C interface. At first use they are compiled
 with `nvcc` for sm_90a into `posecnn_torch/_build/` (gitignored) and
 loaded with ctypes; the library name carries a hash of the source, so
-an edited kernel is rebuilt. Nothing here runs at import time, and
+an edited kernel is rebuilt. `ptxas -v` reports each kernel's registers,
+shared memory and spills; the report is kept beside the library and
+`build_report()` returns it. Nothing here runs at import time, and
 there is no fallback: a failed build raises.
 """
 
@@ -21,7 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "hough_vote.cu"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -36,18 +38,26 @@ def _nvcc() -> str:
     return found
 
 
+def _library_path() -> Path:
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libhough_vote_{digest}.so"
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"libhough_vote_{digest}.so"
+        so = _library_path()
         if not so.exists():
             BUILD_DIR.mkdir(exist_ok=True)
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)], check=True)
+            run = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                                 capture_output=True, text=True)
+            if run.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {SOURCE.name}:\n{run.stdout}{run.stderr}")
+            so.with_suffix(".ptxas.txt").write_text(run.stdout + run.stderr)
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
@@ -59,6 +69,12 @@ def library() -> ctypes.CDLL:
         lib.hough_window_votes.restype = i
         _lib = lib
         return lib
+
+
+def build_report() -> str:
+    """What `nvcc -Xptxas -v` printed when the loaded library was built."""
+    library()
+    return _library_path().with_suffix(".ptxas.txt").read_text()
 
 
 def check(status: int, what: str) -> None:

@@ -5,14 +5,16 @@ No JAX here, so the file also runs on the GPU machine, where the
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 
-Without a card those skip; the CPU tests check the plain c2f path
+Each kernel is held to its plain version bit for bit (NaN where the
+plain version gives NaN), at small scenes and at `chip_smoke`'s edge
+cases. Without a card those skip; the CPU tests check the plain c2f path
 against the plain exhaustive vote and the launch bookkeeping.
 """
 
 import pytest
 import torch
 
-from chip_smoke import intrinsics, planted_extents, planted_scene
+from chip_smoke import EDGE_CASES, intrinsics, planted_extents, planted_scene, vote_edge_case
 from posecnn_torch.ops import hough_kernels as hk
 from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
 
@@ -37,6 +39,10 @@ def packed(name, device="cpu", noise=0.05):
         vertex_factor=8,
     )
     return prep["packed"], prep["bboxes"]
+
+
+def assert_exact(got, want):
+    torch.testing.assert_close(got.cpu(), want.cpu(), rtol=0, atol=0, equal_nan=True)
 
 
 def run_hough(name, backend, device="cpu", noise=0.05, **kw):
@@ -125,8 +131,8 @@ def test_flat_kernel_matches_plain(cuda, name, stride):
     torch.cuda.synchronize()
     assert hk.LAUNCHES["flat"] == n0 + 1
     pv, pd = hk.hough_votes_flat_plain(samples, bboxes, **kw)
-    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=0)
-    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-6)
+    assert_exact(kv, pv)
+    assert_exact(kd, pd)
 
 
 @pytest.mark.cuda
@@ -141,8 +147,8 @@ def test_tile_kernel_matches_plain(cuda, name, stride):
     assert hk.LAUNCHES["tile"] == n0 + 1
     assert kv.shape == (samples.shape[0], H // stride, W // stride)
     pv, pd = hk.hough_votes_exhaustive_plain(samples, bboxes, **kw)
-    torch.testing.assert_close(kv, pv, rtol=1e-5, atol=0)
-    torch.testing.assert_close(kd, pd, rtol=1e-5, atol=1e-6)
+    assert_exact(kv, pv)
+    assert_exact(kd, pd)
 
 
 @pytest.mark.cuda
@@ -153,11 +159,47 @@ def test_window_kernel_and_c2f_match_plain(cuda, name):
     vk = hk.hough_votes_c2f_windows(samples, bboxes, **kw)
     vp = hk.hough_votes_c2f_windows(samples.cpu(), bboxes.cpu(), **kw)
     for got, want in zip(vk, vp):
-        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+        assert_exact(got, want)
     bk = hk.hough_votes_c2f(samples, bboxes, **kw)
     bp = hk.hough_votes_c2f(samples.cpu(), bboxes.cpu(), **kw)
     for got, want in zip(bk, bp):
-        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+        assert_exact(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_c2f_pair_matches_plain_at_edge_cases(cuda, case):
+    """S of 1-1100, d = inf tested and skipped, a ragged last tile,
+    windows clamped and reaching past the grid, dead slots, 32 windows
+    per slot (chip_smoke.vote_edge_case)."""
+    samples, bboxes, (h, w), opts = vote_edge_case(case)
+    samples, bboxes = torch.from_numpy(samples), torch.from_numpy(bboxes)
+    kw = dict(cell_stride=4, grid_h=-(-h // 4), grid_w=-(-w // 4))
+    got = hk.hough_votes_flat(samples.to(cuda), bboxes.to(cuda), **kw)
+    for a, b in zip(got, hk.hough_votes_flat_plain(samples, bboxes, **kw)):
+        assert_exact(a, b)
+    kw = dict(cell_stride=1, grid_h=h, grid_w=w, **opts)
+    got = hk.hough_votes_c2f_windows(samples.to(cuda), bboxes.to(cuda), **kw)
+    for a, b in zip(got, hk.hough_votes_c2f_windows(samples, bboxes, **kw)):
+        assert_exact(a, b)
+
+
+@pytest.mark.cuda
+def test_window_kernel_matches_plain_past_the_grid(cuda):
+    """Origins the c2f glue never gives: windows hanging over the bottom
+    and right edges, one disabled, at stride 2. A sample at d = inf is
+    tested at the first window, so its cells past the grid hold NaN."""
+    samples, _, _, _ = vote_edge_case("s300")
+    samples[0, :, 0] = [150.0, 130.0, 1.0, 0.0, float("inf"), 0.81, 20.0, 1.0]
+    samples = torch.from_numpy(samples)
+    origins = torch.tensor([[60, 70, 1], [70, 80, 1], [0, 0, 0], [75, 5, 1], [3, 84, 1],
+                            [40, 40, 1]], dtype=torch.int32)
+    kw = dict(cell_stride=2, grid_h=75, grid_w=86)
+    want = hk.hough_votes_windows_plain(samples, origins, **kw)
+    assert bool(torch.isnan(want[1][0].reshape(32, 32)[75 - 60:]).all())
+    got = hk.hough_votes_windows(samples.to(cuda), origins.to(cuda), **kw)
+    for a, b in zip(got, want):
+        assert_exact(a, b)
 
 
 @pytest.mark.cuda
