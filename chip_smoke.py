@@ -11,8 +11,9 @@ that fails, with a non-zero exit:
      print `ptxas -v`'s registers, shared memory and spills per kernel;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      serve shapes, on samples packed from a planted 480×640 scene
-     (K = 8 slots, S = 1024 samples), and the coarse-to-fine pair at
-     the edge cases of `vote_edge_case`; each kernel's time from a CUDA
+     (K = 8 slots, S = 1024 samples), and all three at the edge cases
+     of `vote_edge_case` (the exhaustive vote at stride 1, the
+     coarse-to-fine pair as c2f runs them); each kernel's time from a CUDA
      graph of n launches replayed between two CUDA events (`ms`: no
      host work between the launches), the time per call of a Python
      loop of wrapper calls (`call_ms`: what the serving path pays), the
@@ -57,10 +58,15 @@ SAMPLES, MAX_CLASSES = 1024, 8
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): fp32 on
 # the CUDA cores, and HBM3 bandwidth
 PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
-# fp32 additions, subtractions and multiplications of one tested
-# (cell, sample) pair of the vote body (csrc/hough_vote.cu vote_slot);
-# its comparisons and selects are not counted
-OPS_PER_TEST = 13
+# the fp32 additions, subtractions and multiplications the vote needs
+# (hough_kernels.votes_at; comparisons and selects are not counted): per
+# tested (cell, sample) pair the 6 that depend on the cell (dot's and
+# dist2's sums, dot², t2n2·dist2 and the two accumulations); per tested
+# (column, sample) and (row, sample) of a unit the 3 of its side (dx or
+# dy, u·dx or v·dy, dx² or dy²); per sample tested anywhere in a slot
+# (a window, for the window kernel) w·d and 0·d, the two values wv·d
+# can take
+OPS_PER_PAIR, OPS_PER_LINE, OPS_PER_SAMPLE = 6, 3, 2
 # (cls, cx, cy, depth, half_w, half_h): three objects, known centres and
 # depths. Centres on the 1/8 grid keep the sampled direction field
 # symmetric about them, so the vote plateau is centred there too.
@@ -264,27 +270,48 @@ def ptxas_lines(report):
     return out
 
 
+def lines_per_group(coord, in_grid, group, n_groups):
+    """(rows of in_grid, n_groups) float64: how many distinct values of
+    `coord` (a cell's row or column) the in-grid cells of each group hold."""
+    import torch
+
+    coord = coord.expand_as(in_grid).long()
+    span = int(coord.max()) + 1 if coord.numel() else 1
+    out = torch.zeros((in_grid.shape[0], n_groups), dtype=torch.float64, device=coord.device)
+    for r in range(in_grid.shape[0]):
+        keep = in_grid[r]
+        keys = torch.unique(group[keep] * span + coord[r, keep])
+        out[r] = torch.bincount(keys // span, minlength=n_groups).double()
+    return out
+
+
 def vote_bound(cells, in_bytes, out_bytes):
     """The least time of a vote kernel on these inputs: the larger of its
     operations over the fp32 peak and its bytes (inputs read once,
-    outputs written once) over the memory rate. `cells` is the tail
-    (in_grid, group, hit) of an `hough_kernels.*_cells` result: only
-    the in-grid cells of the groups a sample is tested in count.
+    outputs written once) over the memory rate. `cells` is the last five
+    fields (cy, cx, in_grid, group, hit) of a `hough_kernels.*_cells` result:
+    only the in-grid cells of the groups a sample is tested in count.
     Returns (bound ms, "operations" or "bytes", tested pairs)."""
     import torch
 
-    in_grid, group, hit = cells
-    per_group = torch.zeros((in_grid.shape[0], hit.shape[2]), dtype=torch.float64,
+    cy, cx, in_grid, group, hit = cells
+    n_groups = hit.shape[2]
+    per_group = torch.zeros((in_grid.shape[0], n_groups), dtype=torch.float64,
                             device=hit.device).index_add_(1, group, in_grid.double())
-    tests = float((hit.sum(1).double() * per_group).sum())
-    t_ops = tests * OPS_PER_TEST / PEAK_FP32_OPS
+    tested = hit.double()
+    tests = float((tested * per_group[:, None]).sum())
+    lines = lines_per_group(cx, in_grid, group, n_groups) + lines_per_group(cy, in_grid, group,
+                                                                             n_groups)
+    ops = (tests * OPS_PER_PAIR + float((tested * lines[:, None]).sum()) * OPS_PER_LINE
+           + float(hit.any(2).sum()) * OPS_PER_SAMPLE)
+    t_ops = ops / PEAK_FP32_OPS
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes", tests
 
 
 def phase_kernels(device):
-    """Kernels against their plain versions at the serve shapes and the
-    c2f pair at the edge cases, bit for bit; their times."""
+    """Kernels against their plain versions at the serve shapes and at
+    the edge cases, bit for bit; their times."""
     import torch
 
     from posecnn_torch.cli.validate import device_ms
@@ -379,12 +406,18 @@ def phase_kernels(device):
                                          vote_threshold=1.0), device, 20),
     )
 
-    # the c2f pair at the edge cases: the flat pass, and the windows at
-    # the origins the c2f glue picks, on the card against the CPU
+    # the kernels at the edge cases, on the card against the CPU: the
+    # exhaustive vote at stride 1 (ragged tiles, NaN where a tested
+    # d = inf sample reaches), the flat pass, and the windows at the
+    # origins the c2f glue picks
     for case in EDGE_CASES:
         e_samples, e_boxes, (h, w), opts = vote_edge_case(case)
         e_samples, e_boxes = torch.from_numpy(e_samples), torch.from_numpy(e_boxes)
         where = f"at edge case {case}"
+        kw = dict(cell_stride=1, grid_h=h, grid_w=w)
+        got = hk.hough_votes_exhaustive(e_samples.to(device), e_boxes.to(device), **kw)
+        for a, b in zip(got, hk.hough_votes_exhaustive_plain(e_samples, e_boxes, **kw)):
+            check("tile_vote_kernel", a, b, where)
         kw = dict(cell_stride=4, grid_h=-(-h // 4), grid_w=-(-w // 4))
         got = hk.hough_votes_flat(e_samples.to(device), e_boxes.to(device), **kw)
         for a, b in zip(got, hk.hough_votes_flat_plain(e_samples, e_boxes, **kw)):
@@ -396,21 +429,28 @@ def phase_kernels(device):
 
     out_cells = {"tile": k * HEIGHT * WIDTH, "flat": kv.numel(), "window": wv.numel()}
     cells = {
-        "tile": hk.tile_cells(samples, bboxes, **fine)[2:],
-        "flat": hk.flat_cells(samples, bboxes, **coarse)[2:],
-        "window": hk.window_cells(samples, origins, **fine)[3:],
+        "tile": hk.tile_cells(samples, bboxes, **fine),
+        "flat": hk.flat_cells(samples, bboxes, **coarse),
+        "window": hk.window_cells(samples, origins, **fine)[1:],
     }
     bounds = {
         name: vote_bound(cells[name], in_bytes if name != "window" else
                          samples.numel() * 4 + origins.numel() * 4, 2 * 4 * out_cells[name])
         for name in cells
     }
+    # how unevenly the exhaustive vote's work falls on its (tile, slot) pairs
+    per_tile = cells["tile"][4].sum(1)
+    per_tile = per_tile[per_tile > 0].double()
     print(f"phase 2 kernels vs plain at serve shapes (K={k}, S={s}), bit for bit: tile "
           f"{tuple(tv.shape)}, flat {tuple(kv.shape)}, windows {tuple(wv.shape)}, c2f maximum "
-          f"equal; the c2f pair at the edge cases {', '.join(EDGE_CASES)}: equal; ms graph/call/"
+          f"equal; tile (stride 1), flat and c2f windows at the edge cases "
+          f"{', '.join(EDGE_CASES)}: equal; ms graph/call/"
           f"plain/bound (bound by, tested pairs): "
           + ", ".join(f"{n} {times[n][0]:.4f}/{times[n][1]:.4f}/{times[n][2]:.1f}/"
                       f"{bounds[n][0]:.4f} ({bounds[n][1]}, {bounds[n][2]:.4g})" for n in times)
+          + f"; tile: {per_tile.numel()} live (tile, slot) pairs, tested samples per pair "
+          f"{float(per_tile.min()):.0f}-{float(per_tile.max()):.0f} (mean "
+          f"{float(per_tile.mean()):.1f})"
           + f"; torch.profiler ms per launch: {prof_note}; exhaustive {times['tile'][0]:.4f} ms "
           f"vs c2f pair with its glue {c2f_ms:.4f} ms on the same samples; multi-instance c2f: "
           f"windows {tuple(mv.shape)} at the greedy origins ({int(men.sum())} live) equal "

@@ -35,24 +35,22 @@
 // S = 1024) the exhaustive vote tests 2.5e8 (cell, sample) pairs, the
 // flat pass 2.8e7 and the 32 windows 1.3e7, on ~32 KB of input per
 // slot. Each pair is 13 fp32 adds and multiplies, 4 compares and a
-// select; no tensor-core work exists. Without FMAs the fp32 pipes issue
-// at most 33.5e12 of those operations a second, half of the 67 TFLOP/s
-// peak that counts an FMA as two.
+// select; no tensor-core work exists. Only 6 of the 13 depend on both
+// the cell and the sample: dx, u*dx and dx*dx depend on the column
+// alone and dy, v*dy and dy*dy on the row alone, so the function needs
+// ~6.4 a pair when each side is computed once per column or row of a
+// unit (what chip_smoke.py's bound counts). Without FMAs the fp32 pipes
+// issue at most 33.5e12 of those operations a second, half of the
+// 67 TFLOP/s peak that counts an FMA as two.
 //
-// tile_vote_kernel (vote_slot below): one thread per cell, 256 cells per
-// block, a quarter of a Pallas (8, 128) tile. The slot's samples are
-// staged through shared memory in chunks of 256 (8 KB); every thread
-// reads the same sample, so the per-sample skip is block-uniform. It
-// writes straight into (K, grid_h, grid_w) and masks the ragged edge of
-// the tiles itself.
-//
-// flat_vote_kernel and window_vote_kernel (vote_tested below). Run as
-// the tile kernel is, every thread evaluated the skip test of every
-// sample (8 scalar shared loads and a branch each, tested or not): on
-// the planted scene the flat pass tests ~486 of 1024 samples a tile, so
-// that was about as many instructions as the votes; the data-dependent
-// skip also kept nvcc from unrolling the loop, which left each vote a
-// dependent chain of ~10 operations with nothing to overlap it. Now:
+// All three vote through vote_tested below. Staging every sample in
+// shared memory and letting every thread evaluate every sample's skip
+// test (4 scalar shared loads, 4 compares and a branch each, tested or
+// not) costs about as many instructions as the votes: on the planted
+// scene the flat pass tests ~486 of 1024 samples a tile, the exhaustive
+// vote ~595. The data-dependent skip also keeps nvcc from unrolling the
+// loop, which leaves each vote a dependent chain of ~10 operations with
+// nothing to overlap it. Instead:
 //   * per chunk of 256 samples, each thread loads its samples straight
 //     from the (K, 8, S) input (coalesced per channel) and evaluates the
 //     unit's skip test; a block-wide ordered compaction (__ballot_sync
@@ -70,10 +68,31 @@
 //   * two buffers of 256 + kUnroll records (16.6-16.9 KB in all): chunk
 //     c is compacted into one while chunk c - 1 is voted from the other
 //     and chunk c + 1 is loaded into registers, one __syncthreads a chunk;
-//   * a block covers part of a Pallas unit and compacts with the unit's
-//     test: the result is the unit's, and the compaction is repeated per
-//     block (a few percent of the work at the serve shapes).
-// The two differ in how much parallel work they have:
+//   * a block covers a Pallas unit or part of one and compacts with the
+//     unit's test: the result is the unit's, and a unit split over
+//     several blocks repeats the compaction per block (a few percent of
+//     the work at the serve shapes).
+// The three differ in how much parallel work they have:
+//   * tile (406 live (tile, slot) pairs at the serve shapes, 595 tested
+//     samples each on average and up to all 1024, 2.5e8 tested pairs):
+//     4 blocks of 128 threads per Pallas (8, 128) tile and slot, each
+//     thread a column of 2 cells (rows 2p, 2p + 1 of the tile for block
+//     p). Per tested sample a thread computes the x side (dx, |dx| < thr,
+//     u*dx, dx*dx) once for its 2 cells, and per cell the y side and the
+//     two sums: the same operations on the same operands as one cell
+//     alone, so every bit stays. Unrolled by 8, a step has 16 independent
+//     weights; the vote loop is ~18 instructions a tested pair, against
+//     ~39 when every thread tested every sample. It is bound by
+//     instruction throughput and by how evenly the tiles' unequal work
+//     spreads over the SMs: one block per tile with 8 cells per thread
+//     (fewer instructions a pair) measured slower, since its 406 blocks
+//     leave the busiest SMs with far more than the mean work; 4 blocks per
+//     tile spread it closely, at the price of compacting each tile 4 times
+//     (a few percent of the instructions). 2 cells a thread and an unroll
+//     of 8 measured fastest of 1, 2, 4 and 8 cells, 32-256 threads and
+//     unrolls of 1-16. It writes straight into (K, grid_h, grid_w) and
+//     does not write the cells of a ragged tile past the grid (they still
+//     vote, so every thread reaches every __syncthreads).
 //   * flat (~58k live cells at the serve shapes, ~486 tested samples
 //     each): 128 cells per block, one per thread, an eighth of a flat
 //     tile, unrolled by 4. The 3 live slots make 456 working blocks,
@@ -102,55 +121,23 @@
 
 namespace {
 
-constexpr int kTile = 1024;    // cells in a Pallas (8, 128) tile or a 32x32 window
-constexpr int kTileH = 8;      // rows of a Pallas tile
-constexpr int kTileW = 128;    // columns of a Pallas tile
-constexpr int kWindow = 32;    // refine-window side (hough_pallas.WINDOW)
-constexpr int kThreads = 256;  // tile kernel: one cell per thread
-constexpr int kChunk = 256;    // samples staged (tile) or compacted (flat, window) at a time
+constexpr int kTile = 1024;  // cells in a Pallas (8, 128) tile or a 32x32 window
+constexpr int kTileH = 8;    // rows of a Pallas tile
+constexpr int kTileW = 128;  // columns of a Pallas tile
+constexpr int kWindow = 32;  // refine-window side (hough_pallas.WINDOW)
+constexpr int kChunk = 256;  // samples compacted at a time
 constexpr int kChannels = 8;
+constexpr int kTileThreads = 128;  // one column of a Pallas tile per thread
+constexpr int kTileRows = 2;       // cells per thread: 2 rows of its column
+constexpr int kTileUnroll = 8;     // tested samples per step of the tile vote loop
 constexpr int kFlatThreads = 128;   // one cell per thread, an eighth of a flat tile
 constexpr int kFlatUnroll = 4;      // tested samples per step of the flat vote loop
 constexpr int kWindowThreads = 128;  // one cell per thread, 4 rows of a window
 constexpr int kWindowUnroll = 8;
+constexpr int kTileParts = kTileH / kTileRows;  // blocks per Pallas tile
+static_assert(kTileThreads == kTileW && kTileH % kTileRows == 0, "blocks split a tile by rows");
 constexpr int kFlatParts = kTile / kFlatThreads;      // blocks per flat tile
 constexpr int kWindowParts = kTile / kWindowThreads;  // blocks per window
-
-// The vote of every sample of one slot at this thread's cell. `hit`
-// decides per sample, uniformly across the block, whether the sample is
-// tested at all. Must be reached by every thread of the block.
-template <class Hit>
-__device__ __forceinline__ void vote_slot(const float* __restrict__ slot, int num_samples,
-                                          Hit hit, float cy, float cx, bool in_grid,
-                                          float& votes, float& dsum) {
-  __shared__ float s[kChannels][kChunk];
-  float acc_v = 0.f, acc_d = 0.f;
-  for (int base = 0; base < num_samples; base += kChunk) {
-    const int n = min(kChunk, num_samples - base);
-    __syncthreads();  // the previous chunk is consumed
-    for (int i = threadIdx.x; i < kChannels * kChunk; i += blockDim.x) {
-      const int c = i / kChunk, j = i % kChunk;
-      if (j < n) s[c][j] = slot[c * num_samples + base + j];
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float x = s[0][j], y = s[1][j], thr = s[6][j], w = s[7][j];
-      if (!(hit(x, y, thr) && w > 0.f)) continue;  // same for every thread
-      const float u = s[2][j], v = s[3][j], d = s[4][j], t2n2 = s[5][j];
-      const float dx = __fsub_rn(cx, x);
-      const float dy = __fsub_rn(cy, y);
-      const float dot = __fadd_rn(__fmul_rn(u, dx), __fmul_rn(v, dy));
-      const float dist2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-      const bool inl = dot > 0.f && __fmul_rn(dot, dot) > __fmul_rn(t2n2, dist2) &&
-                       fabsf(dx) < thr && fabsf(dy) < thr && in_grid;
-      const float wv = inl ? w : 0.f;
-      acc_v = __fadd_rn(acc_v, wv);
-      acc_d = __fadd_rn(acc_d, __fmul_rn(wv, d));
-    }
-  }
-  votes = acc_v;
-  dsum = acc_d;
-}
 
 // This thread's samples of the chunk at `base`: sample base + p * kBlock +
 // threadIdx.x in r[p]; past the last sample, zeros (w = 0: never tested).
@@ -165,14 +152,15 @@ __device__ __forceinline__ void load_chunk(const float* __restrict__ slot, int n
   }
 }
 
-// The vote of every sample of one slot that `hit` tests, at this thread's
-// cell, by compaction (see the header). `hit` is the test of the block's
-// Pallas unit; a cell past the grid comes with cx = +inf. Must be reached
-// by every thread of a block of kBlock threads.
-template <int kBlock, int kUnroll, class Hit>
+// The vote of every sample of one slot that `hit` tests, at this
+// thread's kRows cells (rows cy[r] of one column cx), by compaction (see
+// the header). `hit` is the test of the block's Pallas unit; a cell past
+// the grid comes with cx = +inf or is not written. Must be reached by
+// every thread of a block of kBlock threads.
+template <int kBlock, int kRows, int kUnroll, class Hit>
 __device__ __forceinline__ void vote_tested(const float* __restrict__ slot, int num_samples,
-                                            Hit hit, float cy, float cx, float& votes,
-                                            float& dsum) {
+                                            Hit hit, const float (&cy)[kRows], float cx,
+                                            float (&votes)[kRows], float (&dsum)[kRows]) {
   static_assert(kChunk % kBlock == 0 && kChunk % kUnroll == 0, "chunk must split evenly");
   constexpr int kPer = kChunk / kBlock;  // samples per thread per chunk
   constexpr int kWarps = kBlock / 32;
@@ -181,7 +169,9 @@ __device__ __forceinline__ void vote_tested(const float* __restrict__ slot, int 
   __shared__ float4 tested[2][kChunk + kUnroll][2];
   __shared__ int counts[2][kChunk / 32];  // tested samples per (p, warp) of a chunk
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float acc_v = 0.f, acc_d = 0.f;
+  float acc_v[kRows], acc_d[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) acc_v[i] = acc_d[i] = 0.f;
 
   float r[kPer][kChannels];
   load_chunk<kBlock>(slot, num_samples, 0, r);
@@ -231,7 +221,8 @@ __device__ __forceinline__ void vote_tested(const float* __restrict__ slot, int 
     }
 
     // vote chunk c - 1: a step's records are loaded one step ahead; its
-    // kUnroll weights are computed side by side, then summed in order
+    // kUnroll x kRows weights are computed side by side, then summed in
+    // sample order, each cell its own chain
     const float4(*t)[2] = tested[b ^ 1];
     float4 a[kUnroll], q[kUnroll];  // [x, y, u, v], [d, t2n2, thr, w]
 #pragma unroll
@@ -246,29 +237,42 @@ __device__ __forceinline__ void vote_tested(const float* __restrict__ slot, int 
         a_next[u] = t[e + kUnroll + u][0];
         q_next[u] = t[e + kUnroll + u][1];
       }
-      float wv[kUnroll];
+      float wv[kUnroll][kRows];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
+        // the x side once for the column's cells
         const float dx = __fsub_rn(cx, a[u].x);
-        const float dy = __fsub_rn(cy, a[u].y);
-        const float dot = __fadd_rn(__fmul_rn(a[u].z, dx), __fmul_rn(a[u].w, dy));
-        const float dist2 = __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy));
-        const bool inl = (dot > 0.f) & (__fmul_rn(dot, dot) > __fmul_rn(q[u].y, dist2)) &
-                         (fabsf(dx) < q[u].z) & (fabsf(dy) < q[u].z);
-        wv[u] = inl ? q[u].w : 0.f;
+        const float udx = __fmul_rn(a[u].z, dx);
+        const float dx2 = __fmul_rn(dx, dx);
+        const bool x_in = fabsf(dx) < q[u].z;
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float dy = __fsub_rn(cy[i], a[u].y);
+          const float dot = __fadd_rn(udx, __fmul_rn(a[u].w, dy));
+          const float dist2 = __fadd_rn(dx2, __fmul_rn(dy, dy));
+          const bool inl = (dot > 0.f) & (__fmul_rn(dot, dot) > __fmul_rn(q[u].y, dist2)) &
+                           x_in & (fabsf(dy) < q[u].z);
+          wv[u][i] = inl ? q[u].w : 0.f;
+        }
       }
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
-        acc_v = __fadd_rn(acc_v, wv[u]);
-        acc_d = __fadd_rn(acc_d, __fmul_rn(wv[u], q[u].x));
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          acc_v[i] = __fadd_rn(acc_v[i], wv[u][i]);
+          acc_d[i] = __fadd_rn(acc_d[i], __fmul_rn(wv[u][i], q[u].x));
+        }
         a[u] = a_next[u];
         q[u] = q_next[u];
       }
     }
     n_voted = n_next;
   }
-  votes = acc_v;
-  dsum = acc_d;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    votes[i] = acc_v[i];
+    dsum[i] = acc_d[i];
+  }
 }
 
 // Sample reaches the tile's rows [y0, y1] (inclusive), hough_pallas.py:244-248.
@@ -288,21 +292,26 @@ struct WindowBox {
   }
 };
 
-// grid (tiles_y * tiles_x * kTile / kThreads, K); block kThreads. A block
-// covers kThreads / kTileW rows of one (kTileH, kTileW) Pallas tile; cell
-// (row, col) at pixel (col, row) * cell_stride.
-__global__ void __launch_bounds__(kThreads)
+// grid (tiles_y * tiles_x * kTileParts, K); block kTileThreads. Block
+// part p of a (kTileH, kTileW) Pallas tile holds its kTileRows rows from
+// p * kTileRows; thread t owns column t of them. Cell (row, col) lies at
+// pixel (col, row) * cell_stride.
+__global__ void __launch_bounds__(kTileThreads)
 tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bboxes,
                  float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
                  int cell_stride, int grid_h, int grid_w) {
-  constexpr int kParts = kTile / kThreads;
   const int k = blockIdx.y;
   const int tiles_x = (grid_w + kTileW - 1) / kTileW;
-  const int tile = blockIdx.x / kParts;
+  const int tile = blockIdx.x / kTileParts;
   const int ti = tile / tiles_x, tj = tile % tiles_x;
-  const int row = ti * kTileH + (blockIdx.x % kParts) * (kThreads / kTileW) + threadIdx.x / kTileW;
-  const int col = tj * kTileW + threadIdx.x % kTileW;
-  const bool in_grid = row < grid_h && col < grid_w;
+  const int row0 = ti * kTileH + (blockIdx.x % kTileParts) * kTileRows;
+  const int col = tj * kTileW + threadIdx.x;
+  float cy[kTileRows], acc_v[kTileRows], acc_d[kTileRows];
+#pragma unroll
+  for (int i = 0; i < kTileRows; ++i) {
+    cy[i] = static_cast<float>((row0 + i) * cell_stride);
+    acc_v[i] = acc_d[i] = 0.f;
+  }
 
   // the tile's pixel box [x0, x1) x [y0, y1), hough_pallas.py:72-81
   const float x0 = static_cast<float>(tj * kTileW * cell_stride);
@@ -310,16 +319,22 @@ tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
   const float y0 = static_cast<float>(ti * kTileH * cell_stride);
   const float y1 = static_cast<float>((ti + 1) * kTileH * cell_stride);
   const float* box = bboxes + k * 4;
-  float acc_v = 0.f, acc_d = 0.f;
   if (box[1] >= x0 && box[0] < x1 && box[3] >= y0 && box[2] < y1) {
-    vote_slot(samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
-              WindowBox{x0, x1, y0, y1}, static_cast<float>(row * cell_stride),
-              static_cast<float>(col * cell_stride), in_grid, acc_v, acc_d);
+    vote_tested<kTileThreads, kTileRows, kTileUnroll>(
+        samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
+        WindowBox{x0, x1, y0, y1}, cy, static_cast<float>(col * cell_stride), acc_v, acc_d);
   }
-  if (in_grid) {
-    const size_t out = (static_cast<size_t>(k) * grid_h + row) * grid_w + col;
-    votes[out] = acc_v;
-    dsum[out] = acc_d;
+  // cells past the grid voted but are not written: Pallas's in_grid mask
+  // changes no stored value
+  if (col < grid_w) {
+#pragma unroll
+    for (int i = 0; i < kTileRows; ++i) {
+      if (row0 + i < grid_h) {
+        const size_t out = (static_cast<size_t>(k) * grid_h + row0 + i) * grid_w + col;
+        votes[out] = acc_v[i];
+        dsum[out] = acc_d[i];
+      }
+    }
   }
 }
 
@@ -335,22 +350,22 @@ flat_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
   const int tile_y0 = (base / grid_w) * cell_stride;
   const int tile_y1 = ((base + kTile - 1) / grid_w) * cell_stride;
   const int fy = idx / grid_w;
-  const float cy = static_cast<float>(fy * cell_stride);
+  const float cy[1] = {static_cast<float>(fy * cell_stride)};
   const float cx = static_cast<float>((idx - fy * grid_w) * cell_stride);
 
   // cells at or past grid_h * grid_w (fy >= grid_h) are not written, so
   // they need no in_grid mask
-  float acc_v = 0.f, acc_d = 0.f;
+  float acc_v[1] = {0.f}, acc_d[1] = {0.f};
   const float y_lo = bboxes[k * 4 + 2], y_hi = bboxes[k * 4 + 3];
   if (y_hi >= static_cast<float>(tile_y0) && y_lo <= static_cast<float>(tile_y1)) {
-    vote_tested<kFlatThreads, kFlatUnroll>(
+    vote_tested<kFlatThreads, 1, kFlatUnroll>(
         samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples,
         RowSpan{static_cast<float>(tile_y0), static_cast<float>(tile_y1)}, cy, cx, acc_v, acc_d);
   }
   const int n_cells = grid_h * grid_w;
   if (idx < n_cells) {
-    votes[static_cast<size_t>(k) * n_cells + idx] = acc_v;
-    dsum[static_cast<size_t>(k) * n_cells + idx] = acc_d;
+    votes[static_cast<size_t>(k) * n_cells + idx] = acc_v[0];
+    dsum[static_cast<size_t>(k) * n_cells + idx] = acc_d[0];
   }
 }
 
@@ -368,23 +383,23 @@ window_vote_kernel(const float* __restrict__ samples, const int* __restrict__ or
   const int widx = (blockIdx.x % kWindowParts) * kWindowThreads + threadIdx.x;
   const int fy = oy + widx / kWindow;
   const int fx = ox + widx % kWindow;
-  const float cy = static_cast<float>(fy * cell_stride);
+  const float cy[1] = {static_cast<float>(fy * cell_stride)};
   // a cell past the grid votes at x = +inf, where |dx| < thr never holds
   const float cx = fy < grid_h && fx < grid_w ? static_cast<float>(fx * cell_stride)
                                               : __int_as_float(0x7f800000);
 
-  float acc_v = 0.f, acc_d = 0.f;
+  float acc_v[1] = {0.f}, acc_d[1] = {0.f};
   if (enable) {
     const WindowBox box{static_cast<float>(ox * cell_stride),
                         static_cast<float>((ox + kWindow) * cell_stride),
                         static_cast<float>(oy * cell_stride),
                         static_cast<float>((oy + kWindow) * cell_stride)};
-    vote_tested<kWindowThreads, kWindowUnroll>(
+    vote_tested<kWindowThreads, 1, kWindowUnroll>(
         samples + static_cast<size_t>(k) * kChannels * num_samples, num_samples, box, cy, cx,
         acc_v, acc_d);
   }
-  votes[static_cast<size_t>(p) * kTile + widx] = acc_v;
-  dsum[static_cast<size_t>(p) * kTile + widx] = acc_d;
+  votes[static_cast<size_t>(p) * kTile + widx] = acc_v[0];
+  dsum[static_cast<size_t>(p) * kTile + widx] = acc_d[0];
 }
 
 }  // namespace
@@ -397,8 +412,8 @@ int hough_tile_votes(const float* samples, const float* bboxes, float* votes, fl
                      void* stream) {
   if (num_slots == 0 || grid_h == 0 || grid_w == 0) return 0;
   const int n_tiles = ((grid_h + kTileH - 1) / kTileH) * ((grid_w + kTileW - 1) / kTileW);
-  const dim3 grid(n_tiles * (kTile / kThreads), num_slots);
-  tile_vote_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(n_tiles * kTileParts, num_slots);
+  tile_vote_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,7 +7,7 @@ No JAX here, so the file also runs on the GPU machine, where the
 
 Each kernel is held to its plain version bit for bit (NaN where the
 plain version gives NaN), at small scenes and at `chip_smoke`'s edge
-cases. Without a card those skip; the CPU tests check the plain c2f path
+cases (the exhaustive vote at stride 1, the c2f pair as c2f runs them). Without a card those skip; the CPU tests check the plain c2f path
 against the plain exhaustive vote and the launch bookkeeping.
 """
 
@@ -149,6 +149,23 @@ def test_tile_kernel_matches_plain(cuda, name, stride):
     pv, pd = hk.hough_votes_exhaustive_plain(samples, bboxes, **kw)
     assert_exact(kv, pv)
     assert_exact(kd, pd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_tile_kernel_matches_plain_at_edge_cases(cuda, case):
+    """S of 1-1100, ragged last tile row and column, d = inf tested (NaN
+    in the tiles it reaches) and skipped, dead slots
+    (chip_smoke.vote_edge_case), at stride 1."""
+    samples, bboxes, (h, w), _ = vote_edge_case(case)
+    samples, bboxes = torch.from_numpy(samples), torch.from_numpy(bboxes)
+    kw = dict(cell_stride=1, grid_h=h, grid_w=w)
+    n0 = hk.LAUNCHES["tile"]
+    got = hk.hough_votes_exhaustive(samples.to(cuda), bboxes.to(cuda), **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["tile"] == n0 + 1
+    for a, b in zip(got, hk.hough_votes_exhaustive_plain(samples, bboxes, **kw)):
+        assert_exact(a, b)
 
 
 @pytest.mark.cuda
