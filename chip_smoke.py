@@ -32,7 +32,25 @@ that fails, with a non-zero exit:
      scene, and every backend finds both of two same-class instances
      in multi-instance mode;
   7. the full-width forward with the exhaustive backend, and with
-     multi-instance Hough on c2f: finite, with launch counts and times.
+     multi-instance Hough on c2f: finite, with launch counts and times;
+  8. the training path at full width: the r6 phase-B flagship config
+     (`experiments/cfgs/lov_color_2d_pool_full.yaml`: 22 classes, 480×640,
+     batch 8, fc_dim 4096, adam) on seeded random weights and the
+     procedural class library, the pooled synthetic feed through the
+     prefetcher, bf16 train steps through `cli/train_net.build_trainer`:
+     2 warm-up and 6 timed steps with the feed's render threads running,
+     then 6 on held batches with them stopped, each of which must launch
+     the flat and window kernels; the loss and every gradient finite, the
+     parameters moved, pose rows supervised; the flat, window and tile
+     kernels bit for bit against their plain versions on the packed
+     samples and window origins of a step's Hough (64 slots, 256 samples,
+     vertex factor 8), on the model's inputs and on the GT's; the step's
+     training Hough on c2f equal to the exhaustive backend's row for row
+     on the GT inputs at the step's vertex factor; ms per step,
+     images/s, peak memory, the forward / backward / optimizer / Hough
+     split, the feed's production time and whether its queue ran dry, the
+     device's busy share (profiler), and FLOPs per step
+     (FlopCounterMode) with MFU.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -44,6 +62,7 @@ from __future__ import annotations
 
 import base64
 import json
+import os
 import re
 import subprocess
 import sys
@@ -56,8 +75,11 @@ import numpy as np
 HEIGHT, WIDTH, NUM_CLASSES = 480, 640, 22
 SAMPLES, MAX_CLASSES = 1024, 8
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): fp32 on
-# the CUDA cores, and HBM3 bandwidth
-PEAK_FP32_OPS, PEAK_BYTES = 67e12, 3.35e12
+# the CUDA cores, bf16 on the tensor cores, and HBM3 bandwidth
+PEAK_FP32_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
+TRAIN_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "cfgs",
+                         "lov_color_2d_pool_full.yaml")
+TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 # the fp32 additions, subtractions and multiplications the vote needs
 # (hough_kernels.votes_at; comparisons and selects are not counted): per
 # tested (cell, sample) pair the 6 that depend on the cell (dot's and
@@ -657,6 +679,352 @@ def phase_full_width(device, card):
     return runs
 
 
+def kernel_busy_ms(prof):
+    """Device milliseconds of all kernels and copies torch.profiler
+    recorded: the device-side events' self times (a CPU op's device time
+    repeats its kernels')."""
+    from torch.autograd import DeviceType
+
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA) / 1e3
+
+
+def top_kernels(prof, n, steps):
+    """The n device-side events with the most device time, as
+    'name ms-per-step' strings (names cut to 60 characters)."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((ev for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA),
+                 key=lambda ev: -ev.self_device_time_total)[:n]
+    return [f"{ev.key[:60]} {ev.self_device_time_total / 1e3 / steps:.2f}" for ev in evs]
+
+
+def train_hough_inputs(tr, step, batch):
+    """The Hough inputs of one train step, as (label (B, H, W), 1/8 vertex
+    map (B, H/8, W/8, 3C)) pairs: "step", the model's training forward at
+    the state's step (its dropout streams), as the step votes; "gt", the
+    batch's GT labels and its vertex targets averaged over 8×8 blocks,
+    which vote for the GT centres. Returns (the decompressed batch, the
+    pairs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from posecnn_torch.engine.train import decompress_feed, dropout_generators
+    from posecnn_torch.ops.losses import build_vertex_targets
+
+    model, f = tr.model, tr.model.hough_kw["vertex_factor"]
+    b = decompress_feed(batch, tr.cfg)
+    gens = dropout_generators(tr.cfg.rng_seed, tr.state.step, tr.device)
+    with torch.no_grad():
+        c4, c5 = model.trunk(b["data"])
+        label = torch.argmax(model.seg_head(c4, c5, keep_prob=step.keep_prob,
+                                            generator=gens[0]).float(), dim=-1)
+        vert = model.vertex_head(c4, c5, keep_prob=step.keep_prob, generator=gens[1]).float()
+        del c4, c5
+        targets, _ = build_vertex_targets(b["label"], b["vertex_centers"], b["vertex_logz"],
+                                          b["vertex_valid"],
+                                          weight_inside=tr.cfg.train.vertex_w_inside)
+        vert_gt = F.avg_pool2d(targets.permute(0, 3, 1, 2), f).permute(0, 2, 3, 1).contiguous()
+    return b, {"step": (label, vert.contiguous()), "gt": (b["label"], vert_gt)}
+
+
+def train_kernels_vs_plain(tr, b, inputs):
+    """flat, window and tile kernels against their plain versions, bit for
+    bit, on the packed samples, boxes and window origins of each input
+    pair at the training Hough's shapes (B·K slots, the step's
+    `hough_num_samples`, its vertex factor). The origins are those the
+    step's c2f call picks. Returns {input: (slots, live slots, samples,
+    peak coarse vote)} and the largest error of each kernel."""
+    import torch
+
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.hough_voting import prepare_votes
+
+    kw = tr.model.hough_kw
+    s = kw["cell_stride"]
+    shapes, errs = {}, {"tile": 0.0, "flat": 0.0, "window": 0.0}
+    for name, (label, vert) in inputs.items():
+        preps, packed, bboxes = prepare_votes(
+            label, vert, tr.extents, b["meta"], skip_pixels=kw["skip_pixels"],
+            num_samples=kw["num_samples"], vertex_factor=kw["vertex_factor"])
+        h, w = label.shape[1] // s, label.shape[2] // s
+        fine = dict(cell_stride=s, grid_h=h, grid_w=w)
+        coarse = dict(cell_stride=s * hk.COARSE, grid_h=-(-h // hk.COARSE),
+                      grid_w=-(-w // hk.COARSE))
+        win = hk.hough_votes_c2f_windows(packed, bboxes, **fine)
+        origins = torch.stack([win[2], win[3], win[4].long()], -1).reshape(-1, 3).int()
+        origins = origins.contiguous()
+        pairs = {
+            "flat": (hk.hough_votes_flat(packed, bboxes, **coarse),
+                     hk.hough_votes_flat_plain(packed, bboxes, **coarse)),
+            "window": (hk.hough_votes_windows(packed, origins, **fine),
+                       hk.hough_votes_windows_plain(packed, origins, **fine)),
+            "tile": (hk.hough_votes_exhaustive(packed, bboxes, **fine),
+                     hk.hough_votes_exhaustive_plain(packed, bboxes, **fine)),
+        }
+        for kernel, (got, want) in pairs.items():
+            for a, c in zip(got, want):
+                err, ok = exact(a, c)
+                if not ok:
+                    raise AssertionError(f"{KERNELS[kernel]} disagrees with its plain version "
+                                         f"on the train step's {name} inputs: max_abs_err {err}")
+                errs[kernel] = max(errs[kernel], err)
+        live = sum(int(p["slot_valid"].sum()) for p in preps)
+        shapes[name] = (packed.shape[0], live, packed.shape[2],
+                        float(pairs["flat"][1][0].max()))
+    if shapes["gt"][1] == 0 or shapes["gt"][3] <= 0:
+        raise AssertionError("the train step's GT inputs gave no live slot: nothing compared")
+    return shapes, errs
+
+
+def train_hough_gate(tr, b, vert):
+    """The training Hough of c2f against the exhaustive backend on one
+    step's GT inputs at the step's vertex factor, as `cli/validate.py`
+    gates the eval path: valid, targets and weights equal, the valid
+    rows' rois within 1e-5. Returns (valid rows, matched rows, launches
+    of each backend's run)."""
+    import torch
+
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.hough_voting import hough_voting
+
+    outs, launches = {}, {}
+    for backend in ("c2f", "exhaustive"):
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        kw = dict(tr.model.hough_kw, backend=backend)
+        outs[backend] = hough_voting(b["label"], vert, tr.extents, b["meta"], b["gt_poses"],
+                                     b["gt_valid"], is_train=True, **kw)
+        torch.cuda.synchronize()
+        launches[backend] = dict(hk.LAUNCHES)
+    got, want = outs["c2f"], outs["exhaustive"]
+    valid = want.valid
+    for name in ("valid", "poses_target", "poses_weight", "domains"):
+        if not torch.equal(getattr(got, name), getattr(want, name)):
+            raise AssertionError(f"training Hough: c2f {name} != exhaustive")
+    if not torch.allclose(got.rois[valid], want.rois[valid], rtol=0, atol=1e-5):
+        raise AssertionError("training Hough: c2f rois != exhaustive rois")
+    matched = int(((want.poses_weight.amax(1) > 0) & valid).sum())
+    if int(valid.sum()) == 0 or matched == 0:
+        raise AssertionError(f"training Hough gate: {int(valid.sum())} valid rows, {matched} "
+                             "matched: nothing compared")
+    if launches["c2f"]["flat"] < 1 or launches["c2f"]["window"] < 1 or (
+            launches["exhaustive"]["tile"] < 1):
+        raise AssertionError(f"training Hough gate: a kernel never launched: {launches}")
+    return int(valid.sum()), matched, launches
+
+
+def timed_steps(step, state, batches):
+    """Run `step` on each batch (an iterator or a list) with CUDA events
+    around each call. Returns (device ms per step, launches per step,
+    metrics per step, host seconds spent waiting for batches, wall s)."""
+    import torch
+
+    from posecnn_torch.ops import hough_kernels as hk
+
+    events, launches, metrics, wait_s = [], [], [], 0.0
+    wall0 = time.perf_counter()
+    it = iter(batches)
+    while True:
+        w0 = time.perf_counter()
+        try:
+            batch = next(it)
+        except StopIteration:
+            break
+        wait_s += time.perf_counter() - w0
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics.append(step(state, batch))
+        end.record()
+        launches.append(dict(hk.LAUNCHES))
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return ([a.elapsed_time(b) for a, b in events], launches, metrics, wait_s,
+            time.perf_counter() - wall0)
+
+
+def check_train_steps(launches, metrics):
+    """Each step launched the flat and window kernels, its metrics are
+    finite and it supervised pose rows."""
+    for i, (counts, m) in enumerate(zip(launches, metrics)):
+        if counts["flat"] < 1 or counts["window"] < 1:
+            raise AssertionError(f"train step {i}: flat or window never launched: {counts}")
+        values = {k: float(v) for k, v in m.items()}
+        if not all(np.isfinite(list(values.values()))):
+            raise AssertionError(f"train step {i}: non-finite metrics {values}")
+        if values["num_pose_rois"] <= 0:
+            raise AssertionError(f"train step {i}: no supervised pose rows")
+
+
+def phase_train(card):
+    """The training path at full width; returns the launch counts of each
+    timed step with the feed running."""
+    import itertools
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from posecnn_torch.cli import train_net
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.engine.train import make_train_step
+    from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
+
+    # the flagship yaml sets hough_backend "xla" to get around a TPU
+    # Mosaic compile failure at batch 16 (lov_color_2d_pool_b16.yaml:37-38);
+    # the card's kernels do not have it, so the TrainConfig default
+    # "auto" (c2f) runs here
+    args = train_net.make_parser().parse_args(
+        ["--cfg", TRAIN_CFG, "--set", "train.hough_backend=auto"])
+    t0 = time.perf_counter()
+    tr = train_net.build_trainer(args, train_net.load_config(args))
+    t = tr.cfg.train
+    batch_size = t.ims_per_batch
+    step = make_train_step(tr.cfg, tr.model, tr.points, tr.extents, tr.symmetry)
+    before = [p.detach().clone() for p in tr.model.parameters()]
+    setup_s = time.perf_counter() - t0
+    try:
+        for _ in range(TRAIN_WARMUP):
+            step(tr.state, next(tr.batches))
+        warm_s = time.perf_counter() - t0 - setup_s
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tr.batches.gets = tr.batches.dry = 0
+        # with the feed's two render threads running, as training runs
+        feed_ms, feed_launches, metrics, wait_s, feed_wall = timed_steps(
+            step, tr.state, itertools.islice(tr.batches, TRAIN_TIMED))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dry, gets = tr.batches.dry, tr.batches.gets
+        held = [next(tr.batches) for _ in range(3)]
+    finally:
+        tr.batches.close()
+    produce = sorted(tr.batches.produce_seconds)
+
+    check_train_steps(feed_launches, metrics)
+    # one more step by its parts: its gradients as backward left them (the
+    # update rewrites them in place with the decay and the clip)
+    total, _ = step.forward(tr.state, held[2])
+    step.backward(total)
+    bad = [n for n, p in tr.model.named_parameters()
+           if p.grad is None or not bool(torch.isfinite(p.grad).all())]
+    if bad or not bool(torch.isfinite(total)):
+        raise AssertionError(f"loss {float(total)}; missing or non-finite gradients: {bad[:5]}")
+    step.update(tr.state)
+    del total
+    still = [n for (n, p), b in zip(tr.model.named_parameters(), before) if torch.equal(p, b)]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still[:5]}")
+    del before
+
+    # the same steps with the feed's threads stopped, on held batches
+    alone_ms, alone_launches, alone_metrics, _, _ = timed_steps(step, tr.state, held * 2)
+    check_train_steps(alone_launches, alone_metrics)
+    # one batch produced with nothing else running (a fresh producer:
+    # its first call fills the pool, the next renders the fresh scenes)
+    make_batch = tr.make_batch_factory(2)
+    p0 = time.perf_counter()
+    make_batch()
+    fill_s = time.perf_counter() - p0
+    p0 = time.perf_counter()
+    make_batch()
+    produce_alone_s = time.perf_counter() - p0
+
+    # the split of one step, twice: forward (Hough inside), backward, update
+    split = {"forward": 0.0, "backward": 0.0, "optimizer": 0.0}
+    for batch in held[:2]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, _ = step.forward(tr.state, batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        step.update(tr.state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        for j, name in enumerate(split):
+            split[name] += ev[j].elapsed_time(ev[j + 1]) / 2
+    # Hough alone on a step's inputs, and one image's sample prep
+    b, hough_inputs = train_hough_inputs(tr, step, held[0])
+    label, vert = hough_inputs["step"]
+    kw = tr.model.hough_kw
+
+    def hough():
+        return hough_voting(label, vert, tr.extents, b["meta"], b["gt_poses"], b["gt_valid"],
+                            is_train=True, **kw)
+
+    hough_ms = device_ms(hough, tr.device, 5)
+    h0 = time.perf_counter()
+    for _ in range(5):
+        hough()
+    hough_host_ms = (time.perf_counter() - h0) / 5 * 1e3  # enqueue only, no synchronise
+    torch.cuda.synchronize()
+    prep_ms = device_ms(lambda: _prepare_slots(
+        label[0], vert[0], tr.extents, b["meta"][0], num_classes=t.num_classes,
+        label_threshold=500, skip_pixels=kw["skip_pixels"], num_samples=kw["num_samples"],
+        max_classes=8, vertex_factor=8), tr.device, 10)
+
+    # the device's busy share over two steps (profiled, so the host is slower)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p0 = time.perf_counter()
+        for batch in held[:2]:
+            step(tr.state, batch)
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.perf_counter() - p0) * 1e3
+    busy_ms = kernel_busy_ms(prof) / 2  # per step
+    top = top_kernels(prof, 10, 2)
+
+    # FLOPs of one step (the forward and backward products and convolutions)
+    with FlopCounterMode(display=False) as counter:
+        step(tr.state, held[2])
+    flops = counter.get_total_flops()
+
+    # the kernels against their plain versions at the training Hough's
+    # shapes, then c2f against the exhaustive backend on the GT inputs
+    vote_shapes, vote_errs = train_kernels_vs_plain(tr, b, hough_inputs)
+    valid_rows, matched, gate_launches = train_hough_gate(tr, b, hough_inputs["gt"][1])
+    ms, ms_feed = float(np.mean(alone_ms)), float(np.mean(feed_ms))
+    wall_feed = 1e3 * feed_wall / TRAIN_TIMED
+    dtype = str(tr.model.trunk.compute_dtype).removeprefix("torch.")
+    print(f"phase 8 train step at full width (r6 phase-B flagship, {t.num_classes} classes, "
+          f"{t.syn_height}x{t.syn_width}, batch {batch_size}, num_units {t.num_units}, fc_dim "
+          f"{t.fc_dim}, {t.optimizer}, grad_clip {t.grad_clip}, pool {t.syn_pool_size}/"
+          f"{t.syn_pool_fresh} fresh, hough_backend auto = c2f, {dtype}) on {card}: set-up "
+          f"{setup_s:.1f} s, first batches and warm-up {warm_s:.1f} s; "
+          f"{TRAIN_TIMED} steps with the feed's 2 threads running: ms per step (CUDA events) "
+          f"{', '.join(f'{x:.2f}' for x in feed_ms)} (mean {ms_feed:.2f}), wall {wall_feed:.2f} "
+          f"ms per step, {batch_size * TRAIN_TIMED / feed_wall:.1f} images/s, waited on the feed "
+          f"{1e3 * wait_s / TRAIN_TIMED:.2f} ms per step, queue dry at {dry} of {gets} gets, "
+          f"batch production median {1e3 * produce[len(produce) // 2]:.1f} ms (max "
+          f"{1e3 * produce[-1]:.1f}) over {len(produce)} batches, peak memory {peak_gb:.2f} GB; "
+          f"{len(alone_ms)} steps with the feed stopped: ms per step "
+          f"{', '.join(f'{x:.2f}' for x in alone_ms)} (mean {ms:.2f}), "
+          f"{1e3 * batch_size / ms:.1f} images/s; one batch produced alone "
+          f"{1e3 * produce_alone_s:.1f} ms ({1e3 * fill_s:.1f} ms for the first, which fills "
+          f"the pool with {batch_size} renders); split (CUDA events, mean of 2, feed stopped): "
+          f"forward {split['forward']:.2f} ms (Hough inside), backward {split['backward']:.2f} "
+          f"ms, optimizer {split['optimizer']:.2f} ms; Hough alone {hough_ms:.2f} ms device, "
+          f"{hough_host_ms:.2f} ms host enqueue, _prepare_slots {prep_ms:.3f} ms an image; "
+          f"device busy {busy_ms:.2f} ms per step, {100 * busy_ms / (prof_wall_ms / 2):.1f}% of "
+          f"2 profiled steps ({prof_wall_ms:.1f} ms), {100 * busy_ms / wall_feed:.1f}% of the "
+          f"wall with the feed; top device events, ms per step: {'; '.join(top)}; "
+          f"{flops / 1e12:.3f} TFLOP per step (FlopCounterMode), "
+          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, MFU "
+          f"{100 * flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16 at the "
+          f"feed-stopped rate ({100 * flops / (wall_feed / 1e3) / PEAK_BF16_FLOPS:.2f}% at the "
+          f"wall with the feed); launches per step with the feed {feed_launches}; final loss "
+          f"{float(metrics[-1]['loss']):.4f}, pose rows {float(metrics[-1]['num_pose_rois']):.0f}"
+          f"; flat, window and tile kernels == plain, bit for bit, at the training Hough's "
+          f"shapes (slots, live slots, samples, peak coarse vote): "
+          + ", ".join(f"{n} inputs {v[:3]}, {v[3]:.1f}" for n, v in vote_shapes.items())
+          + f", max_abs_err {vote_errs}; training Hough c2f == exhaustive on a step's GT inputs "
+          f"at vertex factor {kw['vertex_factor']}: {valid_rows} valid rows, {matched} matched, "
+          f"launches {gate_launches}", flush=True)
+    return feed_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -690,6 +1058,7 @@ def main() -> int:
     launches = phase_serve(card)
     phase_validate(device)
     runs = phase_full_width(device, card)
+    phase_train(card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair
     launches["tile"] = runs["exhaustive"]["tile"]

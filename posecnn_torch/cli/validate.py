@@ -16,17 +16,24 @@ Counterpart of `experiments/validate_tpu.py`:
    with peak votes within 5% across backends; each backend's Hough time
    by CUDA events;
 4. the serving forward at the default config, finite;
+3b. one train step at the config of `experiments/cfgs/lov_color_2d.yaml`
+   (batch 2, pooled feed off, symmetry off): the loss is finite;
+4a. the ADD-loss probe: plain SGD on one RoI's fc8 logits, through the
+   loss the train step uses, recovers a target rotation to under 15°;
+4a2. the probe loss's gradient on the card against the same gradient on
+   the CPU: within 5% of its largest entry (the JAX original compared
+   eager against jit on the TPU, where a compiler bug once lived);
 5. the renderer's rotation signal: a 45° turn of an object changes its
    pixels well above the change of a sub-pixel shift.
 
-Prints one JSON line and writes it to `--out`. Not ported yet: the
-train step (3b) and the ADD-loss probes (4a, 4a2) of the original,
-which wait for the training slice.
+Prints one JSON line and writes it to `--out`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import os
 import sys
 import time
@@ -36,19 +43,28 @@ import numpy as np
 import torch
 
 from posecnn_torch.cli.common import base_parser, setup_device
-from posecnn_torch.core.config import Config
+from posecnn_torch.core.config import cfg_from_file
+from posecnn_torch.data.pipeline import to_device
 from posecnn_torch.data.procedural import synthetic_class_library
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+from posecnn_torch.engine.train import (
+    create_train_state,
+    loss_point_scale,
+    make_train_step,
+)
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 from posecnn_torch.ops import _cuda
+from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.hough_voting import BACKENDS, hough_voting
-from posecnn_torch.utils.quaternion import quat_to_mat_np
+from posecnn_torch.utils.quaternion import quat_to_mat, quat_to_mat_np
 
 NUM_CLASSES = 22
 HOUGH_KW = dict(num_samples=128, max_classes=8, max_objects_per_image=8, cell_stride=1)
 MULTI_KW = dict(HOUGH_KW, vote_threshold=5.0, vote_percentage=1e-4)
 MULTI_CLASS = 5
 PROBE_CLASS = 3
+TRAIN_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "experiments",
+                         "cfgs", "lov_color_2d.yaml")
 
 
 def scene(height, width, num_classes=NUM_CLASSES):
@@ -101,11 +117,67 @@ def device_ms(fn, device, n=10, warm=True):
     return start.elapsed_time(end) / n
 
 
+def probe_loss(x, points, extents, num_classes=NUM_CLASSES):
+    """The ADD loss of one RoI whose class-PROBE_CLASS fc8 logits are
+    tanh(x), against the target quaternion of `probe_target`, through
+    the pose head's mask and normalisation (experiments/validate_tpu.py
+    part 4a)."""
+    target, weight = probe_target(x.device, num_classes)
+    row = torch.zeros((1, 4 * num_classes), device=x.device)
+    row[0, 4 * PROBE_CLASS:4 * PROBE_CLASS + 4] = torch.tanh(x)
+    masked = row * weight
+    norm = torch.sqrt((masked * masked).sum(1, keepdim=True) + 1e-12)
+    pts, sym = loss_point_scale(points, extents, torch.zeros(num_classes, device=x.device), True)
+    return average_distance_loss(masked / norm, target, weight, pts, sym, margin=0.01,
+                                 num_valid=torch.tensor(1.0, device=x.device))
+
+
+def probe_target(device, num_classes=NUM_CLASSES):
+    """(target, weight) rows of the probe: a random unit quaternion (seed
+    7) in class PROBE_CLASS's columns."""
+    q = np.random.RandomState(7).randn(4)
+    q /= np.linalg.norm(q)
+    target = np.zeros((1, 4 * num_classes), np.float32)
+    weight = np.zeros((1, 4 * num_classes), np.float32)
+    target[0, 4 * PROBE_CLASS:4 * PROBE_CLASS + 4] = q
+    weight[0, 4 * PROBE_CLASS:4 * PROBE_CLASS + 4] = 1.0
+    return torch.from_numpy(target).to(device), torch.from_numpy(weight).to(device)
+
+
+def rotation_probe(device, points, extents, steps=400, lr=0.05):
+    """Part 4a: the rotation error (degrees) after `steps` of plain SGD on
+    the probe's logits from a small random start (seed 7's draws after
+    the target)."""
+    rng = np.random.RandomState(7)
+    rng.randn(4)  # the target's draw
+    x = torch.tensor(rng.randn(4) * 0.1, dtype=torch.float32, device=device, requires_grad=True)
+    for _ in range(steps):
+        (g,) = torch.autograd.grad(probe_loss(x, points, extents), x)
+        with torch.no_grad():
+            x -= lr * g
+    with torch.no_grad():
+        q = torch.tanh(x) / torch.linalg.vector_norm(torch.tanh(x))
+        target, _ = probe_target(device)
+        r_rel = quat_to_mat(q) @ quat_to_mat(target[0, 4 * PROBE_CLASS:4 * PROBE_CLASS + 4]).T
+        cos = ((torch.trace(r_rel) - 1.0) / 2.0).clamp(-1.0, 1.0)
+        return math.degrees(math.acos(float(cos)))
+
+
+def probe_gradient(device, points, extents):
+    """Part 4a2's gradient of the probe loss at a fixed point (seed 8)."""
+    x = torch.tensor(np.random.RandomState(8).randn(4) * 0.3, dtype=torch.float32,
+                     device=device, requires_grad=True)
+    (g,) = torch.autograd.grad(probe_loss(x, points.to(device), extents.to(device)), x)
+    return g.cpu()
+
+
 def run_checks(device, height=480, width=640, cfg=None):
-    """Parts 1-5 above on `device`; `cfg` sizes the serving forward
-    (default: the default Config). A smaller height and width rehearse
-    the checks on the CPU. Returns the result dict; raises
-    AssertionError on a failed check."""
+    """The parts above on `device`; `cfg` sizes the serving forward and
+    the train step (default: `experiments/cfgs/lov_color_2d.yaml`; the
+    train step turns its vertex and pose regression on, as the original
+    does). A smaller height and width rehearse the checks on the CPU,
+    where 4a2 has no second device and reads "not measured". Returns the
+    result dict; raises AssertionError on a failed check."""
     result = {"device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
               "height": height, "width": width, "num_classes": NUM_CLASSES}
     t0 = time.perf_counter()
@@ -169,16 +241,50 @@ def run_checks(device, height=480, width=640, cfg=None):
     }
 
     # ---- 4: the serving forward at the default config, finite ----
-    cfg = cfg or Config()
+    cfg = cfg or cfg_from_file(TRAIN_CFG)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = PoseCNN(NUM_CLASSES, num_units=cfg.train.num_units, fc_dim=cfg.train.fc_dim,
-                    hough_num_samples=cfg.test.hough_num_samples,
-                    compute_dtype=torch.bfloat16 if device.type == "cuda" else torch.float32)
+                    hough_num_samples=cfg.test.hough_num_samples, compute_dtype=dtype)
     init_weights(model, cfg.rng_seed)
     out = model.to(device)(torch.from_numpy(batch["data"]).to(device), ext, meta)
     for name in ("log_prob", "poses_pred"):
         require(bool(torch.isfinite(getattr(out, name)).all()), f"serving forward: {name}")
     require(bool(torch.isfinite(out.hough.rois).all()), "serving forward: rois")
     result["serving_forward"] = "ok"
+    del model, out
+
+    # ---- 3b: one train step at the config's widths, batch 2 ----
+    tcfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, vertex_reg_2d=True, pose_reg=True))
+    t = tcfg.train
+    model = PoseCNN(NUM_CLASSES, num_units=t.num_units, fc_dim=t.fc_dim,
+                    hough_num_samples=t.hough_num_samples,
+                    max_objects=max(1, t.max_rois // 2 // 9), compute_dtype=dtype)
+    init_weights(model, 0)
+    model = model.to(device)
+    lib = synthetic_class_library(NUM_CLASSES, 2620)
+    pidx = np.linspace(0, lib.points.shape[1] - 1, t.add_num_points).astype(int)
+    points = torch.from_numpy(lib.points[:, pidx]).to(device)
+    step = make_train_step(tcfg, model, points, ext, torch.zeros(NUM_CLASSES, device=device))
+    tb = to_device(gen.minibatch(2, max_gt=16, dense_vertex_targets=False), device)
+    metrics = step(create_train_state(tcfg, model), tb)
+    loss = float(metrics["loss"])
+    require(math.isfinite(loss), f"train-step loss not finite: {loss}")
+    result["train_step_loss"] = round(loss, 4)
+    del model, step, tb
+
+    # ---- 4a: the ADD-loss SGD probe; 4a2: its gradient, card vs CPU ----
+    rot_err = rotation_probe(device, points, ext)
+    require(rot_err < 15.0, f"ADD-loss SGD probe stuck at {rot_err:.1f} deg")
+    result["rot_probe_final_deg"] = round(rot_err, 2)
+    if device.type == "cuda":
+        g_card = probe_gradient(device, points, ext)
+        g_cpu = probe_gradient(torch.device("cpu"), points.cpu(), ext.cpu())
+        gap = float((g_card - g_cpu).abs().max() / (g_cpu.abs().max() + 1e-9))
+        require(gap < 0.05, f"the card's probe gradient is {100 * gap:.2f}% off the CPU's")
+        result["probe_grad_card_vs_cpu"] = gap
+    else:
+        result["probe_grad_card_vs_cpu"] = "not measured"
 
     # ---- 5: the rendered rotation signal ----
     light = np.array([0.2, -0.3, -0.9], np.float32)
@@ -206,7 +312,7 @@ def run_checks(device, height=480, width=640, cfg=None):
 
 
 def main(argv=None) -> int:
-    p = base_parser("Validate the port's Hough vote kernels on the card")
+    p = base_parser("Validate the port's Hough vote kernels and training step on the card")
     p.add_argument("--out", default="output/validate_gpu.json", help="where the JSON line goes")
     args = p.parse_args(argv)
     device = setup_device(args.device)

@@ -1,0 +1,60 @@
+"""Training snapshots in the JAX package's `.npz` layout.
+
+Counterpart of `posecnn_tpu/core/checkpoint.py:25-117`. `save_params`
+writes what that module's `save_params` writes: one flat `.npz` of
+`params/<module>/<name>/<kernel|bias>` arrays in flax layout (conv HWIO,
+dense (in, out)), `__step__`, and `__meta_<flag>__` for the forward-pass
+flags that do not change parameter shapes. So a port snapshot restores in
+the JAX package (`posecnn_tpu.core.checkpoint.restore_params`) and a JAX
+one here, both ways.
+
+`restore_params` is strict where the JAX one keeps its template for a
+missing or reshaped entry: every parameter must be in the file with its
+shape (`core/weights.load_jax_checkpoint`).
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from typing import Optional
+
+import numpy as np
+import torch
+
+from posecnn_torch.core.weights import load_jax_checkpoint, params_to_jax
+
+
+def save_params(path: str, model: torch.nn.Module, step: int = 0,
+                meta: Optional[dict] = None) -> None:
+    flat = params_to_jax(model.state_dict())
+    flat["__step__"] = np.asarray(step)
+    for k, v in (meta or {}).items():
+        flat[f"__meta_{k}__"] = np.asarray(v)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **flat)
+
+
+def restore_params(path: str, model: torch.nn.Module) -> int:
+    """Load a snapshot into `model` in place; returns its step."""
+    load_jax_checkpoint(model, path)
+    with np.load(path if path.endswith(".npz") else path + ".npz") as data:
+        return int(data["__step__"]) if "__step__" in data.files else 0
+
+
+def snapshot_path(output_dir: str, prefix: str, infix: str, iteration: int) -> str:
+    """<prefix>[_<infix>]_iter_N.npz, the reference's naming."""
+    name = prefix + (f"_{infix}" if infix else "") + f"_iter_{iteration}.npz"
+    return os.path.join(output_dir, name)
+
+
+def prune_snapshots(output_dir: str, prefix: str, keep: int = 12) -> None:
+    """Keep the newest `keep` snapshots of `prefix` in `output_dir`."""
+    pat = re.compile(re.escape(prefix) + r".*_iter_(\d+)\.npz$")
+    found = []
+    for f in os.listdir(output_dir):
+        m = pat.match(f)
+        if m:
+            found.append((int(m.group(1)), f))
+    for _, f in sorted(found)[:-keep]:
+        os.remove(os.path.join(output_dir, f))

@@ -1,4 +1,4 @@
-"""Weight bridge: JAX `.npz` checkpoints → the port's `state_dict`.
+"""Weight bridge between JAX `.npz` checkpoints and the port's `state_dict`.
 
 Counterpart of `posecnn_tpu/core/checkpoint.py:25-62`. `save_params`
 there writes one flat `.npz` whose parameter keys are
@@ -15,6 +15,8 @@ Conv kernels go from flax's HWIO to torch's OIHW; Dense kernels from
 (in, out) to Linear's (out, in). fc6's rows need no permutation: the
 port flattens the pooled (R, p, p, C) features in the same NHWC order
 as the JAX pose head (`posecnn_tpu/models/posecnn.py:134`).
+`params_to_jax` is the inverse map, which `core/checkpoint.save_params`
+writes.
 """
 
 from __future__ import annotations
@@ -70,6 +72,24 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
         name = f"{_MODULE_NAMES[module]}.{layer}.{'weight' if kind == 'kernel' else 'bias'}"
         state[name] = torch.tensor(arr)  # a contiguous copy
     return state
+
+
+def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: a PoseCNN `state_dict` as flat
+    `params/<module>/<name>/<kernel|bias>` fp32 arrays, conv kernels
+    OIHW → HWIO, Linear weights (out, in) → (in, out)."""
+    modules = {port: jax_name for jax_name, port in _MODULE_NAMES.items()}
+    flat = {}
+    for name, value in state.items():
+        module, layer, kind = name.split(".")
+        if module not in modules or kind not in ("weight", "bias"):
+            raise KeyError(f"state_dict key {name!r} has no place in a JAX checkpoint")
+        arr = value.detach().cpu().float().numpy()
+        if kind == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        flat[f"params/{modules[module]}/{layer}/{'kernel' if kind == 'weight' else 'bias'}"] = (
+            np.ascontiguousarray(arr))
+    return flat
 
 
 def load_jax_checkpoint(model: torch.nn.Module, path: str) -> None:

@@ -1,10 +1,12 @@
 """Procedural class library for the server's synthetic stand-in geometry.
 
-The port's copy of `posecnn_tpu/data/procedural.py:42-247, 483-504`
+The port's copy of `posecnn_tpu/data/procedural.py:42-247, 483-530`
 (numpy only): `make_procedural_objects` and `synthetic_class_library`,
 which `cli/serve.py` uses for the class extents when no dataset root is
-given. It is carried here because `posecnn_tpu.data` imports jax. Same
-seed, same numbers: `tests/test_torch_posecnn.py` holds the two equal.
+given and `cli/train_net.py` trains on, and `load_background_pool` for
+the training renders' backgrounds. It is carried here because
+`posecnn_tpu.data` imports jax. Same seed, same numbers:
+`tests/test_torch_posecnn.py` holds the two equal.
 """
 
 from __future__ import annotations
@@ -240,3 +242,26 @@ def synthetic_class_library(
             obj.extents, obj.symmetry,
         )
     return obj
+
+
+def load_background_pool(paths, size_hw=None):
+    """(N, H, W, 3) float32 BGR frames in [0, 255] read from `paths`
+    (resized to size_hw), for compositing behind synthetic renders. Raises
+    if PIL is absent, `paths` is empty or a file cannot be read: the
+    caller asked for these frames."""
+    try:
+        from PIL import Image
+    except ImportError as err:
+        raise ImportError("reading background frames needs PIL (pillow)") from err
+    if not paths:
+        raise ValueError("no background frames given")
+    ims = []
+    for p in paths:
+        try:
+            im = Image.open(p).convert("RGB")
+        except OSError as err:
+            raise OSError(f"cannot read background frame {p!r}: {err}") from err
+        if size_hw is not None:
+            im = im.resize((size_hw[1], size_hw[0]), Image.BILINEAR)
+        ims.append(np.asarray(im, np.float32)[:, :, ::-1])  # RGB → BGR, the blob order
+    return np.stack(ims)

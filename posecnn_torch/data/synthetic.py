@@ -15,7 +15,9 @@ separation by rejection. Same seed, same arrays as the original
 paths; the JAX package may run them in C++ (`native/blobops.cpp`),
 which picks the same nearest point per pixel.
 
-Not carried yet: `pooled_minibatch` (training's replay pool) and
+`pooled_minibatch` is the training feed's replay pool (`:405-445`):
+`fresh` new renders per call, the batch drawn from a rolling pool of
+recent scenes, with σ = 8 gaussian noise per draw. Not carried yet:
 `SyntheticSequenceGenerator` (the video family).
 """
 
@@ -300,6 +302,30 @@ class SyntheticSceneGenerator:
         (H, W, 3C) maps."""
         samples = [self.render(dense_vertex_targets=dense_vertex_targets)
                    for _ in range(batch_size)]
+        return self._collate(samples, max_gt, dense_vertex_targets)
+
+    def pooled_minibatch(self, batch_size: int, max_gt: int = 16,
+                         dense_vertex_targets: bool = True, pool_size: int = 512,
+                         fresh: int = 2):
+        """A batch drawn from a rolling pool of recent scenes: the first
+        call renders `batch_size` scenes, each later call `fresh` new ones;
+        the pool keeps the newest `pool_size`. Per-draw gaussian noise
+        (σ = 8) decorrelates the repeated scenes."""
+        if not hasattr(self, "_pool"):
+            self._pool: list = []
+        n_new = fresh if self._pool else batch_size
+        for _ in range(n_new):
+            self._pool.append(self.render(dense_vertex_targets=dense_vertex_targets))
+        if len(self._pool) > pool_size:
+            del self._pool[: len(self._pool) - pool_size]
+        idx = self.rng.randint(0, len(self._pool), batch_size)
+        batch = self._collate([self._pool[i] for i in idx], max_gt, dense_vertex_targets)
+        batch["data"] = batch["data"] + self.rng.randn(
+            *batch["data"].shape).astype(np.float32) * 8.0
+        return batch
+
+    @staticmethod
+    def _collate(samples, max_gt: int, dense_vertex_targets: bool):
         batch = {
             "data": np.stack([s.image for s in samples]),
             "label": np.stack([s.label for s in samples]),

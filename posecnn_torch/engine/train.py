@@ -1,0 +1,324 @@
+"""Training engine: loss assembly, optimizer, train step and loop.
+
+Counterpart of `posecnn_tpu/engine/train.py:49-462` for the posecnn
+family. Loss composition as in the reference's train_net:
+
+  loss = loss_cls
+       + VERTEX_W · smooth_l1_vertex
+       + POSE_W · average_distance_loss
+       + QMAG_W · (|q_raw| − 1)² on the weighted rows
+       + WEIGHT_REG · L2(kernels)      (added to the gradient by the optimizer)
+
+The optimizer is optax's chain in the same order and with the same
+formulas, so that a step here moves the parameters as the JAX step does:
+masked `add_decayed_weights` and `clip_by_global_norm` as
+`torch._foreach_*` ops over all gradients, then `torch.optim.SGD` or
+`Adam`, on the staircase `lr_schedule`.
+
+The step is eager PyTorch: forward with autograd, `backward()`, update.
+Hough inside the forward runs without gradient (its kernels have no
+backward and need none). Dropout streams come from (seed, step), as
+`jax.random.fold_in(PRNGKey(seed), step)` gives the JAX step its key.
+
+Not ported: the GAN, detection, segmentation and video steps, the
+matching and domain-adaptation losses, `fastforward_opt_counts`, the
+host-RSS handoff and multi-device data parallelism.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+from typing import Callable, Optional, Sequence
+
+import numpy as np
+import torch
+
+from posecnn_torch.core.config import Config
+from posecnn_torch.ops.add_loss import average_distance_loss
+from posecnn_torch.ops.hard_label import hard_label
+from posecnn_torch.ops.losses import (
+    build_vertex_targets,
+    loss_cross_entropy_single_frame,
+    smooth_l1_loss_vertex,
+)
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
+
+
+def check_supported(cfg: Config) -> None:
+    """Raise on a configuration the port's training path does not run:
+    only the posecnn family on COLOR input, with 2D vertex and pose
+    regression, trains here."""
+    t = cfg.train
+    unsupported = {
+        f"network={cfg.network!r}": cfg.network != "posecnn",
+        f"input={cfg.input!r} (the RGBD/DEPTH/NORMAL towers)": cfg.input != "COLOR",
+        "train.adapt (DomainHead, gradient reversal)": t.adapt,
+        "train.matching (the matching loss)": t.matching,
+        "train.gan (the GAN step)": t.gan,
+        "train.vertex_reg_3d": t.vertex_reg_3d,
+        "train.vertex_reg_2d=False": not t.vertex_reg_2d,
+        "train.pose_reg=False": not t.pose_reg,
+        "train.max_host_rss_gb (the host-RSS handoff)": t.max_host_rss_gb > 0,
+    }
+    bad = [name for name, hit in unsupported.items() if hit]
+    if bad:
+        raise NotImplementedError("the port's training path does not support: " + ", ".join(bad))
+
+
+def lr_schedule(cfg: Config) -> Callable[[int], float]:
+    """Staircase exponential decay, evaluated on the optimizer's own
+    update count, which starts at 0 with every fresh optimizer (each
+    resume), plus `train.lr_step_offset` (the restored global step), so
+    decay boundaries stay on the global iteration
+    (`posecnn_tpu/engine/train.py:49-73`)."""
+    t = cfg.train
+
+    def lr(count: int) -> float:
+        count = count + t.lr_step_offset
+        if t.stepsize <= 0:
+            return t.learning_rate
+        return t.learning_rate * t.gamma ** math.floor(count / t.stepsize)
+
+    return lr
+
+
+def _weight_mask(params: Sequence[torch.Tensor]) -> list[bool]:
+    """True for >1-D parameters (conv and dense kernels): biases are not
+    regularised, as in the reference."""
+    return [p.ndim > 1 for p in params]
+
+
+class Optimizer:
+    """optax.chain(masked(add_decayed_weights), clip_by_global_norm,
+    sgd(momentum) | adam) over a list of parameters, updated in place from
+    their `.grad` (`posecnn_tpu/engine/train.py:108-125`). The decay and
+    the clip rewrite the gradients in place; `torch.optim.SGD` (dampening
+    0, the same trace as optax's) or `torch.optim.Adam` (the same
+    bias-corrected moments; fused on the card) takes the last step."""
+
+    def __init__(self, params: Sequence[torch.Tensor], *, kind: str, schedule: Callable,
+                 weight_decay: float = 0.0, grad_clip: float = 0.0, momentum: float = 0.9):
+        self.params = list(params)
+        self.schedule = schedule
+        self.weight_decay = weight_decay
+        self.decayed = [p for p, m in zip(self.params, _weight_mask(self.params)) if m]
+        self.grad_clip = grad_clip
+        self.count = 0  # updates so far: the schedule's count
+        if kind == "momentum":
+            self.opt = torch.optim.SGD(self.params, lr=schedule(0), momentum=momentum)
+        elif kind == "adam":
+            self.opt = torch.optim.Adam(self.params, lr=schedule(0), betas=(ADAM_B1, ADAM_B2),
+                                        eps=ADAM_EPS, fused=self.params[0].is_cuda)
+        else:
+            raise ValueError(f"unknown optimizer '{kind}'")
+
+    @torch.no_grad()
+    def update(self) -> float:
+        """One update from the parameters' gradients (a missing gradient
+        counts as zero, as in optax). Returns the learning rate it used."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        if self.weight_decay > 0:
+            # optax.masked(add_decayed_weights): g + wd · p on the kernels
+            torch._foreach_add_([p.grad for p in self.decayed], self.decayed,
+                                alpha=self.weight_decay)
+        if self.grad_clip > 0:
+            # clip_by_global_norm: where(norm < max, g, g / norm · max)
+            g = [p.grad for p in self.params]
+            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            keep = norm < self.grad_clip
+            torch._foreach_div_(g, torch.where(keep, torch.ones_like(norm), norm))
+            torch._foreach_mul_(g, torch.where(keep, 1.0, self.grad_clip).to(norm))
+        lr = self.schedule(self.count)
+        self.opt.param_groups[0]["lr"] = lr
+        self.opt.step()
+        self.count += 1
+        return lr
+
+
+def create_optimizer(cfg: Config, params: Sequence[torch.Tensor]) -> Optimizer:
+    t = cfg.train
+    return Optimizer(params, kind=t.optimizer.lower(), schedule=lr_schedule(cfg),
+                     weight_decay=t.weight_reg, grad_clip=t.grad_clip, momentum=t.momentum)
+
+
+@dataclass
+class TrainState:
+    """The optimizer and the global step; the parameters live in the model."""
+
+    opt: Optimizer
+    step: int = 0
+
+
+def create_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
+    return TrainState(create_optimizer(cfg, list(model.parameters())))
+
+
+def decompress_feed(batch: dict, cfg: Config) -> dict:
+    """Undo `data/pipeline.compact_feed` on the device: a uint8 image back
+    to mean-subtracted fp32, a uint8 label to int64. Float feeds pass."""
+    if batch.get("data") is None or batch["data"].dtype != torch.uint8:
+        return batch
+    b = dict(batch)
+    pm = torch.tensor(cfg.pixel_means, dtype=torch.float32, device=b["data"].device)
+    b["data"] = b["data"].float() - pm
+    if "label" in b:
+        b["label"] = b["label"].long()
+    return b
+
+
+def dropout_generators(seed: int, step: int, device) -> list[torch.Generator]:
+    """The four dropout streams of one step (seg head, vertex head, fc6,
+    fc7), seeded from (seed, step)."""
+    states = np.random.SeedSequence([seed, step]).generate_state(4)
+    return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
+
+
+def compute_losses(model, batch: dict, cfg: Config, points, extents, symmetry,
+                   generators: Sequence[Optional[torch.Generator]] = (None,) * 4,
+                   keep_prob: float = 0.5):
+    """Training forward + loss composition. batch keys: data (B, H, W, 3),
+    label (B, H, W), meta (B, 48), gt_poses (G, 13), gt_valid (G,), and
+    either vertex_targets / vertex_weights (B, H, W, 3C) or the sparse
+    vertex_centers / vertex_logz / vertex_valid; data and label may be
+    uint8 (`compact_feed`). `keep_prob` is the dropout keep rate (the JAX
+    step fixes 0.5; 1 switches dropout off)."""
+    batch = decompress_feed(batch, cfg)
+    out = model.train_forward(batch["data"], extents, batch["meta"], batch["gt_poses"],
+                              batch.get("gt_valid"), keep_prob=keep_prob, generators=generators)
+    return _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry)
+
+
+def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry):
+    """Total loss and the metrics dict (`engine/train.py:177-309`)."""
+    t = cfg.train
+    labels_w = hard_label(out.prob, batch["label"], t.threshold_label)
+    loss_cls = loss_cross_entropy_single_frame(out.log_prob, labels_w)
+    total = loss_cls
+    metrics = {"loss_cls": loss_cls}
+
+    if "vertex_targets" in batch:
+        v_targets, v_weights = batch["vertex_targets"], batch["vertex_weights"]
+    else:
+        v_targets, v_weights = build_vertex_targets(
+            batch["label"], batch["vertex_centers"], batch["vertex_logz"],
+            batch["vertex_valid"], weight_inside=t.vertex_w_inside,
+        )
+    loss_vertex = t.vertex_w * smooth_l1_loss_vertex(out.vertex_pred, v_targets, v_weights)
+    total = total + loss_vertex
+    metrics["loss_vertex"] = loss_vertex
+
+    hough = out.hough
+    # normalise by the weight-carrying valid rows (engine/train.py:211-227)
+    weighted_rows = (hough.poses_weight.amax(dim=1) > 0) & hough.valid
+    num_weighted = weighted_rows.float().sum()
+    loss_pose = t.pose_w * average_distance_loss(
+        out.poses_pred, hough.poses_target, hough.poses_weight, points, symmetry,
+        margin=0.01, num_valid=num_weighted,
+    )
+    total = total + loss_pose
+    metrics["loss_pose"] = loss_pose
+    metrics["num_rois"] = hough.valid.float().sum()
+    metrics["num_pose_rois"] = num_weighted
+
+    if t.qmag_w > 0:
+        masked = out.poses_tanh * hough.poses_weight
+        mag = torch.sqrt((masked * masked).sum(dim=1) + 1e-12)
+        loss_qmag = torch.where(weighted_rows, (mag - 1.0) ** 2, 0.0).sum() / torch.clamp(
+            num_weighted, min=1.0)
+        total = total + t.qmag_w * loss_qmag
+        metrics["loss_qmag"] = loss_qmag
+
+    metrics["loss"] = total
+    return total, {k: v.detach() for k, v in metrics.items()}
+
+
+def loss_point_scale(points: torch.Tensor, extents: torch.Tensor, symmetry: torch.Tensor,
+                     is_symmetric: bool):
+    """ADD-loss points scaled per class by max(10, 2/max_extent), with
+    symmetric classes ×4 once the SYMSIZE curriculum enables symmetry, and
+    the symmetry flags zeroed before (`engine/train.py:328-346`).
+    Returns (points_scaled, symmetry_effective)."""
+    max_ext = extents.amax(dim=1)
+    w = torch.where(max_ext > 1e-6, torch.clamp(2.0 / max_ext, min=10.0), 10.0)
+    scale = w * torch.where((symmetry > 0) & is_symmetric, 4.0, 1.0)
+    sym_eff = symmetry if is_symmetric else torch.zeros_like(symmetry)
+    return points * scale[:, None, None], sym_eff
+
+
+class TrainStep:
+    """One training step: `forward` (losses), `backward`, `update`;
+    calling it runs the three and returns the metrics (tensors on the
+    device, plus `lr`)."""
+
+    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5):
+        self.cfg = cfg
+        self.model = model
+        self.points = points
+        self.extents = extents
+        self.symmetry = symmetry
+        self.keep_prob = keep_prob
+
+    def forward(self, state: TrainState, batch: dict):
+        """(total loss, metrics) of `batch` at the state's step."""
+        cfg = self.cfg
+        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device)
+        pts, sym = loss_point_scale(self.points, self.extents, self.symmetry,
+                                    state.step >= cfg.train.symsize)
+        return compute_losses(self.model, batch, cfg, pts, self.extents, sym, gens,
+                              keep_prob=self.keep_prob)
+
+    def backward(self, total: torch.Tensor) -> None:
+        self.model.zero_grad(set_to_none=True)
+        total.backward()
+
+    def update(self, state: TrainState) -> float:
+        """The optimizer update; returns the learning rate it used."""
+        lr = state.opt.update()
+        state.step += 1
+        return lr
+
+    def __call__(self, state: TrainState, batch: dict) -> dict:
+        total, metrics = self.forward(state, batch)
+        self.backward(total)
+        metrics["lr"] = self.update(state)
+        return metrics
+
+
+def make_train_step(cfg: Config, model, points, extents, symmetry, *,
+                    keep_prob: float = 0.5) -> TrainStep:
+    check_supported(cfg)
+    return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+
+
+def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extents, symmetry, *,
+               max_iters: Optional[int] = None,
+               log_fn: Optional[Callable[[int, dict], None]] = None,
+               snapshot_fn: Optional[Callable[[int, TrainState], None]] = None) -> TrainState:
+    """Host loop (`engine/train.py:403-462`): one step per batch, the
+    metrics every `display` iterations, a snapshot every
+    `snapshot_iters`. A restored state continues its numbering."""
+    max_iters = max_iters or cfg.train.max_iters
+    step = make_train_step(cfg, model, points, extents, symmetry)
+    start = state.step
+    if start >= max_iters:
+        print(f"train_loop: restored step {start} >= max_iters {max_iters}; nothing to do "
+              "(raise --iters to continue training)", flush=True)
+    t_start = time.time()
+    for it in range(start, max_iters):
+        metrics = step(state, next(batch_iter))
+        if (it + 1) % cfg.train.display == 0:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            metrics["s_per_iter"] = (time.time() - t_start) / (it + 1 - start)
+            if log_fn is not None:
+                log_fn(it + 1, metrics)
+            else:
+                line = ", ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
+                print(f"iter {it + 1}/{max_iters} " + line, flush=True)
+        if snapshot_fn is not None and (it + 1) % cfg.train.snapshot_iters == 0:
+            snapshot_fn(it + 1, state)
+    return state

@@ -1,7 +1,8 @@
-"""PoseCNN: the flagship 6D pose estimation network, inference path.
+"""PoseCNN: the flagship 6D pose estimation network.
 
-Counterpart of `posecnn_tpu/models/posecnn.py:53-164, 184-382` for the
-COLOR-input eval forward the server runs:
+Counterpart of `posecnn_tpu/models/posecnn.py:53-164, 184-382` for COLOR
+input: the eval forward the server runs (`forward`) and the training
+forward (`train_forward`):
 
   trunk      VGG16 conv1_1..conv5_3
   seg head   1×1 score convs on conv4_3/conv5_3, ×2 up of the conv5
@@ -18,20 +19,26 @@ on the CPU) casts each conv's and dense layer's inputs and weights, as
 flax's `dtype=` does. Scores are cast to fp32 before the softmax, the
 vertex map before Hough, and fc8 runs in fp32.
 
-Still to port: `DomainHead`, the RGBD tower, dropout, training emission
-and `append_gt_rois`.
+Training adds flax-semantics dropout (keep with probability `keep_prob`,
+scale by 1/keep_prob) on the two heads' skip sums and after fc6 and fc7,
+each drawn from its own `torch.Generator` (four streams, as
+`jax.random.split` gives the JAX model), the full-resolution vertex map,
+the Hough training emission with optional GT RoIs, and the pose-row
+compaction. `DomainHead`, gradient reversal and the RGBD tower are not
+ported: `adapt` and RGBD input raise where a model is built
+(`engine/train.check_supported`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from posecnn_torch.models.vgg16 import VGG16Trunk, bilinear_upsample, conv, nchw, nhwc
-from posecnn_torch.ops.hough_voting import BACKENDS, HoughOutputs, hough_voting
+from posecnn_torch.ops.hough_voting import BACKENDS, HoughOutputs, append_gt_rois, hough_voting
 from posecnn_torch.ops.roi_align import roi_pool_fused
 
 
@@ -43,6 +50,16 @@ class PoseCNNOutputs(NamedTuple):
     hough: HoughOutputs
     poses_pred: torch.Tensor  # (R, 4C) masked unit quaternions
     poses_tanh: torch.Tensor  # (R, 4C) raw fc8 output (after tanh if chosen)
+
+
+def dropout(x: torch.Tensor, keep_prob: float, generator: Optional[torch.Generator]):
+    """flax `nn.Dropout` semantics: keep each element with probability
+    `keep_prob` (a draw from `generator`), scaled by 1/keep_prob, else 0.
+    Identity at keep_prob 1."""
+    if keep_prob >= 1.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
 
 
 class SkipHead(nn.Module):
@@ -60,7 +77,8 @@ class SkipHead(nn.Module):
         self.add_module(f"{name_prefix}_conv4", nn.Conv2d(in_channels, units, 1))
         self.add_module(f"{name_prefix}_out", nn.Conv2d(units, out_channels, 1))
 
-    def forward(self, conv4_3: torch.Tensor, conv5_3: torch.Tensor) -> torch.Tensor:
+    def forward(self, conv4_3: torch.Tensor, conv5_3: torch.Tensor, *, keep_prob: float = 1.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dt = self.compute_dtype
         act = F.relu if self.relu_scores else (lambda v: v)
         s5 = act(conv(nchw(conv5_3), getattr(self, f"{self.prefix}_conv5"), dt))
@@ -68,6 +86,7 @@ class SkipHead(nn.Module):
         s4 = act(conv(nchw(conv4_3), getattr(self, f"{self.prefix}_conv4"), dt))
         # crop to the 1/8 map when H/8 or W/8 is odd (posecnn.py:78)
         added = s4 + s5_up[:, :, : s4.shape[2], : s4.shape[3]]
+        added = dropout(added, keep_prob, generator)
         # the 1×1 conv runs before the ×8 upsample (they commute)
         out = nhwc(conv(added, getattr(self, f"{self.prefix}_out"), dt))
         return out if self.return_lowres else bilinear_upsample(out, 8)
@@ -89,14 +108,17 @@ class PoseHead(nn.Module):
         self.fc7 = nn.Linear(fc_dim, fc_dim)
         self.fc8 = nn.Linear(fc_dim, 4 * num_classes)
 
-    def forward(self, pooled: torch.Tensor, poses_weight: torch.Tensor):
+    def forward(self, pooled: torch.Tensor, poses_weight: torch.Tensor, *, keep_prob: float = 1.0,
+                generators: Sequence[Optional[torch.Generator]] = (None, None)):
         dt = self.compute_dtype
         # NHWC flatten, the order fc6's rows were trained in (posecnn.py:134)
         x = pooled.reshape(pooled.shape[0], -1).float()
         if self.norm_features:
             x = x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-6)
         x = F.relu(F.linear(x.to(dt), self.fc6.weight.to(dt), self.fc6.bias.to(dt)))
+        x = dropout(x, keep_prob, generators[0])
         x = F.relu(F.linear(x, self.fc7.weight.to(dt), self.fc7.bias.to(dt)))
+        x = dropout(x, keep_prob, generators[1])
         x = self.fc8(x.float())
         poses_tanh = torch.tanh(x) if self.quat_activation == "tanh" else x
         masked = poses_tanh * poses_weight
@@ -149,11 +171,16 @@ class PoseCNN(nn.Module):
                  vote_threshold: float = -1.0, vote_percentage: float = 0.02,
                  skip_pixels: int = 10, hough_num_samples: int = 256, max_objects: int = 16,
                  hough_cell_stride: int = 1, hough_backend: str = "auto",
+                 max_pose_rois: int = 0, gt_pose_rois: bool = False,
                  pose_pool_size: int = 7, norm_features: bool = True,
                  quat_activation: str = "linear",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_classes = num_classes
+        # training only: the pose-row budget (0 = off) and the GT RoI
+        # prepend (posecnn.py:206-217)
+        self.max_pose_rois = max_pose_rois
+        self.gt_pose_rois = gt_pose_rois
         # the defaults are the serving configuration: single instance,
         # stride-1 cells, coarse-to-fine votes (posecnn_tpu/cli/serve.py:70-79)
         self.hough_kw = dict(vote_threshold=vote_threshold, vote_percentage=vote_percentage,
@@ -191,5 +218,42 @@ class PoseCNN(nn.Module):
         poses_pred, poses_tanh = self.pose_head(
             pooled, _eval_pose_weight(hough, self.num_classes)
         )
+        return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
+                              poses_tanh)
+
+    def train_forward(self, data: torch.Tensor, extents: torch.Tensor, meta_data: torch.Tensor,
+                      gt_poses: torch.Tensor, gt_valid: Optional[torch.Tensor] = None, *,
+                      keep_prob: float = 1.0,
+                      generators: Sequence[Optional[torch.Generator]] = (None,) * 4
+                      ) -> PoseCNNOutputs:
+        """The training forward (`model.apply(..., train=True)`), with
+        autograd. gt_poses (G, 13), gt_valid (G,) bool; `generators` are
+        the dropout streams of the seg head, the vertex head, fc6 and fc7.
+        The vertex map comes back at full resolution; Hough runs with no
+        gradient on the detached labels and 1/8 vertex map."""
+        conv4_3, conv5_3 = self.trunk(data)
+        score = self.seg_head(conv4_3, conv5_3, keep_prob=keep_prob,
+                              generator=generators[0]).float()
+        log_prob = F.log_softmax(score, dim=-1)
+        prob = F.softmax(score, dim=-1)
+        label_2d = torch.argmax(score, dim=-1)
+
+        vertex_lr = self.vertex_head(conv4_3, conv5_3, keep_prob=keep_prob,
+                                     generator=generators[1]).float()
+        vertex_pred = bilinear_upsample(vertex_lr, 8)
+        hough = hough_voting(label_2d, vertex_lr, extents, meta_data, gt_poses, gt_valid,
+                             is_train=True, **self.hough_kw)
+        if self.gt_pose_rois:
+            hough = append_gt_rois(hough, gt_poses, gt_valid, extents, meta_data,
+                                   self.num_classes)
+        if 0 < self.max_pose_rois < hough.rois.shape[0]:
+            # valid rows first; a stable sort keeps the emission order
+            # within each group (posecnn.py:328-340)
+            order = torch.argsort((~hough.valid).to(torch.uint8), stable=True)
+            hough = HoughOutputs(*(a[order[: self.max_pose_rois]] for a in hough))
+
+        pooled = roi_pool_fused(conv4_3, conv5_3, hough.rois, pooled_size=self.pose_pool_size)
+        poses_pred, poses_tanh = self.pose_head(pooled, hough.poses_weight, keep_prob=keep_prob,
+                                                generators=generators[2:4])
         return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
                               poses_tanh)

@@ -1,12 +1,16 @@
 """Center-direction Hough voting for 3D translation + RoI emission.
 
-Counterpart of `posecnn_tpu/ops/hough_voting.py` in eval (no training
-jitters or GT matching). Per image, `_prepare_slots` picks up to
-`max_classes` present classes and packs `num_samples` evenly strided
-pixels of each into (K, 8, S) samples; the votes run batched over all
-(B·K) slots; the maxima are picked; `_maxima_tail` sizes the box at
-each maximum; RoIs and initial poses are emitted into fixed
-(B·max_objects) buffers with a validity mask.
+Counterpart of `posecnn_tpu/ops/hough_voting.py`. Per image,
+`_prepare_slots` picks up to `max_classes` present classes and packs
+`num_samples` evenly strided pixels of each into (K, 8, S) samples; the
+votes run batched over all (B·K) slots; the maxima are picked;
+`_maxima_tail` sizes the box at each maximum; RoIs and initial poses are
+emitted into fixed (B·max_objects) buffers with a validity mask. In training
+(`is_train=True`, `:952-1025`) each maximum is matched to the first GT
+object of its image and class whose projected 3D box overlaps its box by
+IoU > 0.2, gets that object's quaternion as a one-hot-block target, and
+is emitted as 9 jittered boxes; `append_gt_rois` (`:1048-1132`) prepends
+one exact RoI per GT object.
 
 Two modes, as in the original:
 - single instance (`vote_threshold <= 0`): each class slot's vote
@@ -25,13 +29,15 @@ Backends (JAX name in brackets):
 - "dense" [xla]: the exhaustive masked reduction of `:480-527`, plain
   tensor code in chunks of 8 samples.
 
-Still to port: training emission with GT matching (`:952-1025`) and
-`append_gt_rois`.
+Hough is zero-gradient by contract (`:785-789, 1045`): both entry points
+run under `torch.no_grad()`, so the training forward builds no graph
+through them and the kernels' wrappers never see a tensor that requires
+grad.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +48,8 @@ from posecnn_torch.ops.hough_kernels import (
     hough_votes_c2f_windows,
     hough_votes_exhaustive,
 )
+from posecnn_torch.utils.bbox import box_iou
+from posecnn_torch.utils.quaternion import quat_to_mat
 
 VERTEX_CHANNELS = 3
 BACKENDS = ("c2f", "exhaustive", "dense")
@@ -69,6 +77,47 @@ def _projected_box_size(extents_c, fx, fy, px, py, distance):
     width = max_x - (-max_x) + 1.0
     height = max_y - (-max_y) + 1.0
     return torch.maximum(width, height)
+
+
+# the 8 corners of an extent box, signs (x, y, z) (`hough_voting.py:102-105`)
+_CORNER_SIGNS = [[sx, sy, sz] for sx in (1, -1) for sy in (1, -1) for sz in (1, -1)]
+
+
+def _gt_projected_boxes(gt_poses, extents, fx, fy, px, py):
+    """Project each GT object's 3D extent box to a 2D xyxy box
+    (`hough_voting.py:93-113`). gt_poses: (G, 13); fx, fy, px, py: (G,)
+    intrinsics of each row's image. Returns (G, 4)."""
+    cls = gt_poses[:, 1].long().clamp(0, extents.shape[0] - 1)
+    half = extents[cls] * 0.5  # (G, 3)
+    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=gt_poses.device)
+    corners = signs[None] * half[:, None, :]  # (G, 8, 3)
+    r = quat_to_mat(gt_poses[:, 6:10])
+    xyz = torch.einsum("gij,gkj->gki", r, corners) + gt_poses[:, None, 10:13]
+    z = torch.where(xyz[..., 2].abs() < 1e-6, 1e-6, xyz[..., 2])
+    u = fx[:, None] * xyz[..., 0] / z + px[:, None]
+    v = fy[:, None] * xyz[..., 1] / z + py[:, None]
+    return torch.stack([u.amin(-1), v.amin(-1), u.amax(-1), v.amax(-1)], -1)
+
+
+def _gt_rows_intrinsics(gt_poses, meta_data):
+    """(fx, fy, px, py) of each GT row's image, (G,) each."""
+    bidx = gt_poses[:, 0].long().clamp(0, meta_data.shape[0] - 1)
+    return meta_data[bidx, 0], meta_data[bidx, 4], meta_data[bidx, 2], meta_data[bidx, 5]
+
+
+def _one_hot_blocks(cls, values, num_classes):
+    """(R, 4C) rows holding `values` (R, 4) in the 4 columns of each
+    row's class `cls` (R,) and 0 elsewhere."""
+    rows = cls.shape[0]
+    col = 4 * cls.long()[:, None] + torch.arange(4, device=cls.device)[None]
+    out = torch.zeros((rows, 4 * num_classes), dtype=torch.float32, device=cls.device)
+    return out.scatter_(1, col, values.float())
+
+
+# jitter offsets of (x1, y1) in units of (0.05·w, 0.05·h): the centre box
+# and 8 shifts (`hough_voting.py:632-645`)
+_JITTERS = [[0.0, 0.0], [-1.0, -1.0], [1.0, -1.0], [-1.0, 1.0], [1.0, 1.0], [0.0, -1.0],
+            [-1.0, 0.0], [0.0, 1.0], [1.0, 0.0]]
 
 
 def _prepare_slots(
@@ -341,12 +390,36 @@ def _maxima_tail(prep, extents, fx, fy, px, py, cand_slot, cand_cls, cand_x, can
     return bb_width, bb_height, cand_valid
 
 
+@torch.no_grad()
+def prepare_votes(label, vertex_pred, extents, meta_data, *, label_threshold=500,
+                  skip_pixels=10, num_samples=256, max_classes=8, inlier_threshold=0.9,
+                  vertex_factor=1):
+    """`_prepare_slots` for each image of the batch. Returns (the per-image
+    dicts, the packed samples (B·K, 8, S) and boxes (B·K, 4) that the vote
+    kernels take)."""
+    vertex_f32 = vertex_pred.float().contiguous()
+    preps = [
+        _prepare_slots(
+            label[i], vertex_f32[i], extents, meta_data[i],
+            num_classes=extents.shape[0], label_threshold=label_threshold,
+            skip_pixels=skip_pixels, num_samples=num_samples, max_classes=max_classes,
+            inlier_threshold=inlier_threshold, vertex_factor=vertex_factor,
+        )
+        for i in range(label.shape[0])
+    ]
+    return (preps, torch.cat([p["packed"] for p in preps]),
+            torch.cat([p["bboxes"] for p in preps]))
+
+
 def hough_voting(
     label: torch.Tensor,
     vertex_pred: torch.Tensor,
     extents: torch.Tensor,
     meta_data: torch.Tensor,
+    gt_poses: Optional[torch.Tensor] = None,
+    gt_valid: Optional[torch.Tensor] = None,
     *,
+    is_train: bool = False,
     inlier_threshold: float = 0.9,
     label_threshold: int = 500,
     vote_threshold: float = -1.0,
@@ -359,14 +432,15 @@ def hough_voting(
     backend: str = "c2f",
     vertex_factor: int = 1,
 ) -> HoughOutputs:
-    """Batched Hough voting, eval emission (`hough_voting.hough_voting`
-    with is_train=False).
+    """Batched Hough voting (`hough_voting.hough_voting`).
 
     label: (B, H, W) int; vertex_pred: (B, H/f, W/f, 3C) with
     f = vertex_factor; extents: (C, 3); meta_data: (B, 48) with the
     intrinsics at [0:9]. `vote_threshold > 0` selects multi-instance
-    mode; `backend` is one of BACKENDS. Returns HoughOutputs with
-    R = B·max_objects rows.
+    mode; `backend` is one of BACKENDS. With `is_train`, gt_poses (G, 13)
+    [batch, cls, …, quat at 6:10, t at 10:13] and gt_valid (G,) bool
+    (default all) give the training emission. Returns HoughOutputs with
+    R = B·max_objects rows, 9 times as many with `is_train`.
     """
     if backend not in BACKENDS:
         raise ValueError(f"unknown hough backend {backend!r}; expected one of {BACKENDS}")
@@ -381,21 +455,16 @@ def hough_voting(
             f"vertex_pred spatial dims {tuple(vertex_pred.shape[1:3])} × factor "
             f"{vertex_factor} must equal the label dims {(height, width)}"
         )
-    vertex_f32 = vertex_pred.float().contiguous()
+    if is_train and gt_poses is None:
+        raise ValueError("is_train=True requires gt_poses")
     hc, wc = height // cell_stride, width // cell_stride
     grid = dict(cell_stride=cell_stride, grid_h=hc, grid_w=wc)
-    preps = [
-        _prepare_slots(
-            label[i], vertex_f32[i], extents, meta_data[i],
-            num_classes=num_classes, label_threshold=label_threshold,
-            skip_pixels=skip_pixels, num_samples=num_samples, max_classes=max_classes,
-            inlier_threshold=inlier_threshold, vertex_factor=vertex_factor,
-        )
-        for i in range(b)
-    ]
+    preps, packed, bboxes = prepare_votes(
+        label, vertex_pred, extents, meta_data, label_threshold=label_threshold,
+        skip_pixels=skip_pixels, num_samples=num_samples, max_classes=max_classes,
+        inlier_threshold=inlier_threshold, vertex_factor=vertex_factor,
+    )
     k = preps[0]["packed"].shape[0]
-    packed = torch.cat([p["packed"] for p in preps])
-    bboxes = torch.cat([p["bboxes"] for p in preps])
 
     def cell_xy(cell):
         return ((cell % wc) * cell_stride).float(), ((cell // wc) * cell_stride).float()
@@ -489,15 +558,87 @@ def hough_voting(
     ry = (cand_y - py) / fy
     one, zero = torch.ones_like(rx), torch.zeros_like(rx)
     pose_init = torch.stack([one, zero, zero, zero, rx * cand_dist, ry * cand_dist, cand_dist], -1)
-    rois = torch.stack(
-        [batch_idx, cand_cls.float(), x1, y1, x2, y2, cand_votes], -1
-    )
-    zeros = torch.zeros((b * m, 4 * num_classes), device=label.device)
+    if not is_train:
+        rois = torch.stack([batch_idx, cand_cls.float(), x1, y1, x2, y2, cand_votes], -1)
+        zeros = torch.zeros((b * m, 4 * num_classes), device=label.device)
+        return HoughOutputs(
+            rois=rois,
+            poses_init=pose_init,
+            poses_target=zeros,
+            poses_weight=zeros,
+            domains=torch.zeros((b * m,), dtype=torch.int32, device=label.device),
+            valid=cand_valid,
+        )
+
+    # GT match: the first GT object of the same image and class whose
+    # projected box overlaps the maximum's box by IoU > 0.2 (:958-981)
+    gt_poses = gt_poses.float()
+    g = gt_poses.shape[0]
+    if gt_valid is None:
+        gt_valid = torch.ones((g,), dtype=torch.bool, device=label.device)
+    gt_boxes = _gt_projected_boxes(gt_poses, extents, *_gt_rows_intrinsics(gt_poses, meta_data))
+    ious = box_iou(torch.stack([x1, y1, x2, y2], -1), gt_boxes)  # (B·M, G)
+    same = ((gt_poses[None, :, 1].long() == cand_cls.long()[:, None])
+            & (gt_poses[None, :, 0].long() == batch_idx.long()[:, None]) & gt_valid[None, :])
+    matchable = torch.where(same, ious, -1.0) > 0.2
+    first_gt = torch.argmax(matchable.to(torch.uint8), dim=1)
+    has_match = matchable.any(dim=1) & cand_valid
+    targets = _one_hot_blocks(cand_cls, gt_poses[first_gt, 6:10] * has_match[:, None],
+                              num_classes)
+    weights = _one_hot_blocks(cand_cls, has_match[:, None].float().expand(b * m, 4),
+                              num_classes)
+    domain = torch.where(gt_valid.any(), 0, 1).to(torch.int32)  # 1: an image set without GT
+
+    # 9 jittered boxes per maximum, one after another (:998-1017)
+    jit = torch.tensor(_JITTERS, dtype=torch.float32, device=label.device) * 0.05
+    ww = (x2 - x1)[:, None]
+    hh = (y2 - y1)[:, None]
+    jx1 = x1[:, None] + jit[None, :, 0] * ww
+    jy1 = y1[:, None] + jit[None, :, 1] * hh
+    boxes9 = torch.stack([jx1, jy1, jx1 + ww, jy1 + hh], -1).reshape(-1, 4)
+
+    def rep(a):
+        return a.repeat_interleave(9, dim=0)
+
+    rois = torch.cat([rep(batch_idx)[:, None], rep(cand_cls.float())[:, None], boxes9,
+                      rep(cand_votes)[:, None]], -1)
     return HoughOutputs(
         rois=rois,
-        poses_init=pose_init,
-        poses_target=zeros,
-        poses_weight=zeros,
-        domains=torch.zeros((b * m,), dtype=torch.int32, device=label.device),
-        valid=cand_valid,
+        poses_init=rep(pose_init),
+        poses_target=rep(targets),
+        poses_weight=rep(weights),
+        domains=domain.expand(9 * b * m).contiguous(),
+        valid=rep(cand_valid),
     )
+
+
+@torch.no_grad()
+def append_gt_rois(out: HoughOutputs, gt_poses: torch.Tensor, gt_valid: Optional[torch.Tensor],
+                   extents: torch.Tensor, meta_data: torch.Tensor,
+                   num_classes: int) -> HoughOutputs:
+    """Prepend one exact RoI per GT object to a training Hough output
+    (`hough_voting.py:1048-1132`): the projected 3D-extent box, the GT
+    quaternion as a weight-1 target in its class's columns, and an
+    identity-rotation pose_init at the GT translation. Rows come first so
+    that the pose-row compaction (valid first, stable) keeps them."""
+    gt_poses = gt_poses.float()
+    g = gt_poses.shape[0]
+    if gt_valid is None:
+        gt_valid = torch.ones((g,), dtype=torch.bool, device=gt_poses.device)
+    bidx = gt_poses[:, 0].long().clamp(0, meta_data.shape[0] - 1)
+    boxes = _gt_projected_boxes(gt_poses, extents, *_gt_rows_intrinsics(gt_poses, meta_data))
+    cls = gt_poses[:, 1].long()
+    vf = gt_valid.float()
+    safe_cls = cls.clamp(0, num_classes - 1)
+    gt_out = HoughOutputs(
+        rois=torch.cat([bidx.float()[:, None], cls.float()[:, None], boxes,
+                        torch.ones((g, 1), device=gt_poses.device)], -1),
+        poses_init=torch.cat([
+            torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=gt_poses.device).expand(g, 4),
+            gt_poses[:, 10:13]], -1),
+        poses_target=_one_hot_blocks(safe_cls, gt_poses[:, 6:10] * vf[:, None], num_classes),
+        poses_weight=_one_hot_blocks(safe_cls, vf[:, None].expand(g, 4), num_classes),
+        domains=torch.zeros((g,), dtype=torch.int32, device=gt_poses.device),
+        valid=gt_valid.bool(),
+    )
+    return HoughOutputs(*(torch.cat([a, c], 0) for a, c in zip(gt_out, out)))

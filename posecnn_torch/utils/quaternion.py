@@ -1,14 +1,35 @@
-"""Quaternion helpers for the host-side data path, wxyz order.
+"""Quaternion helpers, wxyz order.
 
-The port's copy of the numpy half of `posecnn_tpu/utils/quaternion.py`
-(`:111-164`; `mat_to_quat_np` is `posecnn_tpu/data/minibatch.py:148-176`).
-Carried, not imported, because that module imports jax.
-`tests/test_torch_synthetic.py` holds each equal to its original.
+The torch half (`quat_to_mat`, `quat_normalize`) is the counterpart of
+`posecnn_tpu/utils/quaternion.py:15-33, 90-91`, differentiable, for the
+ADD loss and the GT box projection. The numpy half is the port's copy of
+`:111-164` (`mat_to_quat_np` is `posecnn_tpu/data/minibatch.py:148-176`)
+for the host-side data path. Carried, not imported, because that module
+imports jax. `tests/test_torch_synthetic.py` and
+`tests/test_torch_add_loss.py` hold each equal to its original.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
+    """(…, 4) wxyz quaternion → (…, 3, 3) matrix, expanded from the raw,
+    unnormalised quaternion, as the reference ADD loss kernel does, so
+    gradients flow through the raw components."""
+    s, u, v, w = q.unbind(-1)
+    rows = (
+        (s * s + u * u - v * v - w * w, 2 * (u * v - s * w), 2 * (u * w + s * v)),
+        (2 * (u * v + s * w), s * s - u * u + v * v - w * w, 2 * (v * w - s * u)),
+        (2 * (u * w - s * v), 2 * (v * w + s * u), s * s - u * u - v * v + w * w),
+    )
+    return torch.stack([torch.stack(r, -1) for r in rows], -2)
+
+
+def quat_normalize(q: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
 
 
 def quat_to_mat_np(q) -> np.ndarray:

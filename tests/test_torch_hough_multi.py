@@ -208,6 +208,10 @@ def test_validate_checks_pass_on_the_cpu():
     assert got["hough_detections"] > 0 and got["serving_forward"] == "ok"
     assert set(got["multi_instance_peak_votes"]) == set(thv.BACKENDS)
     assert got["multi_instance_hough_ms"] == dict.fromkeys(thv.BACKENDS, "not measured")
+    # the training checks: a finite train-step loss, the ADD-loss probe
+    # under 15°, and no card-vs-CPU gradient gap without a card
+    assert np.isfinite(got["train_step_loss"]) and got["rot_probe_final_deg"] < 15.0
+    assert got["probe_grad_card_vs_cpu"] == "not measured"
 
 
 def test_validate_needs_a_card_by_default(monkeypatch, tmp_path):

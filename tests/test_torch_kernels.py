@@ -264,3 +264,68 @@ def test_kernels_refuse_bad_inputs(cuda):
         hk.hough_votes_windows(samples, torch.zeros((samples.shape[0] + 1, 3),
                                dtype=torch.int32, device=cuda), cell_stride=1, grid_h=H,
                                grid_w=W)
+
+
+def toy_train_step(device, batch, lib, model):
+    """Loss and gradients of one fp32 train step at keep_prob 1 on `device`.
+    The pose-row budget keeps only the prepended GT rows, so the pose loss
+    does not hang on a label argmax near a tie; Hough still runs (its
+    kernels on the card)."""
+    from posecnn_torch.core.config import cfg_from_dict
+    from posecnn_torch.engine.train import (
+        _compose_losses_from_outputs,
+        decompress_feed,
+        loss_point_scale,
+    )
+
+    cfg = cfg_from_dict({"train": {"vertex_reg_2d": True, "pose_reg": True}})
+    b = decompress_feed({k: torch.from_numpy(v).to(device) for k, v in batch.items()}, cfg)
+    ext = torch.from_numpy(lib.extents).to(device)
+    pts, sym = loss_point_scale(torch.from_numpy(lib.points[:, :64]).to(device), ext,
+                                torch.from_numpy(lib.symmetry).to(device), True)
+    model = model.to(device)
+    model.zero_grad(set_to_none=True)
+    out = model.train_forward(b["data"], ext, b["meta"], b["gt_poses"], b["gt_valid"])
+    total, metrics = _compose_losses_from_outputs(out, b, cfg, pts, ext, sym)
+    total.backward()
+    return ({k: float(v) for k, v in metrics.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()})
+
+
+@pytest.mark.cuda
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One small fp32 train step (TF32 off) on the card against the CPU:
+    every loss term within rtol 1e-4, every gradient within 1e-3 of its
+    parameter's largest gradient entry. The images stay float (with the
+    pool's σ = 8 noise): uint8 images clipped at 0 give neighbouring conv
+    outputs that tie exactly on the CPU and differ by an ulp on the card,
+    so a max-pool sends their gradient to another position."""
+    import copy
+
+    import numpy as np
+
+    from posecnn_torch.cli.common import setup_device
+    from posecnn_torch.data.procedural import synthetic_class_library
+    from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+    from posecnn_torch.models.posecnn import PoseCNN, init_weights
+
+    setup_device("cuda")  # TF32 off
+    lib = synthetic_class_library(C, 256)
+    k = np.array([[150.0, 0, W / 2], [0, 150.0, H / 2], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=W, height=H, seed=2,
+                                  min_objects=2, max_objects=2, point_colors=lib.colors,
+                                  point_normals=lib.normals)
+    batch = gen.pooled_minibatch(2, max_gt=4, dense_vertex_targets=False)
+    del batch["depth"]
+    model = PoseCNN(C, num_units=8, fc_dim=32, hough_num_samples=S, max_objects=2,
+                    gt_pose_rois=True, max_pose_rois=4)
+    init_weights(model, 0)
+    want_m, want_g = toy_train_step(torch.device("cpu"), batch, lib, copy.deepcopy(model))
+    hk.LAUNCHES.update(flat=0, window=0)
+    got_m, got_g = toy_train_step(cuda, batch, lib, model)
+    assert hk.LAUNCHES["flat"] == 1 and hk.LAUNCHES["window"] == 1
+    assert want_m["num_pose_rois"] == 4 and want_m["loss_pose"] > 0
+    for key, value in want_m.items():
+        assert got_m[key] == pytest.approx(value, rel=1e-4), key
+    gaps = {name: float((got_g[name] - g).abs().max() / g.abs().max()) for name, g in want_g.items()}
+    assert max(gaps.values()) < 1e-3, sorted(gaps.items(), key=lambda kv: -kv[1])[:8]
