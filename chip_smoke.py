@@ -50,7 +50,19 @@ that fails, with a non-zero exit:
      images/s, peak memory, the forward / backward / optimizer / Hough
      split, the feed's production time and whether its queue ran dry, the
      device's busy share (profiler), and FLOPs per step
-     (FlopCounterMode) with MFU.
+     (FlopCounterMode) with MFU;
+  9. the evaluation path at full width (the flagship yaml, seeded random
+     weights): `python -m posecnn_torch.cli.test_net --refine` in process
+     on 8 held-out frames, with images/s and the seconds of render,
+     forward, NMS + extraction, ICP and the evaluator, each forward's
+     flat and window kernels bit for bit against their plain versions on
+     its own packed samples and window origins; `test_icp`'s drive at
+     480×640 with and without the rotation sweep (TE must fall), its
+     scenes refined on the card and the CPU and held by the ICP tests'
+     scene rule, `icp_refine_batch`'s device time a frame and a profile of
+     one frame (launches, device busy time, the host's costliest ops); RANSAC centres of the
+     planted scene within 1 px, card against CPU; the evaluator on the
+     card against the CPU on the run's detections.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -69,6 +81,7 @@ import sys
 import threading
 import time
 import urllib.request
+from functools import partial
 
 import numpy as np
 
@@ -80,6 +93,12 @@ PEAK_FP32_OPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 TRAIN_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "cfgs",
                          "lov_color_2d_pool_full.yaml")
 TRAIN_WARMUP, TRAIN_TIMED = 2, 6
+# phase 9: test_net and test_icp on the flagship yaml (22 classes,
+# 480×640, num_units 64, fc_dim 4096, 1024 test Hough samples)
+EVAL_ARGS, EVAL_IMAGES = ["--cfg", TRAIN_CFG], 8
+# card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
+# holds the port to JAX
+ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
 # the fp32 additions, subtractions and multiplications the vote needs
 # (hough_kernels.votes_at; comparisons and selects are not counted): per
 # tested (cell, sample) pair the 6 that depend on the cell (dot's and
@@ -699,6 +718,34 @@ def top_kernels(prof, n, steps):
     return [f"{ev.key[:60]} {ev.self_device_time_total / 1e3 / steps:.2f}" for ev in evs]
 
 
+def top_host_ops(prof, n):
+    """The n aten operators with the most host (self CPU) time, as
+    'name calls ms' strings."""
+    evs = sorted((ev for ev in prof.key_averages() if ev.key.startswith("aten::")),
+                 key=lambda ev: -ev.self_cpu_time_total)[:n]
+    return [f"{ev.key} {ev.count} {ev.self_cpu_time_total / 1e3:.2f}" for ev in evs]
+
+
+def icp_profile(call, device):
+    """Where one `icp_refine_batch` call's time goes: wall ms (host clock
+    to a synchronise, with the profiler on), the device's busy ms and its
+    kernel launches (torch.profiler), and the five aten operators with the
+    most host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize(device)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+    return wall_ms, kernel_busy_ms(prof), launches, top_host_ops(prof, 5)
+
+
 def train_hough_inputs(tr, step, batch):
     """The Hough inputs of one train step, as (label (B, H, W), 1/8 vertex
     map (B, H/8, W/8, 3C)) pairs: "step", the model's training forward at
@@ -728,24 +775,24 @@ def train_hough_inputs(tr, step, batch):
     return b, {"step": (label, vert.contiguous()), "gt": (b["label"], vert_gt)}
 
 
-def train_kernels_vs_plain(tr, b, inputs):
+def kernels_vs_plain(kw, extents, meta, inputs, where):
     """flat, window and tile kernels against their plain versions, bit for
     bit, on the packed samples, boxes and window origins of each input
-    pair at the training Hough's shapes (B·K slots, the step's
-    `hough_num_samples`, its vertex factor). The origins are those the
-    step's c2f call picks. Returns {input: (slots, live slots, samples,
-    peak coarse vote)} and the largest error of each kernel."""
+    pair (label (B, H, W), 1/f vertex map) at a Hough call's shapes (B·K
+    slots, its `num_samples`, its vertex factor; `kw` is the model's
+    `hough_kw`). The origins are those that call's c2f pass picks.
+    Returns {input: (slots, live slots, samples, peak coarse vote)} and
+    the largest error of each kernel."""
     import torch
 
     from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.ops.hough_voting import prepare_votes
 
-    kw = tr.model.hough_kw
     s = kw["cell_stride"]
     shapes, errs = {}, {"tile": 0.0, "flat": 0.0, "window": 0.0}
     for name, (label, vert) in inputs.items():
         preps, packed, bboxes = prepare_votes(
-            label, vert, tr.extents, b["meta"], skip_pixels=kw["skip_pixels"],
+            label, vert, extents, meta, skip_pixels=kw["skip_pixels"],
             num_samples=kw["num_samples"], vertex_factor=kw["vertex_factor"])
         h, w = label.shape[1] // s, label.shape[2] // s
         fine = dict(cell_stride=s, grid_h=h, grid_w=w)
@@ -767,13 +814,11 @@ def train_kernels_vs_plain(tr, b, inputs):
                 err, ok = exact(a, c)
                 if not ok:
                     raise AssertionError(f"{KERNELS[kernel]} disagrees with its plain version "
-                                         f"on the train step's {name} inputs: max_abs_err {err}")
+                                         f"on {where}'s {name} inputs: max_abs_err {err}")
                 errs[kernel] = max(errs[kernel], err)
         live = sum(int(p["slot_valid"].sum()) for p in preps)
         shapes[name] = (packed.shape[0], live, packed.shape[2],
                         float(pairs["flat"][1][0].max()))
-    if shapes["gt"][1] == 0 or shapes["gt"][3] <= 0:
-        raise AssertionError("the train step's GT inputs gave no live slot: nothing compared")
     return shapes, errs
 
 
@@ -983,7 +1028,10 @@ def phase_train(card):
 
     # the kernels against their plain versions at the training Hough's
     # shapes, then c2f against the exhaustive backend on the GT inputs
-    vote_shapes, vote_errs = train_kernels_vs_plain(tr, b, hough_inputs)
+    vote_shapes, vote_errs = kernels_vs_plain(tr.model.hough_kw, tr.extents, b["meta"],
+                                              hough_inputs, "the train step")
+    if vote_shapes["gt"][1] == 0 or vote_shapes["gt"][3] <= 0:
+        raise AssertionError("the train step's GT inputs gave no live slot: nothing compared")
     valid_rows, matched, gate_launches = train_hough_gate(tr, b, hough_inputs["gt"][1])
     ms, ms_feed = float(np.mean(alone_ms)), float(np.mean(feed_ms))
     wall_feed = 1e3 * feed_wall / TRAIN_TIMED
@@ -1025,6 +1073,212 @@ def phase_train(card):
     return feed_launches
 
 
+def summaries_agree(got, want, tol=1e-5):
+    """Two `PoseEvaluator.summarize()` results: counts, success rates and
+    seg IoU equal, every other number within `tol`. Returns the largest
+    difference; raises on a disagreement."""
+    if set(got) != set(want) or set(got["per_class"]) != set(want["per_class"]):
+        raise AssertionError("evaluator summaries have different keys")
+    if got["seg_iou_per_class"] != want["seg_iou_per_class"] or (
+            got["num_images"] != want["num_images"]):
+        raise AssertionError("evaluator summaries: seg IoU or image counts differ")
+    worst = 0.0
+    pairs = [(got, want, k) for k in ("add_auc", "adds_auc", "seg_mean_iou") if k in want]
+    pairs += [(g, want["per_class"][c], k) for c, g in got["per_class"].items() for k in g]
+    for g, w, k in pairs:
+        if k in ("count", "success_rate", "reproj_success_rate"):
+            if g[k] != w[k]:
+                raise AssertionError(f"evaluator summaries: {k} {g[k]} != {w[k]}")
+        elif not (g[k] == w[k] or abs(g[k] - w[k]) <= tol):
+            raise AssertionError(f"evaluator summaries: {k} {g[k]} vs {w[k]} beyond {tol}")
+        elif g[k] != w[k]:
+            worst = max(worst, abs(g[k] - w[k]))
+    return worst
+
+
+def icp_card_vs_cpu(scene, device, rot_perturb, num_iters):
+    """One scene of `test_icp`'s drive refined on the card and on the CPU,
+    held by tests/test_torch_icp.py's scene rule: after one iteration
+    every hypothesis within ICP_ATOL_STEP; after `num_iters`, at least
+    ICP_SHARE of them within ICP_ATOL and 1/P, and every refined pose
+    within ICP_ATOL where the CPU's winning margin exceeds 2/P. Returns
+    (largest one-step difference, share of converged hypotheses within
+    the tolerance, largest refined-pose difference)."""
+    import torch
+
+    from posecnn_torch.cli import test_icp
+
+    points = scene["model_pts"].shape[1]
+    out = []
+    for iters in (1, num_iters):
+        res = test_icp.refine_scene(scene, device, iters, rot_perturb)
+        ref = test_icp.refine_scene(scene, torch.device("cpu"), iters, rot_perturb)
+        d_rt = (res.hypothesis_rts.cpu() - ref.hypothesis_rts).abs().flatten(2).amax(-1)
+        d_score = (res.hypothesis_scores.cpu() - ref.hypothesis_scores).abs()
+        out.append((d_rt, d_score, res, ref))
+    step = float(out[0][0].max())
+    d_rt, d_score, res, ref = out[1]
+    share = float(((d_rt <= ICP_ATOL) & (d_score <= 1.0 / points + 1e-6)).float().mean())
+    top2 = ref.hypothesis_scores.sort(dim=1).values[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2.0 / points
+    d_pose = torch.cat([(res.quat.cpu() - ref.quat).abs(), (res.trans.cpu() - ref.trans).abs()],
+                       1)[clear]
+    pose = float(d_pose.max()) if d_pose.numel() else 0.0
+    if not (step <= ICP_ATOL_STEP and share >= ICP_SHARE and pose <= ICP_ATOL):
+        raise AssertionError(f"ICP on the card vs the CPU: one step {step}, converged share "
+                             f"{share} within {ICP_ATOL}, refined poses {pose}")
+    return step, share, pose
+
+
+def phase_eval(device, card):
+    """Phase 9, the evaluation path at full width: `test_net` with ICP,
+    ICP through `test_icp`'s drive, RANSAC centres, and the evaluator, each
+    on the card against the CPU. Returns the test_net run's launches."""
+    import tempfile
+
+    import torch
+
+    from posecnn_torch.cli import test_icp, test_net
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.engine.evaluate import PoseEvaluator
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.refine.icp import icp_refine_batch
+    from posecnn_torch.refine.ransac import draw_hypotheses, estimate_center
+
+    # 9.1: test_net in process on the flagship yaml, recording each
+    # forward's Hough inputs and what the evaluator is fed
+    recorded = {"hough": [], "images": [], "seg": []}
+    hough_voting = posecnn_module.hough_voting
+
+    def recording_hough(label, vertex, extents, meta, *args, **kw):
+        recorded["hough"].append((label.clone(), vertex.clone(), extents, meta.clone()))
+        recorded["kw"] = kw
+        return hough_voting(label, vertex, extents, meta, *args, **kw)
+
+    class RecordingEvaluator(PoseEvaluator):
+        def __post_init__(self):
+            super().__post_init__()
+            recorded["evaluator"] = self
+
+        def add_segmentation(self, gt_label, pred_label):
+            recorded["seg"].append((gt_label, pred_label))
+            super().add_segmentation(gt_label, pred_label)
+
+        def add_image(self, detections, gts):
+            recorded["images"].append((detections, gts))
+            super().add_image(detections, gts)
+
+    with tempfile.TemporaryDirectory() as out:
+        posecnn_module.hough_voting, test_net.PoseEvaluator = recording_hough, RecordingEvaluator
+        try:
+            for key in hk.LAUNCHES:
+                hk.LAUNCHES[key] = 0
+            test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images", str(EVAL_IMAGES),
+                           "--refine", "--output", out])
+            launches = dict(hk.LAUNCHES)
+        finally:
+            posecnn_module.hough_voting, test_net.PoseEvaluator = hough_voting, PoseEvaluator
+        with open(os.path.join(out, "eval.json")) as f:
+            summary = json.load(f)
+    ev = recorded["evaluator"]
+    c = ev.num_classes
+    iou = summary["seg_iou_per_class"]
+    if summary["num_images"] != EVAL_IMAGES or len(iou) != c or not np.isfinite(
+            summary["seg_mean_iou"]):
+        raise AssertionError(f"eval.json: {summary['num_images']} images, {len(iou)} IoUs, "
+                             f"mean {summary['seg_mean_iou']}")
+    if min(launches["flat"], launches["window"]) < EVAL_IMAGES:
+        raise AssertionError(f"test_net: flat or window launched fewer than {EVAL_IMAGES} "
+                             f"times: {launches}")
+    # flat and window bit for bit on the eval forward with the most live slots
+    extents, meta = recorded["hough"][0][2], recorded["hough"][0][3]
+    inputs = {f"forward {i}": (lab, vert) for i, (lab, vert, _, _) in enumerate(recorded["hough"])}
+    shapes, errs = kernels_vs_plain(recorded["kw"], extents, meta, inputs, "test_net")
+    best = max(shapes, key=lambda n: shapes[n][1])
+    run = summary["run"]
+    sec = run["seconds"]
+
+    # 9.2: test_icp's drive at full width, twice; then its scenes on the
+    # card against the CPU, and icp_refine_batch's device time a frame
+    icp_lines, icp_ms, icp_rule = [], [], []
+    with tempfile.TemporaryDirectory() as out:
+        for rp in (0.0, 0.25):
+            argv = [*EVAL_ARGS, "--device", str(device), "--output", out, "--num_scenes", "2",
+                    "--rot_perturb", str(rp)]
+            rep = test_icp.main(argv)
+            if not rep["num_objects"] or not rep["mean_te_after_cm"] < rep["mean_te_before_cm"]:
+                raise AssertionError(f"test_icp at rot_perturb {rp}: TE "
+                                     f"{rep['mean_te_before_cm']} -> {rep['mean_te_after_cm']} cm")
+            icp_lines.append(f"rot_perturb {rp}: {rep['num_objects']} objects, TE "
+                             f"{rep['mean_te_before_cm']:.2f} -> {rep['mean_te_after_cm']:.2f} cm")
+            args = test_icp.make_parser().parse_args(argv)
+            for scene in test_icp.perturbed_scenes(test_icp.load_config(args), 2,
+                                                   args.rot_noise_deg, args.trans_noise):
+                icp_rule.append(icp_card_vs_cpu(scene, device, rp, args.num_iters))
+                t = [torch.from_numpy(np.asarray(scene[k])).to(device)
+                     for k in ("quats", "transs", "model_pts", "depth", "masks", "k")]
+                call = partial(icp_refine_batch, *t, num_iters=args.num_iters, rot_perturb=rp)
+                icp_ms.append(device_ms(call, device, 5))
+        # one frame of the sweep profiled: the scene's launches and host ops
+        icp_prof = icp_profile(call, device)
+
+    # 9.3: RANSAC centres of the planted scene's per-class directions, on
+    # the card and the CPU from the same host draw
+    label, low = planted_scene(HEIGHT, WIDTH, NUM_CLASSES, PLANTED, noise=0.02)
+    ly, lx = np.mgrid[0 : HEIGHT // 8, 0 : WIDTH // 8]
+    centres = np.stack([(lx + 0.5) * 8 - 0.5, (ly + 0.5) * 8 - 0.5], -1).astype(np.float32)
+    worst_px = worst_gap = 0.0
+    for cls, cx, cy, _, _, _ in PLANTED:
+        live = np.abs(low[..., 3 * cls]) + np.abs(low[..., 3 * cls + 1]) > 0.5
+        px = torch.from_numpy(centres[live])
+        dirs = torch.from_numpy(np.ascontiguousarray(low[live][:, 3 * cls : 3 * cls + 2]))
+        valid = torch.ones(len(px), dtype=torch.bool)
+        pairs = draw_hypotheses(valid, 64, 2, torch.Generator().manual_seed(cls))
+        got = estimate_center(px.to(device), dirs.to(device), valid.to(device), pairs.to(device))
+        want = estimate_center(px, dirs, valid, pairs)
+        gap = float((got.center.cpu() - want.center).abs().max())
+        off = float(np.abs(got.center.cpu().numpy() - [cx, cy]).max())
+        if off > 1.0 or gap > 1e-3 or float(got.inliers) != float(want.inliers):
+            raise AssertionError(f"RANSAC class {cls}: centre off by {off} px, card vs CPU {gap}")
+        worst_px, worst_gap = max(worst_px, off), max(worst_gap, gap)
+
+    # 9.4: the evaluator on the card and on the CPU, fed 9.1's inputs
+    evs = {}
+    for dev in (device, torch.device("cpu")):
+        evs[dev.type] = PoseEvaluator(num_classes=c, points=ev.points, extents=ev.extents,
+                                      symmetric_classes=ev.symmetric_classes,
+                                      instance_matching=ev.instance_matching, device=str(dev))
+        for gt_label, pred in recorded["seg"]:
+            evs[dev.type].add_segmentation(gt_label, pred)
+        for dets, gts in recorded["images"]:
+            evs[dev.type].add_image(dets, gts)
+    ev_gap = summaries_agree(evs[device.type].summarize(), evs["cpu"].summarize())
+
+    cfg = test_net.load_config(test_net.make_parser().parse_args(EVAL_ARGS))
+    rule = "; ".join(f"{a:.3g}, {b:.3f}, {c_:.3g}" for a, b, c_ in icp_rule)
+    print(f"phase 9 evaluation ({c} classes, {cfg.train.syn_height}x{cfg.train.syn_width}, "
+          f"num_units {cfg.train.num_units}, fc_dim {cfg.train.fc_dim}, "
+          f"{cfg.test.hough_num_samples} samples, seeded random weights) on {card}: test_net "
+          f"--refine "
+          f"{EVAL_IMAGES} images, {run['images_per_s']:.2f} images/s, seconds render "
+          f"{sec['render']:.3f} / forward {sec['forward']:.3f} / NMS + extraction "
+          f"{sec['extract']:.3f} / ICP {sec['icp']:.3f} / evaluator {sec['evaluate']:.3f}, "
+          f"{run['detections']} detections, {run['refined']} refined, seg mean IoU "
+          f"{summary['seg_mean_iou']:.4f}, launches {launches}; flat, window and tile == plain bit "
+          f"for bit on every eval forward ({len(inputs)}; the liveliest, {best}: slots, live, "
+          f"samples, peak coarse vote {shapes[best]}), max_abs_err {errs}; test_icp "
+          f"({'; '.join(icp_lines)}), card vs CPU per scene (one step, converged share within "
+          f"{ICP_ATOL}, refined poses): "
+          f"{rule}, icp_refine_batch {', '.join(f'{x:.2f}' for x in icp_ms)} ms a frame "
+          f"(CUDA events; the last frame profiled: wall {icp_prof[0]:.2f} ms, device busy "
+          f"{icp_prof[1]:.2f} ms, {icp_prof[2]} device events, top aten ops by host ms (calls, "
+          f"ms): {'; '.join(icp_prof[3])}); RANSAC centres of {len(PLANTED)} planted objects within "
+          f"{worst_px:.3f} px, card vs CPU {worst_gap:.3g} px; evaluator on the card == CPU "
+          f"(largest difference {ev_gap:.3g})", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1059,8 +1313,10 @@ def main() -> int:
     phase_validate(device)
     runs = phase_full_width(device, card)
     phase_train(card)
+    eval_launches = phase_eval(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
-    # the tile kernel, the HTTP serving run for the c2f pair
+    # the tile kernel, the HTTP serving run for the c2f pair; and those of
+    # the test_net run (phase 9)
     launches["tile"] = runs["exhaustive"]["tile"]
 
     replaces = {"tile": "posecnn_tpu/ops/hough_pallas.py:39",
@@ -1070,7 +1326,8 @@ def main() -> int:
         {"name": KERNELS[k], "route": "cuda", "source": "posecnn_torch/csrc/hough_vote.cu",
          "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
          "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
-         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None}
+         "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
+         "test_net_launches": eval_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,14 @@
 """Quaternion helpers, wxyz order.
 
-The torch half (`quat_to_mat`, `quat_normalize`) is the counterpart of
-`posecnn_tpu/utils/quaternion.py:15-33, 90-91`, differentiable, for the
-ADD loss and the GT box projection. The numpy half is the port's copy of
-`:111-164` (`mat_to_quat_np` is `posecnn_tpu/data/minibatch.py:148-176`)
-for the host-side data path. Carried, not imported, because that module
-imports jax. `tests/test_torch_synthetic.py` and
-`tests/test_torch_add_loss.py` hold each equal to its original.
+The torch half (`quat_to_mat`, `quat_normalize`, `mat_to_quat`,
+`quat_mul`, `axis_angle_to_quat`, `rotation_geodesic_deg`) is the
+counterpart of `posecnn_tpu/utils/quaternion.py:15-106`, for the ADD
+loss, the GT box projection, the pose errors and ICP. The numpy half is
+the port's copy of `:111-164` (`mat_to_quat_np` is
+`posecnn_tpu/data/minibatch.py:148-176`) for the host-side data path.
+Carried, not imported, because that module imports jax.
+`tests/test_torch_synthetic.py`, `tests/test_torch_add_loss.py` and
+`tests/test_torch_pose_error.py` hold each equal to its original.
 """
 
 from __future__ import annotations
@@ -30,6 +32,61 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
 
 def quat_normalize(q: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=eps)
+
+
+def mat_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(…, 3, 3) rotation matrix → (…, 4) wxyz quaternion with w ≥ 0.
+
+    Branch-free Shepperd: all four candidates, the one of the largest
+    4·q_i² kept; ties go to the first maximum, as `jnp.argmax` breaks
+    them (`torch.argmax` does too)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    qw2 = 1.0 + tr
+    qx2 = 1.0 + m00 - m11 - m22
+    qy2 = 1.0 - m00 + m11 - m22
+    qz2 = 1.0 - m00 - m11 + m22
+    cands = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], -1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], -1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], -1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], -1),
+    ], -2)  # (…, 4 candidates, 4)
+    mags = torch.stack([qw2, qx2, qy2, qz2], -1)
+    idx = torch.argmax(mags, dim=-1, keepdim=True)
+    best = torch.take_along_dim(cands, idx[..., None], dim=-2)[..., 0, :]
+    denom = 2.0 * torch.sqrt(torch.clamp(torch.take_along_dim(mags, idx, dim=-1), min=1e-12))
+    q = best / denom
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product a ⊗ b of wxyz quaternions, broadcastable."""
+    aw, ax, ay, az = a.unbind(-1)
+    bw, bx, by, bz = b.unbind(-1)
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], -1)
+
+
+def axis_angle_to_quat(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
+    """Rotation by `angle` radians (…) about `axis` (…, 3) as (…, 4) wxyz."""
+    axis = axis / torch.clamp(torch.linalg.vector_norm(axis, dim=-1, keepdim=True), min=1e-10)
+    half = angle[..., None] * 0.5
+    return torch.cat([torch.cos(half), axis * torch.sin(half)], -1)
+
+
+def rotation_geodesic_deg(r_est: torch.Tensor, r_gt: torch.Tensor) -> torch.Tensor:
+    """Geodesic angle between (…, 3, 3) rotations in degrees: the angle of
+    R_est·R_gtᵀ, from its trace."""
+    rel = r_est @ r_gt.transpose(-1, -2)
+    cos = 0.5 * (rel.diagonal(dim1=-2, dim2=-1).sum(-1) - 1.0)
+    return torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
 
 
 def quat_to_mat_np(q) -> np.ndarray:

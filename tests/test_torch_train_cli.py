@@ -10,6 +10,7 @@ in tests/test_torch_synthetic.py.
 
 import json
 import os
+import threading
 from functools import lru_cache
 
 import jax
@@ -176,17 +177,31 @@ def test_pooled_minibatch_and_compact_feed_match_jax(monkeypatch):
 
 
 def test_prefetcher_gives_each_worker_its_own_producer():
-    made = []
+    # each producer waits for the consumer to take a batch of the other
+    # worker's, so both ids come out whatever the threads' scheduling:
+    # worker 0 starts after a batch of worker 1's was taken, and worker 1
+    # goes on past its first batch after one of worker 0's was taken
+    made, taken = [], {0: threading.Event(), 1: threading.Event()}
 
     def factory(worker_id):
-        return lambda: made.append(worker_id) or {"worker": worker_id}
+        def make_batch():
+            if worker_id == 0 or 1 in made:
+                assert taken[1 - worker_id].wait(60), f"worker {worker_id} starved"
+            made.append(worker_id)
+            return {"worker": worker_id}
+
+        return make_batch
 
     pre = tpipe.Prefetcher(make_batch_factory=factory, queue_size=2, num_workers=2)
     try:
-        seen = {next(pre)["worker"] for _ in range(20)}
+        seen = []
+        for _ in range(20):
+            worker = next(pre)["worker"]
+            taken[worker].set()
+            seen.append(worker)
     finally:
         pre.close()
-    assert seen == {0, 1}
+    assert seen[:2] == [1, 0] and set(seen) == {0, 1} and set(made) == {0, 1}
     assert pre.gets == 20 and 0 <= pre.dry <= 20 and len(pre.produce_seconds) >= 20
     assert not any(w.is_alive() for w in pre.workers)
 
