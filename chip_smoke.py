@@ -62,7 +62,27 @@ that fails, with a non-zero exit:
      scene rule, `icp_refine_batch`'s device time a frame and a profile of
      one frame (launches, device busy time, the host's costliest ops); RANSAC centres of the
      planted scene within 1 px, card against CPU; the evaluator on the
-     card against the CPU on the run's detections.
+     card against the CPU on the run's detections;
+ 10. the real-frame family at full width: a YCB-Video tree written to a
+     temporary directory in the reference's formats (22 classes, 8 train
+     and 4 val frames at 480×640 rendered by the carried generator, PNG
+     and .mat); 3 train steps through `cli/train_net.build_trainer` on
+     each of these yamls, with the GT RoIs prepended (random weights emit
+     no Hough RoI): `lov_rgbd_2d.yaml` (RGBD, chromatic, noise),
+     `lov_color_2d_adapt.yaml` (the domain head) and
+     `lov_color_2d_full.yaml` (the matching loss, real and synthetic
+     streams 1:10, num_units 128), each step with finite losses, every
+     term reported, flat and window launched once and held bit for bit
+     to plain on the step's own Hough inputs and on its batch's GT
+     inputs; c2f == exhaustive on an RGBD step; the gradient reversal
+     exact on an adapt step; the matching term's device ms; `--resume`
+     restoring the RGBD snapshot and its step on the staircase, and the
+     CLI training on from it; `test_net --dataset lov --refine` on the
+     4 val frames with that snapshot and with seeded random weights
+     (whose labels leave detections for ICP), finite summaries, each
+     forward's kernels bit for bit to plain. Per config: ms a step split into feed
+     wait, forward, backward and optimizer (CUDA events), images/s and
+     peak memory.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -96,6 +116,15 @@ TRAIN_WARMUP, TRAIN_TIMED = 2, 6
 # phase 9: test_net and test_icp on the flagship yaml (22 classes,
 # 480×640, num_units 64, fc_dim 4096, 1024 test Hough samples)
 EVAL_ARGS, EVAL_IMAGES = ["--cfg", TRAIN_CFG], 8
+# phase 10: the real-frame family on a fabricated YCB-Video tree, each
+# config's yaml as written (22 classes, 480×640, batch 2)
+REAL_CFGS = ("lov_rgbd_2d", "lov_color_2d_adapt", "lov_color_2d_full")
+# random weights emit no valid Hough RoI at full width, which leaves the
+# domain and matching terms no rows: those two configs run with the GT
+# RoIs prepended (the flagship's setting); the RGBD one runs as written
+REAL_SET = {"lov_rgbd_2d": [], "lov_color_2d_adapt": ["--set", "train.gt_pose_rois=True"],
+            "lov_color_2d_full": ["--set", "train.gt_pose_rois=True"]}
+REAL_STEPS, REAL_FRAMES = 3, (8, 4)  # train steps per config; train and val frames
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -754,25 +783,37 @@ def train_hough_inputs(tr, step, batch):
     which vote for the GT centres. Returns (the decompressed batch, the
     pairs)."""
     import torch
-    import torch.nn.functional as F
 
     from posecnn_torch.engine.train import decompress_feed, dropout_generators
-    from posecnn_torch.ops.losses import build_vertex_targets
 
-    model, f = tr.model, tr.model.hough_kw["vertex_factor"]
+    model = tr.model
     b = decompress_feed(batch, tr.cfg)
     gens = dropout_generators(tr.cfg.rng_seed, tr.state.step, tr.device)
     with torch.no_grad():
-        c4, c5 = model.trunk(b["data"])
+        c4, c5 = model.features(b["data"], b.get("data_p"))
         label = torch.argmax(model.seg_head(c4, c5, keep_prob=step.keep_prob,
                                             generator=gens[0]).float(), dim=-1)
         vert = model.vertex_head(c4, c5, keep_prob=step.keep_prob, generator=gens[1]).float()
         del c4, c5
+    return b, {"step": (label, vert.contiguous()), "gt": gt_hough_inputs(tr, b)}
+
+
+def gt_hough_inputs(tr, b):
+    """The GT Hough inputs of a decompressed batch: its labels and its
+    vertex targets averaged over the model's vertex factor, which vote for
+    the GT centres."""
+    import torch
+    import torch.nn.functional as F
+
+    from posecnn_torch.ops.losses import build_vertex_targets
+
+    f = tr.model.hough_kw["vertex_factor"]
+    with torch.no_grad():
         targets, _ = build_vertex_targets(b["label"], b["vertex_centers"], b["vertex_logz"],
                                           b["vertex_valid"],
                                           weight_inside=tr.cfg.train.vertex_w_inside)
         vert_gt = F.avg_pool2d(targets.permute(0, 3, 1, 2), f).permute(0, 2, 3, 1).contiguous()
-    return b, {"step": (label, vert.contiguous()), "gt": (b["label"], vert_gt)}
+    return b["label"], vert_gt
 
 
 def kernels_vs_plain(kw, extents, meta, inputs, where):
@@ -1279,6 +1320,358 @@ def phase_eval(device, card):
     return launches
 
 
+def cfg_path(name):
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "cfgs",
+                        f"{name}.yaml")
+
+
+def recording_hough(recorded):
+    """A stand-in for the model's `hough_voting` that appends a copy of each
+    call's (label, 1/8 vertex map, meta) to `recorded`, keeps its extents
+    and keywords under `recorded.call`, and votes as the original; returns
+    (the stand-in, the original)."""
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    original = posecnn_module.hough_voting
+
+    def record(label, vertex, extents, meta, *args, **kw):
+        recorded.append((label.detach().clone(), vertex.detach().clone(), meta.clone()))
+        recorded.call = (extents, kw)
+        return original(label, vertex, extents, meta, *args, **kw)
+
+    return record, original
+
+
+class Recorded(list):
+    call = None
+
+
+def domain_reversal_check(tr, batches):
+    """On the first of an adapt run's batches whose forward at keep_prob 1
+    has valid RoIs (the domain loss's rows): the gradient that the loss
+    sends into the trunk side of the reversal is exactly −λ times the one
+    arriving from the domain head, which is non-zero, as are the head's
+    own gradients. Returns (batch index, valid RoIs, λ, |head side|,
+    cosine of the two sides, the head's gradient norm)."""
+    import torch
+
+    from posecnn_torch.engine.train import compute_losses, decompress_feed
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    grads, original = {}, posecnn_module.gradient_reversal
+
+    def watched(x, lambda_):
+        x.register_hook(lambda g: grads.__setitem__("into_trunk", g))
+        y = original(x, lambda_)
+        y.register_hook(lambda g: grads.__setitem__("from_head", g))
+        return y
+
+    rows = []
+    for index, batch in enumerate(batches):
+        posecnn_module.gradient_reversal = watched
+        try:
+            tr.model.zero_grad(set_to_none=True)
+            total, metrics = compute_losses(tr.model, decompress_feed(batch, tr.cfg), tr.cfg,
+                                            tr.points, tr.extents, tr.symmetry, keep_prob=1.0)
+            total.backward()
+        finally:
+            posecnn_module.gradient_reversal = original
+        rows.append(int(metrics["num_rois"]))
+        if rows[-1] > 0:
+            break
+    else:
+        raise AssertionError(f"domain head: no valid RoI on any batch ({rows}): nothing to check")
+    lam = tr.model.domain_head.lambda_
+    into, head = grads["into_trunk"].float(), grads["from_head"].float()
+    if not torch.equal(grads["into_trunk"], -lam * grads["from_head"]):
+        raise AssertionError("gradient reversal: the trunk side is not -λ × the head side")
+    cos = float((into * head).sum() / (into.norm() * head.norm()))
+    head_norm = float(sum(p.grad.float().norm() ** 2
+                          for p in tr.model.domain_head.parameters()) ** 0.5)
+    if not (float(head.abs().max()) > 0 and head_norm > 0 and cos < -0.999):
+        raise AssertionError(f"domain head gradients: |head side| {float(head.abs().max())}, "
+                             f"head params {head_norm}, cosine {cos}")
+    tr.model.zero_grad(set_to_none=True)
+    return index, rows[-1], lam, float(head.norm()), cos, head_norm
+
+
+def adam_fastforward_check(step):
+    """`fastforward_opt_counts` on the card's fused Adam: one update from
+    `step` equals the CPU's (unfused) Adam from the same state, and both
+    stand at `step` + 1. Returns the largest parameter difference."""
+    import torch
+
+    from posecnn_torch.core.config import cfg_from_dict
+    from posecnn_torch.engine.train import create_optimizer, fastforward_opt_counts
+
+    cfg = cfg_from_dict({"train": {"optimizer": "adam", "learning_rate": 0.01}})
+    g = torch.Generator().manual_seed(0)
+    p0, grad = torch.randn(64, 32, generator=g), torch.randn(64, 32, generator=g)
+    out = []
+    for device in ("cuda", "cpu"):
+        p = p0.clone().to(device).requires_grad_()
+        opt = fastforward_opt_counts(create_optimizer(cfg, [p]), step)
+        p.grad = grad.to(device)
+        opt.update()
+        if opt.count != step + 1 or float(opt.opt.state[p]["step"]) != step + 1:
+            raise AssertionError(f"Adam on {device}: count {opt.count}, step "
+                                 f"{float(opt.opt.state[p]['step'])} after one update")
+        out.append(p.detach().cpu())
+    err = float((out[0] - out[1]).abs().max())
+    if err > 1e-6 or torch.equal(out[1], p0):
+        raise AssertionError(f"fused Adam from step {step}: card vs CPU {err}")
+    return err
+
+
+def phase_real(card):
+    """Phase 10: the real-frame family on a fabricated YCB-Video tree at
+    full width. Returns the kernel launches of its training steps and of
+    its test_net run."""
+    import tempfile
+
+    import torch
+
+    from posecnn_torch.cli import test_net, train_net
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.core.checkpoint import save_params, snapshot_path
+    from posecnn_torch.core.weights import params_to_jax
+    from posecnn_torch.data.fabricate import write_ycb_tree
+    from posecnn_torch.engine.train import decompress_feed, lr_schedule, make_train_step
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.matching_loss import roi_matching_loss
+
+    train_launches = {k: 0 for k in KERNELS}
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "lov")
+        t0 = time.perf_counter()
+        write_ycb_tree(root, sets=(("train", REAL_FRAMES[0]), ("val", REAL_FRAMES[1])))
+        fab_s = time.perf_counter() - t0
+        rgbd_snapshot = None
+        for name in REAL_CFGS:
+            out = os.path.join(tmp, name)
+            argv = ["--dataset", "lov", "--data_root", root, "--cfg", cfg_path(name), "--output",
+                    out, *REAL_SET[name]]
+            args = train_net.make_parser().parse_args(argv)
+            t0 = time.perf_counter()
+            tr = train_net.build_trainer(args, train_net.load_config(args))
+            setup_s = time.perf_counter() - t0
+            t = tr.cfg.train
+            step = make_train_step(tr.cfg, tr.model, tr.points, tr.extents, tr.symmetry)
+            recorded, batches, per_step, metrics = Recorded(), [], [], []
+            record, original = recording_hough(recorded)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            posecnn_module.hough_voting = record
+            try:
+                for i in range(REAL_STEPS):
+                    w0 = time.perf_counter()
+                    batch = next(tr.batches)
+                    feed_ms = 1e3 * (time.perf_counter() - w0)
+                    for key in hk.LAUNCHES:
+                        hk.LAUNCHES[key] = 0
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                    ev[0].record()
+                    total, m = step.forward(tr.state, batch)
+                    ev[1].record()
+                    step.backward(total)
+                    ev[2].record()
+                    m["lr"] = step.update(tr.state)
+                    ev[3].record()
+                    torch.cuda.synchronize()
+                    launches = dict(hk.LAUNCHES)
+                    for key in KERNELS:
+                        train_launches[key] += launches[key]
+                    if launches["flat"] != 1 or launches["window"] != 1:
+                        raise AssertionError(f"{name} step {i}: flat and window launched "
+                                             f"{launches}, not once each")
+                    values = {k: float(v) for k, v in m.items()}
+                    if not all(np.isfinite(list(values.values()))):
+                        raise AssertionError(f"{name} step {i}: non-finite metrics {values}")
+                    per_step.append((feed_ms, *(ev[j].elapsed_time(ev[j + 1]) for j in range(3)),
+                                     1e3 * (time.perf_counter() - w0)))
+                    metrics.append(values)
+                    batches.append(batch)
+                peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            finally:
+                posecnn_module.hough_voting = original
+                tr.batches.close()
+            want = {"loss", "loss_cls", "loss_vertex", "loss_pose", "loss_qmag"}
+            want |= {"loss_domain"} if t.adapt else set()
+            want |= {"loss_match"} if t.matching else set()
+            if not all(want <= set(m) for m in metrics):
+                raise AssertionError(f"{name}: a loss term is missing: {sorted(metrics[0])}")
+            # each step's flat and window kernels against plain on its own
+            # Hough inputs, and on the GT inputs of its batch (live slots)
+            shapes, errs = {}, {}
+            for i, ((label, vert, meta), batch) in enumerate(zip(recorded, batches)):
+                inputs = {f"step {i}": (label, vert),
+                          f"GT {i}": gt_hough_inputs(tr, decompress_feed(batch, tr.cfg))}
+                sh, er = kernels_vs_plain(tr.model.hough_kw, tr.extents, meta, inputs,
+                                          f"{name} step {i}")
+                shapes.update(sh)
+                errs = {k: max(errs.get(k, 0.0), v) for k, v in er.items()}
+            live = sum(v[1] for k, v in shapes.items() if k.startswith("GT"))
+            if live == 0:
+                raise AssertionError(f"{name}: no live slot on the GT inputs: nothing compared")
+            extra = ""
+            if name == "lov_rgbd_2d":
+                b = decompress_feed(batches[0], tr.cfg)
+                valid_rows, matched, gate = train_hough_gate(tr, b, gt_hough_inputs(tr, b)[1])
+                extra += (f"; c2f == exhaustive on step 0's GT inputs: {valid_rows} valid rows, "
+                          f"{matched} matched, launches {gate}")
+                rgbd_snapshot = snapshot_path(out, t.snapshot_prefix, t.snapshot_infix,
+                                              tr.state.step)
+                save_params(rgbd_snapshot, tr.model, step=tr.state.step, meta=tr.head_meta)
+                saved = params_to_jax(tr.model.state_dict())
+                lr_next = lr_schedule(tr.cfg)(tr.state.opt.count)
+            if t.adapt:
+                index, rows, lam, head, cos, head_norm = domain_reversal_check(tr, batches)
+                extra += (f"; gradient reversal on step {index}'s batch ({rows} valid RoIs): "
+                          f"trunk side = -{lam} x head side exactly, cosine {cos:.6f}, |head "
+                          f"side| {head:.3e}, domain head grad norm {head_norm:.3e}")
+            if t.matching:
+                b = decompress_feed(batches[-1], tr.cfg)
+                out_m = tr.model.train_forward(b["data"], tr.extents, b["meta"], b["gt_poses"],
+                                               b["gt_valid"], keep_prob=1.0)
+                poses = out_m.poses_pred.detach().requires_grad_()
+                h = out_m.hough
+                pts = tr.points
+
+                def term():
+                    return roi_matching_loss(h.rois, poses, h.poses_init, h.poses_weight,
+                                             h.valid, b["label"], b["meta"], pts)
+
+                def term_grad():
+                    loss, _ = term()
+                    return torch.autograd.grad(loss, poses)
+
+                fwd_ms = device_ms(term, tr.device, 5)
+                both_ms = device_ms(term_grad, tr.device, 5)
+                _, n_match = term()
+                extra += (f"; matching term on {h.rois.shape[0]} RoIs x "
+                          f"{pts[:, :: max(pts.shape[1] // 64, 1)].shape[1]} points x "
+                          f"{b['label'].shape[1] // 8}x{b['label'].shape[2] // 8} "
+                          f"({int(n_match)} matched): forward {fwd_ms:.3f} ms, forward + "
+                          f"backward {both_ms:.3f} ms device (CUDA events, mean of 5)")
+                del out_m, poses
+            split = np.asarray(per_step)  # feed wait, forward, backward, optimizer, wall
+            steady = split[1:].mean(0)
+            lines.append(
+                f"{name} (input {tr.cfg.input}, batch {t.ims_per_batch}, num_units {t.num_units}, "
+                f"{'adapt, ' if t.adapt else ''}{'matching, ' if t.matching else ''}"
+                f"{'GT RoIs prepended, ' if t.gt_pose_rois else ''}"
+                f"{'synthesize 1:' + str(t.syn_ratio) + ', ' if t.synthesize else ''}chromatic "
+                f"{t.chromatic}, noise {t.add_noise}): set-up {setup_s:.1f} s; {REAL_STEPS} "
+                f"steps, ms feed wait / forward / backward / optimizer / wall (the first builds "
+                f"cuDNN plans): " + "; ".join("/".join(f"{x:.2f}" for x in row) for row in split)
+                + f" (steps 2-{REAL_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}: "
+                f"{1e3 * t.ims_per_batch / steady[4]:.2f} images/s at the wall, "
+                f"{1e3 * t.ims_per_batch / steady[1:4].sum():.2f} on the step's device time), "
+                f"batch production {', '.join(f'{1e3 * x:.0f}' for x in tr.batches.produce_seconds)} "
+                f"ms, peak memory {peak_gb:.2f} GB; losses "
+                + ", ".join(f"{k} {metrics[-1][k]:.4f}" for k in sorted(want))
+                + f", valid RoIs a step {[int(m['num_rois']) for m in metrics]}, pose rows "
+                f"{metrics[-1]['num_pose_rois']:.0f}; flat and window launched "
+                f"once a step, == plain bit for bit on each step's inputs and its GT inputs "
+                f"({len(shapes)} inputs, {live} live GT slots), max_abs_err {errs}" + extra)
+            del tr, step, batches, recorded
+            torch.cuda.empty_cache()
+
+        # --resume: the newest snapshot, its step, and the staircase on it
+        out = os.path.join(tmp, REAL_CFGS[0])
+        argv = ["--dataset", "lov", "--data_root", root, "--cfg", cfg_path(REAL_CFGS[0]),
+                "--output", out, "--resume", *REAL_SET[REAL_CFGS[0]]]
+        args = train_net.make_parser().parse_args(argv)
+        tr = train_net.build_trainer(args, train_net.load_config(args))
+        tr.batches.close()
+        restored = params_to_jax(tr.model.state_dict())
+        same = all(np.array_equal(restored[k], saved[k]) for k in saved)
+        lr = lr_schedule(tr.cfg)(tr.state.opt.count)
+        if args.ckpt != rgbd_snapshot or not (
+                tr.state.step == tr.state.opt.count == REAL_STEPS) or not same or lr != lr_next:
+            raise AssertionError(f"--resume: {args.ckpt} vs {rgbd_snapshot}, step "
+                                 f"{tr.state.step}, optimizer count {tr.state.opt.count}, "
+                                 f"parameters equal {same}, lr {lr} / {lr_next}")
+        del tr, restored, saved
+        # the CLI itself resumes and trains one more step
+        state = train_net.main_run(train_net.make_parser().parse_args(argv),
+                                   train_net.load_config(args), REAL_STEPS + 1)
+        if not state.step == state.opt.count == REAL_STEPS + 1:
+            raise AssertionError(f"train_net --resume ended at step {state.step}, optimizer "
+                                 f"count {state.opt.count}")
+        final_snapshot = train_net.newest_snapshot(out)
+        adam_err = adam_fastforward_check(REAL_STEPS)
+        resume_line = (f"--resume restored {os.path.basename(rgbd_snapshot)} (parameters "
+                       f"equal), step {REAL_STEPS} = the optimizer's count "
+                       f"(fastforward_opt_counts), lr {lr:g} = the staircase at the global "
+                       f"step; train_net --resume --iters {REAL_STEPS + 1} trained 1 step "
+                       f"(count {REAL_STEPS + 1}), wrote {os.path.basename(final_snapshot)}; "
+                       f"fused Adam fast-forwarded to step {REAL_STEPS} == the CPU's Adam after "
+                       f"one update within {adam_err:.3g}")
+        del state
+        torch.cuda.empty_cache()
+
+        # test_net --dataset lov --refine on the val frames, RGBD snapshot
+        recorded = Recorded()
+        record, original = recording_hough(recorded)
+        # with the snapshot, then with seeded random weights, whose labels
+        # leave RoIs to detect and refine (a few steps teach background)
+        written = {}
+        posecnn_module.hough_voting = record
+        try:
+            for weights, ckpt in (("snapshot", ["--ckpt", final_snapshot]), ("random", [])):
+                for key in hk.LAUNCHES:
+                    hk.LAUNCHES[key] = 0
+                test_net.main(["--dataset", "lov", "--data_root", root, "--cfg",
+                               cfg_path(REAL_CFGS[0]), *ckpt, "--refine", "--num_images",
+                               str(REAL_FRAMES[1]), "--output", os.path.join(tmp, weights)])
+                with open(os.path.join(tmp, weights, "eval.json")) as f:
+                    written[weights] = json.load(f)
+                written[weights]["launches"] = dict(hk.LAUNCHES)
+        finally:
+            posecnn_module.hough_voting = original
+    for weights, summary in written.items():
+        run = summary["run"]
+        finite = [summary["seg_mean_iou"], summary["add_auc"], summary["adds_auc"],
+                  run["images_per_s"]]
+        if summary["num_images"] != REAL_FRAMES[1] or not np.isfinite(finite).all() or len(
+                summary["seg_iou_per_class"]) != 22 or run["refined"] != run["detections"]:
+            raise AssertionError(f"test_net --dataset lov ({weights} weights): {summary}")
+        if min(summary["launches"]["flat"], summary["launches"]["window"]) < REAL_FRAMES[1]:
+            raise AssertionError(f"test_net --dataset lov ({weights} weights): launches "
+                                 f"{summary['launches']}")
+    if written["random"]["run"]["refined"] == 0:
+        raise AssertionError("test_net --dataset lov --refine: no detection to refine")
+    extents, kw = recorded.call
+    e_shapes, e_errs = {}, {}
+    for i, (label, vert, meta) in enumerate(recorded):
+        sh, er = kernels_vs_plain(kw, extents, meta, {f"forward {i}": (label, vert)},
+                                  "test_net --dataset lov")
+        e_shapes.update(sh)
+        e_errs = {k: max(e_errs.get(k, 0.0), v) for k, v in er.items()}
+    evals = []
+    for weights, summary in written.items():
+        run, sec = summary["run"], summary["run"]["seconds"]
+        evals.append(
+            f"{weights} weights: {run['images_per_s']:.2f} images/s, seconds read / forward / "
+            f"extract / ICP / evaluator {sec['render']:.3f} / {sec['forward']:.3f} / "
+            f"{sec['extract']:.3f} / {sec['icp']:.3f} / {sec['evaluate']:.3f}, "
+            f"{run['detections']} detections, {run['refined']} refined, seg mean IoU "
+            f"{summary['seg_mean_iou']:.4f}, launches {summary['launches']}")
+    print(f"phase 10 real frames on {card}: a fabricated YCB-Video tree (22 classes, "
+          f"{REAL_FRAMES[0]} train and {REAL_FRAMES[1]} val frames at 480x640, rendered, PNG and "
+          f".mat) written in {fab_s:.1f} s; "
+          + " | ".join(lines)
+          + f" | {resume_line} | test_net --dataset lov --refine, RGBD, {REAL_FRAMES[1]} val "
+          f"frames: " + "; ".join(evals) + f"; flat and window == plain bit for bit on each of "
+          f"the {len(recorded)} forwards (slots, live, samples, peak coarse vote: "
+          f"{max(e_shapes.values(), key=lambda v: v[1])} at the liveliest), max_abs_err "
+          f"{e_errs}", flush=True)
+    return train_launches, {k: sum(w["launches"][k] for w in written.values()) for k in KERNELS}
+
+
 def main() -> int:
     try:
         import torch
@@ -1314,9 +1707,11 @@ def main() -> int:
     runs = phase_full_width(device, card)
     phase_train(card)
     eval_launches = phase_eval(device, card)
+    real_launches, real_eval_launches = phase_real(card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
-    # the test_net run (phase 9)
+    # the test_net run (phase 9) and of phase 10's training steps and
+    # test_net run, each counted from 0
     launches["tile"] = runs["exhaustive"]["tile"]
 
     replaces = {"tile": "posecnn_tpu/ops/hough_pallas.py:39",
@@ -1327,7 +1722,8 @@ def main() -> int:
          "replaces": replaces[k], "launches": launches[k], "max_abs_err": errs[k],
          "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
-         "test_net_launches": eval_launches[k]}
+         "test_net_launches": eval_launches[k], "real_train_launches": real_launches[k],
+         "real_test_net_launches": real_eval_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

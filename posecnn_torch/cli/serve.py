@@ -17,8 +17,10 @@ concurrent requests into one forward (MicroBatcher).
     python -m posecnn_torch.cli.serve --port 8475          # serve forever
     python -m posecnn_torch.cli.serve --bench 20           # one JSON latency line
 
-Not ported yet: `--data_root` (real class geometry from a dataset); the
-server uses the procedural stand-in class library.
+The class geometry (the extents Hough's box gate and the RoIs use) is
+YCB-Video's from `--data_root` (`models/`, `extents.txt`), else the
+procedural stand-in library, whose extents are wrong for a checkpoint
+trained on the real objects.
 """
 
 from __future__ import annotations
@@ -32,7 +34,13 @@ from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
 import numpy as np
 import torch
 
-from posecnn_torch.cli.common import base_parser, head_flags_from_ckpt, load_config, setup_device
+from posecnn_torch.cli.common import (
+    YCB_K,
+    base_parser,
+    head_flags_from_ckpt,
+    load_config,
+    setup_device,
+)
 from posecnn_torch.engine.evaluate import extract_detections
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 from posecnn_torch.ops.nms import nms_per_class
@@ -272,19 +280,23 @@ def make_handler(engine: InferenceEngine, batcher: MicroBatcher | None = None):
 
 
 def build_engine(args) -> InferenceEngine:
-    """The engine `main` serves: YCB-Video's 22 classes with the
-    procedural stand-in class geometry."""
-    from posecnn_torch.data.datasets import YCB_CLASSES, YCB_SYMMETRY
+    """The engine `main` serves: YCB-Video's 22 classes with the class
+    geometry of `--data_root`, or the procedural stand-in."""
+    from posecnn_torch.data.datasets import YCB_CLASSES, YCB_SYMMETRY, YCBVideoDataset
     from posecnn_torch.data.procedural import synthetic_class_library
 
     cfg = load_config(args)
     c = len(YCB_CLASSES)
-    print("serve: using synthetic stand-in class geometry (wrong extents for "
-          "real checkpoints)", flush=True)
-    proc = synthetic_class_library(c, 512)
-    k = np.array([[1066.778, 0, 312.9869], [0, 1067.487, 241.3109], [0, 0, 1]], np.float32)
+    if args.data_root:
+        ds = YCBVideoDataset(args.data_root, "train", num_points=512)
+        points, extents = ds.points, ds.extents
+    else:
+        print("serve: no --data_root; using synthetic stand-in class geometry (wrong extents "
+              "for real checkpoints)", flush=True)
+        proc = synthetic_class_library(c, 512)
+        points, extents = proc.points, proc.extents
     return InferenceEngine(
-        cfg, c, proc.points, proc.extents, YCB_SYMMETRY, k,
+        cfg, c, points, extents, YCB_SYMMETRY, YCB_K,
         height=args.height, width=args.width, ckpt=args.ckpt,
         class_names=list(YCB_CLASSES), batch=max(1, args.batch), device=args.device,
     )
@@ -313,6 +325,11 @@ def make_parser():
     parser.add_argument(
         "--concurrency", type=int, default=0,
         help="--bench client threads (default: --batch)",
+    )
+    parser.add_argument(
+        "--data_root", default=None,
+        help="dataset root with models/ and extents.txt: the real class geometry (default: "
+        "the procedural stand-in, whose extents are wrong for real checkpoints)",
     )
     return parser
 

@@ -1,14 +1,27 @@
-"""Evaluate PoseCNN on held-out synthetic scenes (PyTorch/CUDA port).
+"""Evaluate PoseCNN on held-out synthetic scenes or dataset frames
+(PyTorch/CUDA port).
 
-Counterpart of the synthetic posecnn branch of
-`posecnn_tpu/cli/test_net.py:43-420`: frames rendered by the carried
-generator from the procedural class library at the training resolution
-(seed 1234, held out from training's), the forward with per-class NMS,
-detections, optionally RANSAC centres (`--ransac`) and ICP against the
-rendered depth (`--refine`), then `PoseEvaluator`:
+Counterpart of the posecnn branch of `posecnn_tpu/cli/test_net.py:43-577`.
+The class library follows `--dataset` as training's does
+(`cli/common.class_geometry`, with the paint recorded in the checkpoint).
+Where the dataset's image set names frames on disk (YCB-Video / LOV, and
+`test.synthetic` off), the first `--num_images` frames are read with their
+GT poses and labels, at 640×480 (times `test.scales_base`), and turned
+into the cfg's input blobs by `build_image_blobs` (COLOR, DEPTH, RGBD's
+second tower, NORMAL); ICP refines against the frame's depth. Otherwise
+frames are rendered by the carried generator from the class library at
+the training resolution (seed 1234, held out from training's), with the
+input blobs made from the render's depth as training makes them; LINEMOD
+is scored so, with its diameters (0.1·d success), reprojection error and
+eggbox's 180° z flip. Then the forward with per-class NMS, detections,
+optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
+`PoseEvaluator`:
 
     python -m posecnn_torch.cli.test_net --cfg experiments/cfgs/lov_color_2d_pool_full.yaml \\
         --ckpt output/train/snapshot_iter_N.npz --num_images 64 --refine --output output/eval
+
+    python -m posecnn_torch.cli.test_net --dataset lov --data_root /path/to/LOV \\
+        --cfg experiments/cfgs/lov_rgbd_2d.yaml --ckpt output/lov_rgbd/…_iter_N.npz --refine
 
     # at toy size on the CPU
     python -m posecnn_torch.cli.test_net --device cpu --num_images 2 --refine \\
@@ -18,15 +31,14 @@ rendered depth (`--refine`), then `PoseEvaluator`:
 
 `<output>/eval.json` holds the evaluator's summary, as the JAX test_net
 writes it, and under "run" the device, the images/s of the loop and the
-seconds of each stage (render, forward, extract = NMS, detections and
-RANSAC, icp, evaluate), with the number of detections and of refined
-ones. Weights come from `--ckpt` (the JAX `.npz` layout, either
-package's), else seeded random ones (`init_weights`, `rng_seed`).
+seconds of each stage (render = rendering or reading a frame and making
+its blobs, forward, extract = NMS, detections and RANSAC, icp,
+evaluate), with the number of detections and of refined ones. Weights
+come from `--ckpt` (the JAX `.npz` layout, either package's), else
+seeded random ones (`init_weights`, `rng_seed`).
 
-Not ported yet, each raising: the dataset branches (`--dataset
-ycb_video|lov|linemod`, or a `--data_root` holding `models/`), RGBD,
-DEPTH and NORMAL input, and the detection family (`network:
-posecnn_det`); ROADMAP.md Queue 1 names what each waits for.
+Not ported yet, raising: the detection family (`network: posecnn_det`);
+ROADMAP.md Queue 1 names what it waits for.
 """
 
 from __future__ import annotations
@@ -38,16 +50,34 @@ import time
 import numpy as np
 import torch
 
-from posecnn_torch.cli.common import base_parser, head_flags_from_ckpt, load_config, setup_device
-from posecnn_torch.cli.train_net import _load_backgrounds
+from posecnn_torch.cli.common import (
+    add_dataset_flags,
+    base_parser,
+    class_geometry,
+    data_flags_from_ckpt,
+    has_real_frames,
+    head_flags_from_ckpt,
+    load_backgrounds,
+    load_config,
+    setup_device,
+)
 from posecnn_torch.core.checkpoint import restore_params
-from posecnn_torch.data.procedural import synthetic_class_library
+from posecnn_torch.data.minibatch import (
+    _fit_hw,
+    build_image_blobs,
+    build_meta_blob,
+    depth_blob,
+    mat_to_quat_np,
+    resize_bilinear,
+    resize_nearest,
+)
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.engine.evaluate import (
     PoseEvaluator,
     extract_detections,
     format_per_class_table,
 )
+from posecnn_torch.engine.train import INPUTS
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 from posecnn_torch.ops.nms import nms_per_class
 from posecnn_torch.refine.icp import icp_refine_batch
@@ -57,15 +87,13 @@ STAGES = ("render", "forward", "extract", "icp", "evaluate")
 
 
 def make_parser():
-    p = base_parser("PoseCNN evaluation on synthetic scenes (PyTorch/CUDA)")
-    p.add_argument("--dataset", default="synthetic",
-                   help="only 'synthetic' runs in the port; ycb_video, lov and linemod raise")
-    p.add_argument("--data_root", default=None,
-                   help="a dataset root; one holding models/ (YCB geometry) raises")
+    p = base_parser("PoseCNN evaluation on synthetic scenes or dataset frames (PyTorch/CUDA)")
+    add_dataset_flags(p, image_set="val")
     p.add_argument("--ckpt", default=None, help="weights in the JAX .npz layout")
     p.add_argument("--output", default="output/eval")
     p.add_argument("--num_images", type=int, default=20)
-    p.add_argument("--refine", action="store_true", help="ICP against the rendered depth")
+    p.add_argument("--refine", action="store_true",
+                   help="ICP against the frame's depth (rendered or read)")
     p.add_argument("--ransac", action="store_true",
                    help="translation from a RANSAC centre of the vertex directions instead of "
                    "the Hough maximum")
@@ -80,20 +108,14 @@ def make_parser():
     return p
 
 
-def check_supported(args, cfg) -> None:
+def check_supported(cfg) -> None:
     """Raise on what the port's evaluation cannot run yet, naming the
     ROADMAP.md Queue 1 item it waits for."""
     if cfg.network == "posecnn_det":
         raise NotImplementedError("network posecnn_det: the detection family's evaluation "
                                   "waits for ROADMAP.md Queue 1, 'Secondary families'")
-    if args.dataset != "synthetic" or (
-            args.data_root and os.path.exists(os.path.join(args.data_root, "models"))):
-        raise NotImplementedError(
-            f"--dataset {args.dataset!r} / --data_root {args.data_root!r}: real datasets and "
-            "YCB geometry wait for ROADMAP.md Queue 1, 'The dataset branches of test_net'")
-    if cfg.input != "COLOR":
-        raise NotImplementedError(f"input {cfg.input!r}: the RGBD, DEPTH and NORMAL towers wait "
-                                  "for ROADMAP.md Queue 1, 'The rest of the posecnn family'")
+    if cfg.input not in INPUTS:
+        raise ValueError(f"input {cfg.input!r}: one of {INPUTS}")
 
 
 def _sync(device):
@@ -151,28 +173,42 @@ def refine_detections(dets, label_t, depth, points, k, cfg, device):
 def main(argv=None) -> dict:
     args = make_parser().parse_args(argv)
     cfg = load_config(args)
-    check_supported(args, cfg)
+    check_supported(cfg)
     device = setup_device(args.device)
-    c = cfg.train.num_classes
-    # the procedural class library training renders (data/procedural.py, seed 0)
-    proc = synthetic_class_library(c, 2620)
+    geo = class_geometry(args, cfg, **data_flags_from_ckpt(cfg, args.ckpt))
+    c, ds, k = geo.num_classes, geo.ds, geo.k
     width, height = cfg.train.syn_width, cfg.train.syn_height
-    k = np.array([[500.0, 0, width / 2], [0, 500.0, height / 2], [0, 0, 1]], np.float32)
+    diameters = intrinsics = None
+    z_flip = ()
+    if geo.linemod is not None:
+        lm, ci = geo.linemod, geo.linemod_index
+        adi_classes = (1,) if lm.symmetry[ci] > 0 else ()
+        intrinsics = k
+        diameters = np.asarray([0.0, lm.diameters[ci]], np.float32)
+        z_flip = (1,) if ci in lm.z_flip_classes else ()
+    elif ds is not None:
+        adi_classes = ds.adi_classes
+    else:
+        adi_classes = tuple(int(i) for i in np.nonzero(geo.symmetry)[0])
+    # TEST.SYNTHETIC scores rendered frames even where real ones exist
+    real = not cfg.test.synthetic and has_real_frames(ds)
+    if real:
+        width, height = 640, 480
     # TEST.SCALES_BASE: evaluate at a rescaled resolution, intrinsics with it
     scale_base = float(cfg.test.scales_base[0]) if cfg.test.scales_base else 1.0
+    k_unscaled = k
     if scale_base != 1.0:
         width, height = int(round(width * scale_base)), int(round(height * scale_base))
         k = k.copy()
         k[:2, :] *= scale_base
     gen = SyntheticSceneGenerator(
-        proc.points, proc.extents, k, width=width, height=height, t_near=cfg.train.syn_tnear,
+        geo.points, geo.extents, k, width=width, height=height, t_near=cfg.train.syn_tnear,
         t_far=cfg.train.syn_tfar, pixel_means=cfg.pixel_means, seed=args.seed,
-        point_colors=proc.colors, point_normals=proc.normals,
-        backgrounds=_load_backgrounds(args.backgrounds, (height, width)),
+        point_colors=geo.colors, point_normals=geo.normals,
+        backgrounds=load_backgrounds(args.backgrounds, (height, width)),
     )
-    idxp = np.linspace(0, proc.points.shape[1] - 1, cfg.train.add_num_points).astype(int)
-    points = proc.points[:, idxp]
-    adi_classes = tuple(int(i) for i in np.nonzero(proc.symmetry)[0])
+    idxp = np.linspace(0, geo.points.shape[1] - 1, cfg.train.add_num_points).astype(int)
+    points = geo.points[:, idxp]
 
     model = PoseCNN(
         c, num_units=cfg.train.num_units, fc_dim=cfg.train.fc_dim,
@@ -182,33 +218,87 @@ def main(argv=None) -> dict:
         else torch.float32,
         hough_num_samples=cfg.test.hough_num_samples, skip_pixels=cfg.test.hough_skip_pixels,
         max_objects=8, vote_threshold=cfg.test.voting_threshold,
+        # a checkpoint trained with the domain head carries its parameters
+        adaptation=cfg.train.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
     )
     if args.ckpt:
         print(f"restored checkpoint at step {restore_params(args.ckpt, model)}")
     else:
         init_weights(model, cfg.rng_seed)
     model = model.to(device).eval()
-    extents_t = torch.from_numpy(proc.extents).to(device)
-    points_t = torch.from_numpy(points).to(device)
-    meta = np.zeros((1, 48), np.float32)
-    meta[0, :9] = k.flatten()
-    meta[0, 9:18] = np.linalg.inv(k).flatten()
-    meta_t = torch.from_numpy(meta).to(device)
+    extents_t = torch.from_numpy(np.asarray(geo.extents, np.float32)).to(device)
+    points_t = torch.from_numpy(np.ascontiguousarray(points)).to(device)
+    meta0 = np.zeros(48, np.float32)
+    meta0[:9] = k.flatten()
+    meta0[9:18] = np.linalg.inv(k).flatten()
+    pm = np.asarray(cfg.pixel_means, np.float32)
 
-    use_ransac = args.ransac or cfg.test.ransac
-    evaluator = PoseEvaluator(num_classes=c, points=points, extents=proc.extents,
-                              symmetric_classes=adi_classes,
-                              instance_matching=args.instance_matching, device=str(device))
-    seconds = dict.fromkeys(STAGES, 0.0)
-    n_dets = n_refined = 0
-    os.makedirs(args.output, exist_ok=True)
-    wall0 = time.perf_counter()
-    for i in range(args.num_images):
-        t = [time.perf_counter()]
+    def rendered_frame():
         sample = gen.render()
         gts = [(int(row[1]), row[6:10], row[10:13]) for row in sample.poses]
+        blob, blob_p = sample.image, None
+        if cfg.input == "RGBD":
+            blob_p = depth_blob(sample.depth, k, "DEPTH", pm).astype(np.float32)
+        elif cfg.input in ("DEPTH", "NORMAL"):
+            blob = depth_blob(sample.depth, k, cfg.input, pm).astype(np.float32)
+        return blob, blob_p, meta0, sample.depth, sample.label, gts
+
+    def read_frame(index):
+        frame = ds.load_frame(index)
+        kf = np.array(frame.get("intrinsic_matrix", k_unscaled), np.float32)
+        color = frame["color"][..., :3]
+        depth_raw = frame.get("depth_raw")
+        if scale_base != 1.0:
+            color = resize_bilinear(color, scale_base).astype(color.dtype)
+            if depth_raw is not None:
+                depth_raw = resize_nearest(depth_raw, scale_base)
+            kf = kf.copy()
+            kf[:2, :] *= scale_base
+        color = _fit_hw(color, height, width)
+        if depth_raw is not None:
+            depth_raw = _fit_hw(depth_raw.astype(np.float32), height, width)
+        factor = float(np.squeeze(frame["meta"].get("factor_depth", 1000.0))) if (
+            "meta" in frame) else 1000.0
+        blob, blob_p = build_image_blobs(color, depth_raw, kf, input_mode=cfg.input,
+                                         pixel_means=pm, depth_factor=factor)
+        poses = frame.get("poses")
+        gts = []
+        if poses is not None:
+            if poses.ndim == 2:
+                poses = poses[:, :, None]
+            for j, cls in enumerate(frame.get("cls_indexes", [])):
+                gts.append((int(cls), mat_to_quat_np(poses[:, :3, j]), poses[:, 3, j]))
+        gt_label = frame.get("label")
+        if gt_label is not None:
+            if scale_base != 1.0:
+                gt_label = resize_nearest(np.asarray(gt_label), scale_base)
+            gt_label = _fit_hw(gt_label, height, width)
+        depth_m = depth_raw / factor if depth_raw is not None else None
+        return blob, blob_p, build_meta_blob(kf), depth_m, gt_label, gts
+
+    if real:
+        frames = (lambda index=index: read_frame(index)
+                  for index in ds.image_index[: args.num_images])
+    else:
+        frames = (rendered_frame for _ in range(args.num_images))
+
+    use_ransac = args.ransac or cfg.test.ransac
+    evaluator = PoseEvaluator(num_classes=c, points=points, extents=geo.extents,
+                              symmetric_classes=tuple(adi_classes),
+                              instance_matching=args.instance_matching, diameters=diameters,
+                              z_flip_classes=z_flip, intrinsics=intrinsics, device=str(device))
+    seconds = dict.fromkeys(STAGES, 0.0)
+    n_images = n_dets = n_refined = 0
+    os.makedirs(args.output, exist_ok=True)
+    wall0 = time.perf_counter()
+    for i, make_frame in enumerate(frames):
+        t = [time.perf_counter()]
+        blob, blob_p, meta, depth, gt_label, gts = make_frame()
+        kk = meta[:9].reshape(3, 3)
         t.append(time.perf_counter())
-        out = model(torch.from_numpy(sample.image[None]).to(device), extents_t, meta_t,
+        out = model(torch.from_numpy(blob[None]).to(device), extents_t,
+                    torch.from_numpy(meta[None]).to(device),
+                    data_p=None if blob_p is None else torch.from_numpy(blob_p[None]).to(device),
                     full_vertex=use_ransac)
         _sync(device)
         t.append(time.perf_counter())
@@ -219,7 +309,7 @@ def main(argv=None) -> dict:
         dets = extract_detections(rois, out.hough.poses_init.cpu().numpy(),
                                   out.poses_pred.cpu().numpy(), keep.cpu().numpy(), c)
         if use_ransac and dets:
-            dets = ransac_translation(label, out.vertex_pred[0], dets, k, args.seed)
+            dets = ransac_translation(label, out.vertex_pred[0], dets, kk, args.seed)
         if args.save_results:
             np.savez_compressed(
                 os.path.join(args.output, f"results_{i:04d}.npz"),
@@ -230,26 +320,29 @@ def main(argv=None) -> dict:
             )
         n_dets += len(dets)
         t.append(time.perf_counter())
-        if args.refine and dets:
-            dets = refine_detections(dets, label_t, sample.depth, points_t, k, cfg, device)
+        if args.refine and dets and depth is not None:
+            dets = refine_detections(dets, label_t, np.asarray(depth, np.float32), points_t, kk,
+                                     cfg, device)
             n_refined += len(dets)
         t.append(time.perf_counter())
-        evaluator.add_segmentation(sample.label, label)
+        if gt_label is not None:
+            evaluator.add_segmentation(gt_label, label)
         evaluator.add_image(dets, gts)
         t.append(time.perf_counter())
         for name, a, b in zip(STAGES, t, t[1:]):
             seconds[name] += b - a
+        n_images += 1
     wall = time.perf_counter() - wall0
 
     summary = evaluator.summarize()
     summary["run"] = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
-        "images_per_s": args.num_images / wall,
+        "images_per_s": n_images / wall if n_images else 0.0,
         "seconds": seconds, "detections": n_dets, "refined": n_refined,
     }
     with open(os.path.join(args.output, "eval.json"), "w") as f:
         json.dump(summary, f, indent=2)
-    print(format_per_class_table(summary))
+    print(format_per_class_table(summary, list(ds.classes) if ds is not None else None))
     print(json.dumps({k_: v for k_, v in summary.items() if k_ != "per_class"}, indent=2))
     print(f"wrote {args.output}/eval.json")
     return summary

@@ -1,44 +1,69 @@
-"""Train PoseCNN on procedural synthetic scenes (PyTorch/CUDA port).
+"""Train PoseCNN on procedural scenes or dataset frames (PyTorch/CUDA port).
 
-Counterpart of the synthetic `posecnn` branch of
-`posecnn_tpu/cli/train_net.py:398-814`:
+Counterpart of the `posecnn` branch of `posecnn_tpu/cli/train_net.py:318-814`:
 
     python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_color_2d_pool_full.yaml \\
         --iters 200 --output output/train_gpu
+
+    # YCB-Video frames (RGBD, the domain head, the matching loss, … by --cfg)
+    python -m posecnn_torch.cli.train_net --dataset lov --data_root /path/to/LOV \\
+        --cfg experiments/cfgs/lov_rgbd_2d.yaml --output output/lov_rgbd --resume
 
     # at toy size on the CPU
     python -m posecnn_torch.cli.train_net --device cpu --iters 2 --output output/toy \\
         --set train.syn_height=96 train.syn_width=128 train.num_classes=4 train.fc_dim=64 \\
         train.num_units=8 train.ims_per_batch=2 train.vertex_reg_2d=True train.pose_reg=True
 
-The class library is the procedural one (`data/procedural.py`, seed 0),
-rendered by the carried generator; the feed is `pooled_minibatch` when
-`train.syn_pool_size > 0`, produced by two prefetch worker threads. Every
-`display` iterations a line goes to stdout and `<output>/metrics.jsonl`;
-snapshots in the JAX `.npz` layout go to `<output>` every
-`snapshot_iters` and at the end. `--ckpt` resumes as the r6 recipe does:
-the parameters and the step are restored, the optimizer starts fresh
-(count 0, zero moments) and `train.lr_step_offset` is set to the restored
-step. `--reinit` re-randomises named modules after the restore.
+The class library follows `--dataset` (`cli/common.class_geometry`): the
+procedural one (seed 0), YCB-Video's model clouds painted by
+`colorize_model_library`, or LINEMOD's `--cls` object (2 classes). Where
+the dataset's image set names frames on disk, batches alternate between
+the real stream (`get_real_minibatch` over a shuffled index, with
+chromatic jitter, noise and mirrored copies per the cfg) and, with
+`train.synthesize`, the synthetic one, `1 : train.syn_ratio`, produced in
+order by one prefetch thread. Without frames, two prefetch threads render
+synthetic batches (`pooled_minibatch` when `train.syn_pool_size > 0`),
+each with its own generator. Synthetic batches get the cfg's input mode
+from the render's depth (`syn_to_mode`: DEPTH, RGBD's second tower,
+NORMAL). Every `display` iterations a line goes to stdout and
+`<output>/metrics.jsonl`; snapshots in the JAX `.npz` layout go to
+`<output>` every `snapshot_iters` and at the end.
 
-Not ported: real-frame datasets (`--dataset`), `--pretrained` (an
-ImageNet `vgg16.npy`), `--resume` and the other network families.
+`--ckpt` (or `--resume`, the newest snapshot under `--output`) restores
+the parameters and the step; `fastforward_opt_counts` sets the fresh
+optimizer's update count (and Adam's `step`) to that step, so the
+staircase follows the global step. The moments start at zero. (The JAX
+CLI instead keeps the count at 0 and offsets the schedule by
+`train.lr_step_offset`; the staircase is the same, Adam's first
+bias correction after a resume is not.)
+`--reinit` re-randomises named modules after the restore.
+
+Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the other network
+families, and data parallelism (`--num_data`).
 """
 
 from __future__ import annotations
 
 import copy
-import dataclasses
 import glob
 import json
 import os
+import re
 import sys
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from posecnn_torch.cli.common import base_parser, load_config, setup_device
+from posecnn_torch.cli.common import (
+    add_dataset_flags,
+    base_parser,
+    class_geometry,
+    has_real_frames,
+    load_backgrounds,
+    load_config,
+    setup_device,
+)
 from posecnn_torch.core.checkpoint import (
     prune_snapshots,
     restore_params,
@@ -46,15 +71,27 @@ from posecnn_torch.core.checkpoint import (
     snapshot_path,
 )
 from posecnn_torch.core.config import Config
-from posecnn_torch.data.pipeline import Prefetcher, compact_feed, to_device
-from posecnn_torch.data.procedural import load_background_pool, make_procedural_objects
+from posecnn_torch.data.minibatch import depth_blob, get_real_minibatch
+from posecnn_torch.data.pipeline import (
+    Prefetcher,
+    RatioSampler,
+    ShuffledIndexer,
+    compact_feed,
+    to_device,
+)
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
-from posecnn_torch.engine.train import TrainState, check_supported, create_train_state, train_loop
+from posecnn_torch.engine.train import (
+    TrainState,
+    check_supported,
+    create_train_state,
+    fastforward_opt_counts,
+    train_loop,
+)
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 
 # the JAX package's top-level parameter modules → the port's (for --reinit)
 _MODULES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head", "vertex_head": "vertex_head",
-            "pose_head": "pose_head"}
+            "pose_head": "pose_head", "domain_head": "domain_head"}
 
 
 class Trainer(NamedTuple):
@@ -72,44 +109,47 @@ class Trainer(NamedTuple):
     make_batch_factory: Callable  # worker id → a producer of host batches (the feed's)
 
 
-def _load_backgrounds(pattern, size_hw):
-    if not pattern:
-        return None
-    files = sorted(glob.glob(pattern))
-    if not files:
-        raise FileNotFoundError(f"--backgrounds {pattern!r} matched no files")
-    pool = load_background_pool(files, size_hw=size_hw)
-    print(f"background compositing pool: {len(pool)} frames")
-    return pool
+def newest_snapshot(output_dir: str):
+    """The `*_iter_N.npz` under `output_dir` with the largest N, or None."""
+    pat = re.compile(r"_iter_(\d+)\.npz$")
+    snaps = [(int(m.group(1)), p) for p in glob.glob(os.path.join(output_dir, "*_iter_*.npz"))
+             if (m := pat.search(p))]
+    return max(snaps)[1] if snaps else None
 
 
 def build_trainer(args, cfg: Config) -> Trainer:
     """The model, optimizer state, prefetching feed and loss geometry of
-    a training run, with `--ckpt` and `--reinit` applied."""
+    a training run, with `--ckpt` / `--resume` and `--reinit` applied."""
     check_supported(cfg)
-    if cfg.train.syn_sample_pose:
-        raise ValueError("train.syn_sample_pose=True needs a dataset's pose bank, which the "
-                         "port's synthetic training does not read")
     device = setup_device(args.device)
     t = cfg.train
-    c = t.num_classes
-    proc = make_procedural_objects(c, 2620, seed=0)
-    k = np.array([[500.0, 0, t.syn_width / 2], [0, 500.0, t.syn_height / 2], [0, 0, 1]],
-                 np.float32)
-    idx = np.linspace(0, proc.points.shape[1] - 1, t.add_num_points).astype(int)
+    if getattr(args, "resume", False) and not args.ckpt:
+        args.ckpt = newest_snapshot(args.output)
+        print(f"--resume: using {args.ckpt}" if args.ckpt
+              else f"--resume: no snapshots under {args.output}, starting fresh")
+    geo = class_geometry(args, cfg, bool(t.orient_paint), int(t.paint_version))
+    c, ds = geo.num_classes, geo.ds
+    idx = np.linspace(0, geo.points.shape[1] - 1, t.add_num_points).astype(int)
     # TRAIN.SCALES_BASE: images, labels, centres and intrinsics scale together
     scale_base = float(t.scales_base[0]) if t.scales_base else 1.0
     train_h, train_w = int(round(t.syn_height * scale_base)), int(round(t.syn_width * scale_base))
+    k = geo.k.copy()
     if scale_base != 1.0:
-        k = k.copy()
         k[:2, :] *= scale_base
+    # SYN_SAMPLE_POSE draws from the dataset's pose bank (<root>/poses/<cls>.txt)
+    pose_bank = None
+    if t.syn_sample_pose:
+        if ds is None:
+            raise ValueError("train.syn_sample_pose=True requires --dataset ycb_video|lov (the "
+                             "pose bank lives at <root>/poses/<cls>.txt)")
+        pose_bank = ds.load_pose_bank()
     gen = SyntheticSceneGenerator(
-        proc.points, proc.extents, k, width=train_w, height=train_h, t_near=t.syn_tnear,
+        geo.points, geo.extents, k, width=train_w, height=train_h, t_near=t.syn_tnear,
         t_far=t.syn_tfar, pixel_means=cfg.pixel_means, seed=cfg.rng_seed,
         class_whitelist=[min(t.syn_class_index, c - 1)] if t.syn_class_index > 0 else None,
-        sample_object=t.syn_sample_object, point_colors=proc.colors,
-        point_normals=proc.normals,
-        backgrounds=_load_backgrounds(getattr(args, "backgrounds", None), (train_h, train_w)),
+        sample_object=t.syn_sample_object, sample_pose=t.syn_sample_pose, pose_bank=pose_bank,
+        point_colors=geo.colors, point_normals=geo.normals,
+        backgrounds=load_backgrounds(getattr(args, "backgrounds", None), (train_h, train_w)),
     )
 
     batch_size = t.ims_per_batch
@@ -119,6 +159,7 @@ def build_trainer(args, cfg: Config) -> Trainer:
         hough_backend=t.hough_backend, max_pose_rois=t.max_pose_rois,
         gt_pose_rois=t.gt_pose_rois, pose_pool_size=t.pose_pool_size,
         norm_features=t.norm_features, quat_activation=t.quat_activation,
+        adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
         # bf16 compute on the card (cfg.compute_dtype); fp32 on the CPU
         compute_dtype=getattr(torch, cfg.compute_dtype) if device.type == "cuda"
         else torch.float32,
@@ -126,7 +167,7 @@ def build_trainer(args, cfg: Config) -> Trainer:
     init_weights(model, cfg.rng_seed)
     step0 = 0
     if args.ckpt:
-        fresh = {k: v.clone() for k, v in model.state_dict().items()}
+        fresh = {k_: v.clone() for k_, v in model.state_dict().items()}
         step0 = restore_params(args.ckpt, model)
         for name in (n.strip() for n in (args.reinit or "").split(",")):
             if not name:
@@ -134,37 +175,73 @@ def build_trainer(args, cfg: Config) -> Trainer:
             prefix = _MODULES.get(name, name)
             if prefix not in _MODULES.values():
                 raise ValueError(f"--reinit {name!r}: no such module; have {sorted(_MODULES)}")
-            model.load_state_dict({k: v for k, v in fresh.items() if k.startswith(prefix + ".")},
-                                  strict=False)
+            model.load_state_dict({k_: v for k_, v in fresh.items()
+                                   if k_.startswith(prefix + ".")}, strict=False)
             print(f"--reinit: re-randomized '{name}'")
-        # a fresh optimizer (count 0) keeps the staircase on the global
-        # step through the offset (posecnn_tpu/cli/train_net.py:757-774)
-        cfg = dataclasses.replace(cfg, train=dataclasses.replace(t, lr_step_offset=step0))
     elif args.reinit:
-        raise ValueError("--reinit needs --ckpt")
+        raise ValueError("--reinit needs --ckpt or --resume")
     model = model.to(device)
     state = create_train_state(cfg, model)
     state.step = step0
+    if args.ckpt:
+        # the staircase and Adam's bias correction follow the global step
+        fastforward_opt_counts(state.opt, step0)
 
     max_gt = 8 * batch_size
-    compact = t.compact_feed  # COLOR input, 2D vertex targets (check_supported)
+    pixel_means = np.asarray(cfg.pixel_means, np.float32)
+    # the uint8 feed only where the step never reads depth
+    compact = t.compact_feed and cfg.input == "COLOR" and not t.vertex_reg_3d and (
+        not t.matching) and not t.gan
 
-    def make_batch_factory(worker_id):
-        g = copy.deepcopy(gen)
-        g.rng = np.random.RandomState(cfg.rng_seed + 1000 * (worker_id + 1))
+    def syn_to_mode(b):
+        """The cfg's input mode from the render's metric depth."""
+        if cfg.input == "COLOR":
+            return compact_feed(b, pixel_means) if compact else b
+        blob = np.stack([depth_blob(d, k, cfg.input, pixel_means) for d in b["depth"]])
+        b["data_p" if cfg.input == "RGBD" else "data"] = blob.astype(np.float32)
+        return b
 
-        def make_batch():
-            if t.syn_pool_size > 0:
-                b = g.pooled_minibatch(batch_size, max_gt=max_gt, dense_vertex_targets=False,
-                                       pool_size=t.syn_pool_size, fresh=t.syn_pool_fresh)
-            else:
-                b = g.minibatch(batch_size, max_gt=max_gt, dense_vertex_targets=False)
-            return compact_feed(b, cfg.pixel_means) if compact else b
+    def syn_batch(g):
+        if t.syn_pool_size > 0:
+            return syn_to_mode(g.pooled_minibatch(batch_size, max_gt=max_gt,
+                                                  dense_vertex_targets=False,
+                                                  pool_size=t.syn_pool_size,
+                                                  fresh=t.syn_pool_fresh))
+        return syn_to_mode(g.minibatch(batch_size, max_gt=max_gt, dense_vertex_targets=False))
 
-        return make_batch
+    if has_real_frames(ds):
+        # the real and synthetic streams share the sampler, the index and
+        # the augmentation draws: one producer, in the JAX feed's order
+        indexer = ShuffledIndexer(len(ds.image_index) * (2 if t.use_flipped else 1),
+                                  seed=cfg.rng_seed)
+        streams = ["real"] + (["syn"] if t.synthesize else [])
+        sampler = RatioSampler(streams, [1, t.syn_ratio][: len(streams)])
+        data_rng = np.random.RandomState(cfg.rng_seed)
 
-    batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8, num_workers=2,
-                         device_put=lambda b: to_device(b, device))
+        def make_real_batch():
+            if sampler.next_stream() == "real":
+                return get_real_minibatch(
+                    ds, indexer.next_batch(batch_size), num_classes=c, height=train_h,
+                    width=train_w, pixel_means=pixel_means, input_mode=cfg.input, rng=data_rng,
+                    chromatic=t.chromatic, noise=t.add_noise, use_flipped=t.use_flipped,
+                    max_gt=max_gt, scale=scale_base, dense_vertex_targets=False)
+            return syn_batch(gen)
+
+        def make_batch_factory(worker_id):
+            if worker_id != 0:
+                raise ValueError("the real-frame feed has one producer")
+            return make_real_batch
+
+        num_workers = 1
+    else:
+        def make_batch_factory(worker_id):
+            g = copy.deepcopy(gen)
+            g.rng = np.random.RandomState(cfg.rng_seed + 1000 * (worker_id + 1))
+            return lambda: syn_batch(g)
+
+        num_workers = 2
+    batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8,
+                         num_workers=num_workers, device_put=lambda b: to_device(b, device))
     head_meta = {
         "norm_features": t.norm_features,
         "quat_activation": t.quat_activation,
@@ -175,11 +252,10 @@ def build_trainer(args, cfg: Config) -> Trainer:
     }
     return Trainer(
         cfg, device, model, state, batches,
-        torch.from_numpy(proc.points[:, idx]).to(device),
-        torch.from_numpy(proc.extents).to(device),
-        torch.from_numpy(np.asarray(proc.symmetry, np.float32)).to(device),
-        head_meta,
-        make_batch_factory,
+        torch.from_numpy(np.ascontiguousarray(geo.points[:, idx])).to(device),
+        torch.from_numpy(np.asarray(geo.extents, np.float32)).to(device),
+        torch.from_numpy(np.asarray(geo.symmetry, np.float32)).to(device),
+        head_meta, make_batch_factory,
     )
 
 
@@ -217,15 +293,20 @@ def main_run(args, cfg: Config, max_iters: int) -> TrainState:
 
 
 def make_parser():
-    parser = base_parser("PoseCNN training on synthetic scenes (PyTorch/CUDA)")
+    parser = base_parser("PoseCNN training on procedural scenes or dataset frames "
+                         "(PyTorch/CUDA)")
+    add_dataset_flags(parser, image_set="train")
     parser.add_argument("--output", default="output/train")
     parser.add_argument("--iters", type=int, default=0, help="override max_iters")
     parser.add_argument("--ckpt", default=None,
                         help="resume from this snapshot (JAX .npz layout): parameters and "
-                        "step; the optimizer starts fresh")
+                        "step; the optimizer's count is set to the step, its moments to 0")
+    parser.add_argument("--resume", action="store_true",
+                        help="resume from the newest snapshot under --output (fresh start "
+                        "when there is none)")
     parser.add_argument("--reinit", default=None, metavar="MODULES",
                         help="comma-separated top-level modules (e.g. 'pose_head') to "
-                        "re-randomize after the --ckpt restore")
+                        "re-randomize after the --ckpt / --resume restore")
     parser.add_argument("--backgrounds", default=None,
                         help="glob of RGB frames composited behind the renders (default: "
                         "none, uniform noise backgrounds)")

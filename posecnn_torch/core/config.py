@@ -178,11 +178,10 @@ class TrainConfig:
     # host cost of syn_pool_fresh renders/step (per prefetch worker)
     syn_pool_size: int = 0
     syn_pool_fresh: int = 2
-    # resume lr alignment: set (by the train_net resume path) to the
-    # restored global step so the staircase schedule — evaluated on the
-    # optimizer's pass-local count, which deliberately resets at every
-    # resume for the adam restart kick (engine/train.lr_schedule) —
-    # keeps its decay boundaries at the intended global iterations
+    # added to the optimizer's count by engine/train.lr_schedule. The JAX
+    # CLI's resume sets it to the restored step; the port's resume
+    # fast-forwards the count instead (fastforward_opt_counts) and
+    # leaves it at 0
     lr_step_offset: int = 0
     # tunnel-feed compression (data/pipeline.compact_feed →
     # engine/train.decompress_feed): uint8 image/label + depth dropped

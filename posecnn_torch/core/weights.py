@@ -10,6 +10,10 @@ alone and maps each parameter onto the port's module names:
   params/seg_head/score_conv{4,5,out}/…      → seg_head.score_conv{4,5,out}.…
   params/vertex_head/vertex_conv{4,5,out}/…  → vertex_head.vertex_conv{4,5,out}.…
   params/pose_head/fc{6,7,8}/…               → pose_head.fc{6,7,8}.…
+  params/domain_head/{fc9,domain_score}/…    → domain_head.{fc9,domain_score}.…
+
+The RGBD model has the same keys, with 1024 input channels in the heads'
+conv4/conv5 kernels and p·p·1024 rows in fc6 (and in fc9 with adaptation).
 
 Conv kernels go from flax's HWIO to torch's OIHW; Dense kernels from
 (in, out) to Linear's (out, in). fc6's rows need no permutation: the
@@ -27,7 +31,8 @@ import numpy as np
 import torch
 
 _MODULE_NAMES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head",
-                 "vertex_head": "vertex_head", "pose_head": "pose_head"}
+                 "vertex_head": "vertex_head", "pose_head": "pose_head",
+                 "domain_head": "domain_head"}
 _KEY = re.compile(r"params/([^/]+)/([^/]+)/(kernel|bias)")
 
 

@@ -1,0 +1,107 @@
+"""Dataset trees in the reference's on-disk formats, from rendered scenes.
+
+`write_ycb_tree` writes a YCB-Video / LOV tree that `data/datasets.py`
+reads: `models/<cls>/points.xyz` (the procedural library's clouds),
+`extents.txt`, the image sets `<root>/<set>.txt` (where
+`YCBVideoDataset` reads them) and, per frame, `data/<index>-color.png`
+(RGB), `-depth.png` (uint16, metres × factor_depth), `-label.png` (uint8)
+and `-meta.mat` (poses (3, 4, N), cls_indexes (N, 1), center (N, 2),
+intrinsic_matrix, factor_depth), each frame rendered by
+`SyntheticSceneGenerator` with YCB-Video's camera; and a pose bank under
+`poses/`. `write_linemod_tree` writes the LINEMOD files the readers use
+without frames: `extents.txt` and `indexes/<cls>_<set>.txt`.
+
+They stand in for the real datasets wherever those are absent: the
+loaders, `train_net` and `test_net` run on them as on the real trees.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from posecnn_torch.data.datasets import LINEMOD_CLASSES, YCB_CLASSES, YCB_K
+from posecnn_torch.data.procedural import make_procedural_objects
+from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+from posecnn_torch.utils.quaternion import quat_to_mat_np
+
+FACTOR_DEPTH = 10000.0  # YCB-Video's depth scale
+
+
+def write_ycb_tree(root: str, *, sets=(("train", 8), ("val", 4)), height: int = 480,
+                   width: int = 640, num_points: int = 2620, seed: int = 0, k=YCB_K) -> dict:
+    """Write the tree (YCB-Video's 22 classes, frames of `height` × `width`
+    seen through `k`); returns {set name: [frame index, …]}."""
+    import scipy.io
+    from PIL import Image
+
+    k = np.asarray(k, np.float32)
+    num_classes = len(YCB_CLASSES)
+    lib = make_procedural_objects(num_classes, num_points, seed=seed)
+    for c in range(1, num_classes):
+        os.makedirs(os.path.join(root, "models", YCB_CLASSES[c]), exist_ok=True)
+        np.savetxt(os.path.join(root, "models", YCB_CLASSES[c], "points.xyz"), lib.points[c],
+                   fmt="%.6f")
+    np.savetxt(os.path.join(root, "extents.txt"), lib.extents[1:], fmt="%.6f")
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=width, height=height,
+                                  pixel_means=np.zeros(3, np.float32), seed=seed + 1,
+                                  point_colors=lib.colors, point_normals=lib.normals)
+    # the pose bank of train.syn_sample_pose: rows [qw qx qy qz tx ty tz]
+    os.makedirs(os.path.join(root, "poses"), exist_ok=True)
+    bank_rng = np.random.RandomState(seed + 2)
+    for c in range(1, num_classes):
+        q = bank_rng.randn(16, 4)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        t = np.stack([bank_rng.uniform(-0.1, 0.1, 16), bank_rng.uniform(-0.1, 0.1, 16),
+                      bank_rng.uniform(0.6, 1.2, 16)], 1)
+        np.savetxt(os.path.join(root, "poses", f"{YCB_CLASSES[c]}.txt"),
+                   np.concatenate([q, t], 1), fmt="%.6f")
+    indexes = {}
+    frame = 0
+    for name, count in sets:
+        indexes[name] = []
+        for _ in range(count):
+            index = f"{frame // 1000:04d}/{frame % 1000 + 1:06d}"
+            prefix = os.path.join(root, "data", index)
+            os.makedirs(os.path.dirname(prefix), exist_ok=True)
+            s = gen.render(dense_vertex_targets=False)
+            bgr = np.clip(np.rint(s.image), 0, 255).astype(np.uint8)
+            Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(prefix + "-color.png")
+            Image.fromarray(np.clip(np.rint(s.depth * FACTOR_DEPTH), 0, 65535).astype(
+                np.uint16)).save(prefix + "-depth.png")
+            Image.fromarray(s.label.astype(np.uint8)).save(prefix + "-label.png")
+            poses = np.stack([np.concatenate([quat_to_mat_np(row[6:10]), row[10:13, None]], 1)
+                              for row in s.poses], axis=2)
+            scipy.io.savemat(prefix + "-meta.mat", {
+                "poses": poses.astype(np.float64),
+                "cls_indexes": s.poses[:, 1:2].astype(np.float64),
+                "center": s.poses[:, 2:4].astype(np.float64),
+                "intrinsic_matrix": np.asarray(k, np.float64),
+                "factor_depth": np.array([[FACTOR_DEPTH]]),
+            })
+            indexes[name].append(index)
+            frame += 1
+        with open(os.path.join(root, f"{name}.txt"), "w") as f:
+            f.write("\n".join(indexes[name]) + "\n")
+    return indexes
+
+
+def write_linemod_tree(root: str, cls: str = "ape", sets=("train", "test"), seed: int = 0,
+                       with_model: bool = False, num_points: int = 2620) -> None:
+    """LINEMOD's `extents.txt` (15 objects, random extents of 6-30 cm) and
+    `indexes/<cls>_<set>.txt`; with `with_model`, `models/<cls>/points.xyz`
+    for the one object (a procedural cloud scaled to its extents)."""
+    rng = np.random.RandomState(seed)
+    extents = rng.uniform(0.06, 0.3, (len(LINEMOD_CLASSES) - 1, 3))
+    np.savetxt(os.path.join(root, "extents.txt"), extents, fmt="%.6f")
+    os.makedirs(os.path.join(root, "indexes"), exist_ok=True)
+    for name in sets:
+        with open(os.path.join(root, "indexes", f"{cls}_{name}.txt"), "w") as f:
+            f.write("\n".join(f"{i:06d}" for i in range(4)) + "\n")
+    if with_model:
+        ci = LINEMOD_CLASSES.index(cls)
+        lib = make_procedural_objects(2, num_points, seed=seed)
+        pts = lib.points[1] * (extents[ci - 1] / np.maximum(lib.extents[1], 1e-6))
+        os.makedirs(os.path.join(root, "models", cls), exist_ok=True)
+        np.savetxt(os.path.join(root, "models", cls, "points.xyz"), pts, fmt="%.6f")

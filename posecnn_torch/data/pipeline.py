@@ -1,4 +1,9 @@
-"""Host-side input pipeline (counterpart of `posecnn_tpu/data/pipeline.py:70-160`).
+"""Host-side input pipeline (counterpart of `posecnn_tpu/data/pipeline.py:25-160`).
+
+`RatioSampler` interleaves the real and synthetic streams at integer
+ratios; `ShuffledIndexer` gives each epoch's frames in a seeded shuffled
+order, sharded across processes (process 0 of 1 until data parallel).
+Both are the original's, draw for draw.
 
 `Prefetcher`: worker threads produce minibatches into a bounded queue
 while the device runs the step; each worker has its own producer (own
@@ -16,10 +21,56 @@ from __future__ import annotations
 import queue
 import threading
 import time
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Sequence
 
 import numpy as np
 import torch
+
+
+class RatioSampler:
+    """Interleave multiple index streams with integer ratios
+    (ref: GtSynthesizeLayer._get_next_minibatch ratio logic,
+    layer.py:76-113: e.g. 1 synthetic batch per real batch)."""
+
+    def __init__(self, streams: Sequence[str], ratios: Sequence[int]):
+        assert len(streams) == len(ratios) and len(streams) > 0
+        self.schedule = []
+        for s, r in zip(streams, ratios):
+            self.schedule.extend([s] * max(int(r), 0))
+        if not self.schedule:
+            self.schedule = [streams[0]]
+        self._i = 0
+
+    def next_stream(self) -> str:
+        s = self.schedule[self._i % len(self.schedule)]
+        self._i += 1
+        return s
+
+
+class ShuffledIndexer:
+    """Epoch-shuffled index stream (ref: imdb roidb shuffling in
+    layer.py:60-74), sharded across hosts."""
+
+    def __init__(self, num_items: int, seed: int = 0, process_index: int = 0,
+                 process_count: int = 1):
+        self.num_items = num_items
+        self.rng = np.random.RandomState(seed + process_index)
+        self.process_index = process_index
+        self.process_count = process_count
+        self._perm = np.empty(0, np.int64)
+        self._cur = 0
+
+    def next_batch(self, batch_size: int) -> np.ndarray:
+        out = []
+        while len(out) < batch_size:
+            if self._cur >= len(self._perm):
+                perm = self.rng.permutation(self.num_items)
+                # per-host shard of the shuffled epoch
+                self._perm = perm[self.process_index :: self.process_count]
+                self._cur = 0
+            out.append(self._perm[self._cur])
+            self._cur += 1
+        return np.asarray(out)
 
 
 class Prefetcher:

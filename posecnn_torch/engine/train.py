@@ -7,6 +7,8 @@ family. Loss composition as in the reference's train_net:
        + VERTEX_W · smooth_l1_vertex
        + POSE_W · average_distance_loss
        + QMAG_W · (|q_raw| − 1)² on the weighted rows
+       [+ matching loss]               (train.matching)
+       [+ ADAPT_WEIGHT · domain CE]    (train.adapt)
        + WEIGHT_REG · L2(kernels)      (added to the gradient by the optimizer)
 
 The optimizer is optax's chain in the same order and with the same
@@ -19,10 +21,11 @@ The step is eager PyTorch: forward with autograd, `backward()`, update.
 Hough inside the forward runs without gradient (its kernels have no
 backward and need none). Dropout streams come from (seed, step), as
 `jax.random.fold_in(PRNGKey(seed), step)` gives the JAX step its key.
+The inputs are COLOR, DEPTH or NORMAL blobs in `data`, or RGBD's colour
+in `data` and depth in `data_p`.
 
-Not ported: the GAN, detection, segmentation and video steps, the
-matching and domain-adaptation losses, `fastforward_opt_counts`, the
-host-RSS handoff and multi-device data parallelism.
+Not ported: the GAN, detection, segmentation and video steps, 3D vertex
+regression, the host-RSS handoff and multi-device data parallelism.
 """
 
 from __future__ import annotations
@@ -42,21 +45,25 @@ from posecnn_torch.ops.losses import (
     build_vertex_targets,
     loss_cross_entropy_single_frame,
     smooth_l1_loss_vertex,
+    softmax_cross_entropy_with_logits,
 )
+from posecnn_torch.ops.matching_loss import roi_matching_loss
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
+INPUTS = ("COLOR", "RGBD", "DEPTH", "NORMAL")
+
+
 def check_supported(cfg: Config) -> None:
     """Raise on a configuration the port's training path does not run:
-    only the posecnn family on COLOR input, with 2D vertex and pose
-    regression, trains here."""
+    the posecnn family on COLOR, RGBD, DEPTH or NORMAL input, with 2D
+    vertex and pose regression, and optionally the domain-adaptation and
+    matching losses, trains here."""
     t = cfg.train
     unsupported = {
         f"network={cfg.network!r}": cfg.network != "posecnn",
-        f"input={cfg.input!r} (the RGBD/DEPTH/NORMAL towers)": cfg.input != "COLOR",
-        "train.adapt (DomainHead, gradient reversal)": t.adapt,
-        "train.matching (the matching loss)": t.matching,
+        f"input={cfg.input!r}": cfg.input not in INPUTS,
         "train.gan (the GAN step)": t.gan,
         "train.vertex_reg_3d": t.vertex_reg_3d,
         "train.vertex_reg_2d=False": not t.vertex_reg_2d,
@@ -70,9 +77,8 @@ def check_supported(cfg: Config) -> None:
 
 def lr_schedule(cfg: Config) -> Callable[[int], float]:
     """Staircase exponential decay, evaluated on the optimizer's own
-    update count, which starts at 0 with every fresh optimizer (each
-    resume), plus `train.lr_step_offset` (the restored global step), so
-    decay boundaries stay on the global iteration
+    update count (which `fastforward_opt_counts` sets to the global step
+    on a resume) plus `train.lr_step_offset`
     (`posecnn_tpu/engine/train.py:49-73`)."""
     t = cfg.train
 
@@ -122,7 +128,7 @@ class Optimizer:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        if self.weight_decay > 0:
+        if self.weight_decay > 0 and self.decayed:
             # optax.masked(add_decayed_weights): g + wd · p on the kernels
             torch._foreach_add_([p.grad for p in self.decayed], self.decayed,
                                 alpha=self.weight_decay)
@@ -138,6 +144,27 @@ class Optimizer:
         self.opt.step()
         self.count += 1
         return lr
+
+
+def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
+    """Set the optimizer's update count, which the schedule reads, and
+    every parameter's `step` in the `torch.optim` state to `step`
+    (`posecnn_tpu/engine/train.py:76-99` sets every optax `count`). The
+    staircase then follows the global iteration, and Adam's bias
+    correction is that of an optimizer `step` updates old, with the
+    moments it has (zero on a fresh one, as optax's init). SGD's state
+    has no count."""
+    opt.count = step
+    if isinstance(opt.opt, torch.optim.Adam):
+        for p in opt.params:
+            state = opt.opt.state[p]
+            if not state:
+                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            # fused Adam keeps the step on the parameter's device
+            state["step"] = torch.tensor(float(step), dtype=torch.float32,
+                                         device=p.device if p.is_cuda else "cpu")
+    return opt
 
 
 def create_optimizer(cfg: Config, params: Sequence[torch.Tensor]) -> Optimizer:
@@ -172,24 +199,28 @@ def decompress_feed(batch: dict, cfg: Config) -> dict:
 
 
 def dropout_generators(seed: int, step: int, device) -> list[torch.Generator]:
-    """The four dropout streams of one step (seg head, vertex head, fc6,
-    fc7), seeded from (seed, step)."""
-    states = np.random.SeedSequence([seed, step]).generate_state(4)
+    """The five dropout streams of one step (seg head, vertex head, fc6,
+    fc7, fc9), seeded from (seed, step). `generate_state` gives a prefix
+    of the same words for fewer streams, so the first four are those of
+    a model without the domain head."""
+    states = np.random.SeedSequence([seed, step]).generate_state(5)
     return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
 
 
 def compute_losses(model, batch: dict, cfg: Config, points, extents, symmetry,
-                   generators: Sequence[Optional[torch.Generator]] = (None,) * 4,
+                   generators: Sequence[Optional[torch.Generator]] = (None,) * 5,
                    keep_prob: float = 0.5):
     """Training forward + loss composition. batch keys: data (B, H, W, 3),
     label (B, H, W), meta (B, 48), gt_poses (G, 13), gt_valid (G,), and
     either vertex_targets / vertex_weights (B, H, W, 3C) or the sparse
-    vertex_centers / vertex_logz / vertex_valid; data and label may be
-    uint8 (`compact_feed`). `keep_prob` is the dropout keep rate (the JAX
-    step fixes 0.5; 1 switches dropout off)."""
+    vertex_centers / vertex_logz / vertex_valid; data_p (B, H, W, 3) for
+    RGBD; data and label may be uint8 (`compact_feed`). `keep_prob` is
+    the dropout keep rate (the JAX step fixes 0.5; 1 switches dropout
+    off)."""
     batch = decompress_feed(batch, cfg)
     out = model.train_forward(batch["data"], extents, batch["meta"], batch["gt_poses"],
-                              batch.get("gt_valid"), keep_prob=keep_prob, generators=generators)
+                              batch.get("gt_valid"), data_p=batch.get("data_p"),
+                              keep_prob=keep_prob, generators=generators)
     return _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry)
 
 
@@ -232,6 +263,22 @@ def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry):
             num_weighted, min=1.0)
         total = total + t.qmag_w * loss_qmag
         metrics["loss_qmag"] = loss_qmag
+
+    if t.matching:
+        # soft silhouettes of the weighted RoIs at their predicted poses
+        # against the GT label mask at 1/8 (engine/train.py:264-291)
+        loss_match, _ = roi_matching_loss(hough.rois, out.poses_pred, hough.poses_init,
+                                          hough.poses_weight, hough.valid, batch["label"],
+                                          batch["meta"], points)
+        total = total + loss_match
+        metrics["loss_match"] = loss_match
+
+    if t.adapt and out.domain_logits is not None:
+        dom_ce = softmax_cross_entropy_with_logits(out.domain_logits, hough.domains.long())
+        mask = hough.valid.float()
+        loss_domain = t.adapt_weight * (dom_ce * mask).sum() / (mask.sum() + 1e-10)
+        total = total + loss_domain
+        metrics["loss_domain"] = loss_domain
 
     metrics["loss"] = total
     return total, {k: v.detach() for k, v in metrics.items()}

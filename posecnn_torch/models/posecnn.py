@@ -1,10 +1,12 @@
 """PoseCNN: the flagship 6D pose estimation network.
 
-Counterpart of `posecnn_tpu/models/posecnn.py:53-164, 184-382` for COLOR
-input: the eval forward the server runs (`forward`) and the training
-forward (`train_forward`):
+Counterpart of `posecnn_tpu/models/posecnn.py:53-382`: the eval forward
+the server runs (`forward`) and the training forward (`train_forward`):
 
-  trunk      VGG16 conv1_1..conv5_3
+  trunk      VGG16 conv1_1..conv5_3; with `input_format="RGBD"` the same
+             trunk also runs on the depth blob `data_p` and conv4_3 and
+             conv5_3 of the two are concatenated to 1024 channels, which
+             the heads and the pose head's fc6 take
   seg head   1×1 score convs on conv4_3/conv5_3, ×2 up of the conv5
              score, sum, 1×1 → C, ×8 up; log-softmax and argmax in fp32
   vertex     the same skip topology with 128 channels, 1×1 → 3C, kept at
@@ -13,6 +15,8 @@ forward (`train_forward`):
              multi-instance with `vote_threshold > 0`
   pose head  dual-scale RoI pool → fc6 → fc7 → fc8 (fp32) → class mask →
              L2 normalise
+  adapt      with `adaptation`: gradient reversal (λ 0.01) → fc9 (256) →
+             domain_score (2, fp32) on the pooled features
 
 Dtype policy: fp32 parameters; `compute_dtype` (bf16 on the card, fp32
 on the CPU) casts each conv's and dense layer's inputs and weights, as
@@ -20,13 +24,11 @@ flax's `dtype=` does. Scores are cast to fp32 before the softmax, the
 vertex map before Hough, and fc8 runs in fp32.
 
 Training adds flax-semantics dropout (keep with probability `keep_prob`,
-scale by 1/keep_prob) on the two heads' skip sums and after fc6 and fc7,
-each drawn from its own `torch.Generator` (four streams, as
-`jax.random.split` gives the JAX model), the full-resolution vertex map,
-the Hough training emission with optional GT RoIs, and the pose-row
-compaction. `DomainHead`, gradient reversal and the RGBD tower are not
-ported: `adapt` and RGBD input raise where a model is built
-(`engine/train.check_supported`).
+scale by 1/keep_prob) on the two heads' skip sums, after fc6 and fc7 and
+after fc9, each drawn from its own `torch.Generator` (five streams, where
+`jax.random.split` gives the JAX model four and splits the pose head's in
+two), the full-resolution vertex map, the Hough training emission with
+optional GT RoIs, and the pose-row compaction.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from posecnn_torch.models.vgg16 import VGG16Trunk, bilinear_upsample, conv, nchw, nhwc
+from posecnn_torch.ops.gradient_reversal import gradient_reversal
 from posecnn_torch.ops.hough_voting import BACKENDS, HoughOutputs, append_gt_rois, hough_voting
 from posecnn_torch.ops.roi_align import roi_pool_fused
 
@@ -50,6 +53,7 @@ class PoseCNNOutputs(NamedTuple):
     hough: HoughOutputs
     poses_pred: torch.Tensor  # (R, 4C) masked unit quaternions
     poses_tanh: torch.Tensor  # (R, 4C) raw fc8 output (after tanh if chosen)
+    domain_logits: Optional[torch.Tensor] = None  # (R, 2), with adaptation
 
 
 def dropout(x: torch.Tensor, keep_prob: float, generator: Optional[torch.Generator]):
@@ -126,6 +130,28 @@ class PoseHead(nn.Module):
         return masked / torch.clamp(norm, min=1e-2), poses_tanh
 
 
+class DomainHead(nn.Module):
+    """Domain classifier behind gradient reversal (`posecnn.py:167-181`):
+    the flattened pooled features reversed with λ, fc9 (256) with ReLU
+    and dropout in the compute dtype, then domain_score (2) in fp32."""
+
+    def __init__(self, in_features: int, lambda_: float = 0.01, *,
+                 compute_dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.lambda_ = lambda_
+        self.compute_dtype = compute_dtype
+        self.fc9 = nn.Linear(in_features, 256)
+        self.domain_score = nn.Linear(256, 2)
+
+    def forward(self, pooled: torch.Tensor, *, keep_prob: float = 1.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        dt = self.compute_dtype
+        x = gradient_reversal(pooled.reshape(pooled.shape[0], -1), self.lambda_)
+        x = F.relu(F.linear(x.to(dt), self.fc9.weight.to(dt), self.fc9.bias.to(dt)))
+        x = dropout(x, keep_prob, generator)
+        return self.domain_score(x.float())
+
+
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded initialisation in flax's defaults: every conv and dense
     kernel LeCun-normal (truncated at ±2σ, variance 1/fan_in), every
@@ -173,10 +199,14 @@ class PoseCNN(nn.Module):
                  hough_cell_stride: int = 1, hough_backend: str = "auto",
                  max_pose_rois: int = 0, gt_pose_rois: bool = False,
                  pose_pool_size: int = 7, norm_features: bool = True,
-                 quat_activation: str = "linear",
-                 compute_dtype: torch.dtype = torch.float32):
+                 quat_activation: str = "linear", adaptation: bool = False,
+                 input_format: str = "COLOR", compute_dtype: torch.dtype = torch.float32):
         super().__init__()
+        if input_format not in ("COLOR", "RGBD"):
+            raise ValueError(f"input_format {input_format!r}: COLOR (one tower, also for the "
+                             "DEPTH and NORMAL blobs) or RGBD (two)")
         self.num_classes = num_classes
+        self.input_format = input_format
         # training only: the pose-row budget (0 = off) and the GT RoI
         # prepend (posecnn.py:206-217)
         self.max_pose_rois = max_pose_rois
@@ -188,23 +218,44 @@ class PoseCNN(nn.Module):
                              max_objects_per_image=max_objects, cell_stride=hough_cell_stride,
                              backend=resolve_hough_backend(hough_backend), vertex_factor=8)
         self.pose_pool_size = pose_pool_size
+        feat = 1024 if input_format == "RGBD" else 512
+        pooled_features = pose_pool_size * pose_pool_size * feat
         self.trunk = VGG16Trunk(compute_dtype=compute_dtype)
-        self.seg_head = SkipHead(512, num_units, num_classes, relu_scores=True,
+        self.seg_head = SkipHead(feat, num_units, num_classes, relu_scores=True,
                                  name_prefix="score", compute_dtype=compute_dtype)
-        self.vertex_head = SkipHead(512, 128, 3 * num_classes, relu_scores=False,
+        self.vertex_head = SkipHead(feat, 128, 3 * num_classes, relu_scores=False,
                                     name_prefix="vertex", return_lowres=True,
                                     compute_dtype=compute_dtype)
-        self.pose_head = PoseHead(num_classes, pose_pool_size * pose_pool_size * 512, fc_dim,
+        self.pose_head = PoseHead(num_classes, pooled_features, fc_dim,
                                   norm_features=norm_features, quat_activation=quat_activation,
                                   compute_dtype=compute_dtype)
+        self.domain_head = (DomainHead(pooled_features, compute_dtype=compute_dtype)
+                            if adaptation else None)
+
+    def features(self, data: torch.Tensor, data_p: Optional[torch.Tensor] = None):
+        """(conv4_3, conv5_3) NHWC of the input, or for RGBD of the colour
+        and depth blobs concatenated along channels. The two towers share
+        their weights, so they run as one trunk call on the (2B) batch:
+        VGG16 has no batch statistics, so each image's features are those
+        of a call on it alone."""
+        if self.input_format != "RGBD":
+            return self.trunk(data)
+        if data_p is None:
+            raise ValueError("RGBD input_format requires data_p")
+        b = data.shape[0]
+        conv4_3, conv5_3 = self.trunk(torch.cat([data, data_p]))
+        return (torch.cat([conv4_3[:b], conv4_3[b:]], dim=-1),
+                torch.cat([conv5_3[:b], conv5_3[b:]], dim=-1))
 
     @torch.inference_mode()
     def forward(self, data: torch.Tensor, extents: torch.Tensor, meta_data: torch.Tensor, *,
+                data_p: Optional[torch.Tensor] = None,
                 full_vertex: bool = False) -> PoseCNNOutputs:
-        """data: (B, H, W, 3) mean-subtracted BGR; extents: (C, 3);
-        meta_data: (B, 48). `full_vertex` also returns the ×8-upsampled
-        vertex map, which the serving path never reads."""
-        conv4_3, conv5_3 = self.trunk(data)
+        """data: (B, H, W, 3) mean-subtracted BGR (or the DEPTH / NORMAL
+        blob); data_p: the RGBD depth blob; extents: (C, 3); meta_data:
+        (B, 48). `full_vertex` also returns the ×8-upsampled vertex map,
+        which the serving path never reads."""
+        conv4_3, conv5_3 = self.features(data, data_p)
         score = self.seg_head(conv4_3, conv5_3).float()
         log_prob = F.log_softmax(score, dim=-1)
         prob = F.softmax(score, dim=-1)
@@ -218,20 +269,21 @@ class PoseCNN(nn.Module):
         poses_pred, poses_tanh = self.pose_head(
             pooled, _eval_pose_weight(hough, self.num_classes)
         )
+        domain = self.domain_head(pooled) if self.domain_head is not None else None
         return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
-                              poses_tanh)
+                              poses_tanh, domain)
 
     def train_forward(self, data: torch.Tensor, extents: torch.Tensor, meta_data: torch.Tensor,
                       gt_poses: torch.Tensor, gt_valid: Optional[torch.Tensor] = None, *,
-                      keep_prob: float = 1.0,
-                      generators: Sequence[Optional[torch.Generator]] = (None,) * 4
+                      data_p: Optional[torch.Tensor] = None, keep_prob: float = 1.0,
+                      generators: Sequence[Optional[torch.Generator]] = (None,) * 5
                       ) -> PoseCNNOutputs:
         """The training forward (`model.apply(..., train=True)`), with
         autograd. gt_poses (G, 13), gt_valid (G,) bool; `generators` are
-        the dropout streams of the seg head, the vertex head, fc6 and fc7.
-        The vertex map comes back at full resolution; Hough runs with no
-        gradient on the detached labels and 1/8 vertex map."""
-        conv4_3, conv5_3 = self.trunk(data)
+        the dropout streams of the seg head, the vertex head, fc6, fc7 and
+        fc9. The vertex map comes back at full resolution; Hough runs with
+        no gradient on the detached labels and 1/8 vertex map."""
+        conv4_3, conv5_3 = self.features(data, data_p)
         score = self.seg_head(conv4_3, conv5_3, keep_prob=keep_prob,
                               generator=generators[0]).float()
         log_prob = F.log_softmax(score, dim=-1)
@@ -255,5 +307,8 @@ class PoseCNN(nn.Module):
         pooled = roi_pool_fused(conv4_3, conv5_3, hough.rois, pooled_size=self.pose_pool_size)
         poses_pred, poses_tanh = self.pose_head(pooled, hough.poses_weight, keep_prob=keep_prob,
                                                 generators=generators[2:4])
+        domain = None
+        if self.domain_head is not None:
+            domain = self.domain_head(pooled, keep_prob=keep_prob, generator=generators[4])
         return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
-                              poses_tanh)
+                              poses_tanh, domain)

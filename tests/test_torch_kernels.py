@@ -329,3 +329,48 @@ def test_train_step_on_the_card_matches_the_cpu(cuda):
         assert got_m[key] == pytest.approx(value, rel=1e-4), key
     gaps = {name: float((got_g[name] - g).abs().max() / g.abs().max()) for name, g in want_g.items()}
     assert max(gaps.values()) < 1e-3, sorted(gaps.items(), key=lambda kv: -kv[1])[:8]
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_on_a_real_frame_rgbd_train_step(cuda, tmp_path):
+    """One RGBD training step of `train_net`'s real-frame feed (a fabricated
+    YCB-Video tree of 480×640 frames, read at scale 0.5, the yaml's batch
+    of 2 and augmentation): flat and window launched once, and bit for bit
+    against their plain versions on the step's own Hough inputs and on its
+    batch's GT inputs."""
+    import os
+
+    from chip_smoke import Recorded, gt_hough_inputs, kernels_vs_plain, recording_hough
+    from posecnn_torch.cli import train_net
+    from posecnn_torch.data.fabricate import write_ycb_tree
+    from posecnn_torch.engine.train import decompress_feed, make_train_step
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    write_ycb_tree(str(tmp_path), sets=(("train", 2),), num_points=512)
+    cfg = os.path.join(os.path.dirname(__file__), "..", "experiments", "cfgs", "lov_rgbd_2d.yaml")
+    args = train_net.make_parser().parse_args(
+        ["--device", "cuda", "--dataset", "lov", "--data_root", str(tmp_path), "--cfg", cfg,
+         "--output", str(tmp_path / "out"), "--set", "train.scales_base=[0.5]",
+         "train.fc_dim=64", "train.num_units=16"])
+    tr = train_net.build_trainer(args, train_net.load_config(args))
+    try:
+        batch = next(tr.batches)
+    finally:
+        tr.batches.close()
+    assert len(tr.batches.workers) == 1 and "data_p" in batch
+    step = make_train_step(tr.cfg, tr.model, tr.points, tr.extents, tr.symmetry)
+    recorded = Recorded()
+    record, original = recording_hough(recorded)
+    posecnn_module.hough_voting = record
+    hk.LAUNCHES.update(tile=0, flat=0, window=0)
+    try:
+        metrics = step(tr.state, batch)
+    finally:
+        posecnn_module.hough_voting = original
+    assert hk.LAUNCHES["flat"] == 1 and hk.LAUNCHES["window"] == 1
+    assert all(torch.isfinite(torch.as_tensor(v)) for v in metrics.values())
+    label, vert, meta = recorded[0]
+    inputs = {"step": (label, vert), "gt": gt_hough_inputs(tr, decompress_feed(batch, tr.cfg))}
+    shapes, errs = kernels_vs_plain(tr.model.hough_kw, tr.extents, meta, inputs,
+                                    "a real-frame RGBD step")
+    assert shapes["gt"][1] > 0 and max(errs.values()) == 0.0

@@ -103,22 +103,31 @@ def test_test_icp_reduces_translation_error(tmp_path):
         assert np.isfinite([obj["after"]["re"], obj["after"]["te"]]).all()
 
 
-@pytest.mark.parametrize("argv, match", [
-    (["--set", "network=posecnn_det"], "Secondary families"),
-    (["--dataset", "linemod"], "dataset branches"),
-    (["--dataset", "ycb_video"], "dataset branches"),
-    (["--set", "input=RGBD"], "rest of the posecnn family"),
-    (["--set", "input=NORMAL"], "rest of the posecnn family"),
+@pytest.mark.parametrize("argv, error, match", [
+    (["--set", "network=posecnn_det"], NotImplementedError, "Secondary families"),
+    (["--dataset", "coco"], ValueError, "unknown --dataset"),
+    (["--set", "input=RGBX"], ValueError, "RGBX"),
 ])
-def test_unsupported_test_net_branches_raise_naming_their_roadmap_item(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_unsupported_test_net_branches_raise_naming_their_roadmap_item(argv, error, match):
+    """Only the detection family waits for a ROADMAP item now; an unknown
+    dataset or input mode is an error (the dataset branches and the other
+    inputs run: tests/test_torch_real_cli.py)."""
+    with pytest.raises(error, match=match):
         test_net.main(["--device", "cpu", *argv])
 
 
 def test_a_data_root_with_models_raises(tmp_path):
-    (tmp_path / "models").mkdir()
-    with pytest.raises(NotImplementedError, match="dataset branches"):
-        test_net.main(["--device", "cpu", "--data_root", str(tmp_path)])
+    """The name dates from before the dataset branches: a `--data_root`
+    holding `models/` no longer raises, and the synthetic evaluation takes
+    its YCB-Video geometry, as the JAX test_net does."""
+    from posecnn_torch.cli.common import class_geometry
+    from posecnn_torch.data.fabricate import write_ycb_tree
+
+    write_ycb_tree(str(tmp_path), sets=(), num_points=64)
+    args = test_net.make_parser().parse_args(["--data_root", str(tmp_path)])
+    geo = class_geometry(args, test_net.load_config(args), False, 3)
+    assert geo.num_classes == 22 and geo.ds is not None and geo.extents[1:].min() > 0
+    assert geo.points.shape == (22, 2620, 3) and np.abs(geo.points[1:]).max() > 0
 
 
 def test_backgrounds_that_match_nothing_raise(ckpt, tmp_path):

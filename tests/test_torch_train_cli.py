@@ -24,7 +24,7 @@ import posecnn_tpu.data.pipeline as jpipe
 from posecnn_tpu.core import checkpoint as jckpt
 from posecnn_tpu.data.synthetic import SyntheticSceneGenerator as JaxGenerator
 from posecnn_tpu.models import PoseCNN as JaxPoseCNN
-from posecnn_torch.cli import train_net
+from posecnn_torch.cli import common, train_net
 from posecnn_torch.core import checkpoint as tckpt
 from posecnn_torch.core.weights import load_npz, params_from_jax
 from posecnn_torch.data import pipeline as tpipe
@@ -77,7 +77,8 @@ def test_resume_continues_numbering_with_a_fresh_optimizer(trained, tmp_path):
     out, _ = trained
     state, _ = run_cli(tmp_path, 3, "train.stepsize=1", "train.gamma=0.5",
                        "--ckpt", str(out / "toy_iter_2.npz"))
-    assert state.step == 3 and state.opt.count == 1
+    # a fresh optimizer (zero moments) whose count is fast-forwarded to 2
+    assert state.step == 3 and state.opt.count == 3
     lines = read_metrics(tmp_path)
     assert [m["iter"] for m in lines] == [3]
     # the staircase follows the global step: 0.001 · 0.5^2 at step 2
@@ -98,7 +99,7 @@ def test_reinit_rerandomizes_only_the_named_module(trained, tmp_path):
     for name, value in tr.model.state_dict().items():
         want = fresh.state_dict()[name] if name.startswith("pose_head.") else saved[name]
         torch.testing.assert_close(value, want, rtol=0, atol=0, msg=name)
-    assert tr.state.step == 2 and tr.cfg.train.lr_step_offset == 2
+    assert tr.state.step == tr.state.opt.count == 2 and tr.cfg.train.lr_step_offset == 0
 
 
 @lru_cache(maxsize=1)
@@ -211,13 +212,13 @@ def test_backgrounds_the_caller_asked_for_are_read_or_raise(tmp_path):
 
     good = tmp_path / "bg_0.png"
     Image.fromarray(np.full((8, 12, 3), (10, 20, 30), np.uint8)).save(good)
-    pool = train_net._load_backgrounds(str(tmp_path / "bg_*.png"), (4, 6))
+    pool = common.load_backgrounds(str(tmp_path / "bg_*.png"), (4, 6))
     assert pool.shape == (1, 4, 6, 3) and tuple(pool[0, 0, 0]) == (30.0, 20.0, 10.0)  # BGR
     (tmp_path / "bg_1.png").write_bytes(b"not an image")
     with pytest.raises(OSError, match="bg_1.png"):
-        train_net._load_backgrounds(str(tmp_path / "bg_*.png"), (4, 6))
+        common.load_backgrounds(str(tmp_path / "bg_*.png"), (4, 6))
     with pytest.raises(FileNotFoundError):
-        train_net._load_backgrounds(str(tmp_path / "none_*.png"), (4, 6))
+        common.load_backgrounds(str(tmp_path / "none_*.png"), (4, 6))
 
 
 def test_prefetcher_raises_a_worker_failure_instead_of_waiting():

@@ -216,10 +216,14 @@ def test_train_step_moves_the_parameters_and_counts_steps():
 
 
 def test_unsupported_configurations_raise():
-    for override in ({"adapt": True}, {"matching": True}, {"pose_reg": False},
-                     {"vertex_reg_3d": True}):
+    for override in ({"pose_reg": False}, {"vertex_reg_3d": True}, {"gan": True},
+                     {"max_host_rss_gb": 4.0}):
         cfg = cfg_from_dict({"train": dict(TRAIN, **override)})
         with pytest.raises(NotImplementedError):
             ttrain.check_supported(cfg)
-    with pytest.raises(NotImplementedError, match="RGBD"):
-        ttrain.check_supported(cfg_from_dict({"input": "RGBD", "train": TRAIN}))
+    with pytest.raises(NotImplementedError, match="RGBX"):
+        ttrain.check_supported(cfg_from_dict({"input": "RGBX", "train": TRAIN}))
+    # the rest of the posecnn family trains (tests/test_torch_model_variants.py)
+    for top, override in (({}, {"adapt": True}), ({}, {"matching": True}),
+                          *(({"input": mode}, {}) for mode in ("RGBD", "DEPTH", "NORMAL"))):
+        ttrain.check_supported(cfg_from_dict(dict(top, train=dict(TRAIN, **override))))

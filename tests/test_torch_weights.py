@@ -66,7 +66,12 @@ def test_every_key_maps_and_shapes_match(ckpt):
 def test_unmapped_or_missing_keys_raise(ckpt):
     flat = load_npz(ckpt)
     with pytest.raises(KeyError):
-        params_from_jax({**flat, "params/domain_head/fc9/kernel": np.zeros((2, 2), np.float32)})
+        params_from_jax({**flat, "params/FeatureDiscriminator_0/fc1/kernel":
+                         np.zeros((2, 2), np.float32)})
+    # the domain head's keys map; a model built without the head refuses them
+    state = params_from_jax({**flat, "params/domain_head/fc9/kernel": np.zeros((2, 2), np.float32)})
+    with pytest.raises(RuntimeError, match="domain_head.fc9.weight"):
+        PoseCNN(C, num_units=UNITS, fc_dim=FC).load_state_dict(state, strict=True)
     state = params_from_jax({k: v for k, v in flat.items() if "fc7" not in k})
     with pytest.raises(RuntimeError, match="fc7"):
         PoseCNN(C, num_units=UNITS, fc_dim=FC).load_state_dict(state, strict=True)
