@@ -82,7 +82,20 @@ that fails, with a non-zero exit:
      (whose labels leave detections for ICP), finite summaries, each
      forward's kernels bit for bit to plain. Per config: ms a step split into feed
      wait, forward, backward and optimizer (CUDA events), images/s and
-     peak memory.
+     peak memory;
+ 11. the detection family and the demo at full width: 4 bf16 train steps
+     of `lov_det.yaml` as written (22 classes, 480×640, batch 1, 20 anchors
+     a cell, 2000 boxes into the RPN's NMS, 128 proposals and sampled RoIs,
+     fc_dim 4096, SGD momentum) through `cli/train_net.build_trainer`, each
+     split into forward / backward / optimizer (CUDA events), every loss
+     term finite, peak memory, FLOPs a step (FlopCounterMode), the RPN's
+     `proposal_layer` and its NMS timed alone; a small fp32 PoseCNNDet on
+     the card against the CPU with the same target noise; `test_net` on the
+     snapshot of those steps (8 held-out renders; images/s, stage seconds,
+     mAP, `eval_det.json`); `python -m posecnn_torch.cli.demo --refine` on 5
+     rendered 480×640 frames in the demo's format with the flagship yaml's
+     widths, flat and window launched once a forward and bit for bit equal
+     to plain on each forward's inputs.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -125,6 +138,11 @@ REAL_CFGS = ("lov_rgbd_2d", "lov_color_2d_adapt", "lov_color_2d_full")
 REAL_SET = {"lov_rgbd_2d": [], "lov_color_2d_adapt": ["--set", "train.gt_pose_rois=True"],
             "lov_color_2d_full": ["--set", "train.gt_pose_rois=True"]}
 REAL_STEPS, REAL_FRAMES = 3, (8, 4)  # train steps per config; train and val frames
+# phase 11: the detection family on lov_det.yaml as written (22 classes,
+# 480×640, batch 1, 20 anchors a cell, fc_dim 4096, momentum), and the demo
+DET_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "cfgs",
+                       "lov_det.yaml")
+DET_STEPS, DET_EVAL_IMAGES, DEMO_FRAMES = 4, 8, 5
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -1672,6 +1690,226 @@ def phase_real(card):
     return train_launches, {k: sum(w["launches"][k] for w in written.values()) for k in KERNELS}
 
 
+def det_card_vs_cpu(device):
+    """A small fp32 PoseCNNDet (4 classes, 64×96, fc_dim 32, 3×3 anchors,
+    16 slots) on the card against the CPU, with the same weights, batch and
+    target noise: the same proposal and sampled rows, the RoI coordinates
+    within 1e-3 px, every loss term within 1e-4 relative. Returns the
+    largest relative loss difference and the number of valid proposals."""
+    import copy
+
+    import torch
+
+    from posecnn_torch.cli.train_net import det_targets
+    from posecnn_torch.data.procedural import synthetic_class_library
+    from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+    from posecnn_torch.models.detection import PoseCNNDet, detection_losses
+    from posecnn_torch.models.posecnn import init_weights
+    from posecnn_torch.ops.rpn import target_noise
+
+    h, w = 64, 96
+    lib = synthetic_class_library(4, 256)
+    k = np.array([[90.0, 0, w / 2], [0, 90.0, h / 2], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=w, height=h, seed=4,
+                                  min_objects=2, max_objects=3, point_colors=lib.colors,
+                                  point_normals=lib.normals)
+    batch = det_targets(gen.render(dense_vertex_targets=False))
+    model = PoseCNNDet(4, anchor_scales=(1, 2, 4), anchor_ratios=(0.5, 1.0, 2.0), fc_dim=32,
+                       post_nms_topk=16, pre_nms_topk=100, rois_per_image=16, rpn_batchsize=32,
+                       rpn_positive_overlap=0.5, bg_thresh_lo=0.0)
+    init_weights(model, 0)
+    noise = target_noise(*model.noise_shapes(h, w, 8), torch.Generator().manual_seed(0), "cpu")
+    sym = np.asarray(lib.symmetry, np.float32).copy()
+    sym[1] = 1.0
+    outs = {}
+    for dev, m in ((torch.device("cpu"), model), (device, copy.deepcopy(model).to(device))):
+        t = {name: torch.from_numpy(np.array(v)).to(dev) for name, v in batch.items()}
+        out = m(t["data"], t["gt_boxes"], t["gt_poses"], t["gt_valid"], train=True,
+                noise=type(noise)(*(x.to(dev) for x in noise)))
+        losses = detection_losses(out, 4, torch.from_numpy(lib.points[:, :48]).to(dev),
+                                  torch.from_numpy(sym).to(dev))
+        outs[dev.type] = (out, {name: float(v.detach()) for name, v in losses.items()})
+    (cpu, cpu_l), (card, card_l) = outs["cpu"], outs[device.type]
+    same = [torch.equal(cpu.proposals.valid, card.proposals.valid.cpu()),
+            torch.equal(cpu.anchor_targets.labels, card.anchor_targets.labels.cpu()),
+            torch.equal(cpu.proposal_targets.labels, card.proposal_targets.labels.cpu()),
+            torch.allclose(cpu.proposal_targets.rois.detach(),
+                           card.proposal_targets.rois.detach().cpu(), rtol=0, atol=1e-3)]
+    rel = max(abs(card_l[name] - v) / max(abs(v), 1e-7) for name, v in cpu_l.items())
+    if not all(same) or rel > 1e-4:
+        raise AssertionError(f"PoseCNNDet on the card vs the CPU: proposals, anchor labels, "
+                             f"RoI labels, RoI rows equal {same}; losses {card_l} vs {cpu_l}")
+    return rel, int(cpu.proposals.valid.sum())
+
+
+def phase_det_demo(card):
+    """Phase 11: the detection family's training and evaluation at full
+    width on lov_det.yaml, and the demo with --refine on 5 rendered frames.
+    Returns the kernels' launches in the demo run."""
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from posecnn_torch.cli import demo, test_net, train_net
+    from posecnn_torch.core.checkpoint import save_params
+    from posecnn_torch.data.fabricate import write_demo_frames
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.nms import nms
+    from posecnn_torch.ops.rpn import _top_k
+    from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
+
+    # 11.1: train_net's trainer on lov_det.yaml as written
+    args = train_net.make_parser().parse_args(["--cfg", DET_CFG])
+    t0 = time.perf_counter()
+    tr = train_net.build_trainer(args, train_net.load_config(args))
+    t, model, step, device = tr.cfg.train, tr.model, tr.step, tr.device
+    dtype = str(model.compute_dtype).removeprefix("torch.")
+    setup_s = time.perf_counter() - t0
+    try:
+        batches = [next(tr.batches) for _ in range(DET_STEPS)]
+    finally:
+        tr.batches.close()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split, metrics = [], []
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, m = step.forward(tr.state, batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        m["lr"] = step.update(tr.state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+        metrics.append({name: float(v) for name, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for i, m in enumerate(metrics):
+        if not np.isfinite(list(m.values())).all() or set(m) != {
+                "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box", "loss_pose", "loss", "lr"}:
+            raise AssertionError(f"det train step {i}: {m}")
+    with FlopCounterMode(display=False) as counter:
+        step(tr.state, batches[-1])
+    flops = counter.get_total_flops()
+    # the RPN's proposal layer and its NMS alone, on the last batch's RPN
+    h_im, w_im = batches[-1]["data"].shape[1:3]
+    with torch.no_grad():
+        _, rpn_cls, rpn_bbox, cls_prob = model.rpn(batches[-1]["data"])
+        pkw = model.proposal_kw
+        a = model.num_anchors
+        anchors = model.anchors(rpn_cls.shape[1], rpn_cls.shape[2], device)
+        scores, idx = _top_k(cls_prob[0][..., a:].reshape(-1), pkw["pre_nms_topk"])
+        boxes = clip_boxes(bbox_transform_inv(anchors[idx], rpn_bbox[0].reshape(-1, 4)[idx]),
+                           h_im, w_im)
+        size_ok = ((boxes[:, 2] - boxes[:, 0] + 1 >= pkw["min_size"])
+                   & (boxes[:, 3] - boxes[:, 1] + 1 >= pkw["min_size"]))
+
+        def host_ms(fn, n=5):
+            fn()
+            torch.cuda.synchronize()
+            p0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - p0) / n * 1e3
+
+        propose_ms = host_ms(lambda: model.propose(cls_prob, rpn_bbox, h_im, w_im))
+        nms_ms = host_ms(lambda: nms(boxes, scores, pkw["nms_threshold"], valid=size_ok))
+        kept = int(nms(boxes, scores, pkw["nms_threshold"], valid=size_ok).sum())
+        proposals = model.propose(cls_prob, rpn_bbox, h_im, w_im)
+    rel, small_valid = det_card_vs_cpu(device)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trained = tr.state.step
+        snapshot = os.path.join(tmp, "det", f"det_iter_{trained}.npz")
+        save_params(snapshot, model, step=trained)  # what train_net's snapshot writes
+        del tr, model, step, batches
+        torch.cuda.empty_cache()
+        # 11.2: test_net on the snapshot
+        t0 = time.perf_counter()
+        result = test_net.main(["--cfg", DET_CFG, "--ckpt", snapshot, "--num_images",
+                                str(DET_EVAL_IMAGES), "--output", os.path.join(tmp, "eval")])
+        eval_s = time.perf_counter() - t0
+        if not os.path.exists(os.path.join(tmp, "eval", "eval_det.json")) or not np.isfinite(
+                result["map"]) or result["run"]["images_per_s"] <= 0:
+            raise AssertionError(f"test_net on lov_det.yaml: {result}")
+        torch.cuda.empty_cache()
+
+        # 11.3: the demo on rendered frames with --refine, recording each
+        # forward's Hough inputs
+        images = os.path.join(tmp, "demo_images")
+        f0 = time.perf_counter()
+        write_demo_frames(images, DEMO_FRAMES)
+        frames_s = time.perf_counter() - f0
+        recorded = Recorded()
+        record, original = recording_hough(recorded)
+        posecnn_module.hough_voting = record
+        try:
+            for key in hk.LAUNCHES:
+                hk.LAUNCHES[key] = 0
+            results = demo.main(["--images", images, *EVAL_ARGS, "--refine", "--output",
+                                 os.path.join(tmp, "demo")])
+            launches = dict(hk.LAUNCHES)
+        finally:
+            posecnn_module.hough_voting = original
+        written = sorted(os.listdir(os.path.join(tmp, "demo")))
+    if len(results) != DEMO_FRAMES or len(recorded) != DEMO_FRAMES or len(written) != (
+            2 * DEMO_FRAMES + 1):
+        raise AssertionError(f"demo: {len(results)} frames, {len(recorded)} forwards, wrote "
+                             f"{written}")
+    if launches["flat"] != DEMO_FRAMES or launches["window"] != DEMO_FRAMES:
+        raise AssertionError(f"demo: flat and window must launch once a forward: {launches}")
+    for f in results:
+        for d in f["detections"]:
+            if not np.isfinite(d["quat_wxyz"] + d["trans"]).all():
+                raise AssertionError(f"demo frame {f['frame']}: {d}")
+    extents, kw = recorded.call
+    shapes, errs = {}, {}
+    for i, (label, vert, meta) in enumerate(recorded):
+        sh, er = kernels_vs_plain(kw, extents, meta, {f"forward {i}": (label, vert)}, "the demo")
+        shapes.update(sh)
+        errs = {k: max(errs.get(k, 0.0), v) for k, v in er.items()}
+    steady = np.mean(split[1:], 0)
+    run, sec = result["run"], result["run"]["seconds"]
+    frame_ms = ", ".join(f"{1e3 * f['seconds']:.1f}" for f in results)
+    print(f"phase 11 detection family and demo on {card}: train_net on lov_det.yaml "
+          f"({t.num_classes} classes, {t.syn_height}x{t.syn_width}, batch 1, {a} anchors a "
+          f"cell, pre_nms {t.rpn_pre_nms_top_n}, post_nms {t.rpn_post_nms_top_n}, "
+          f"{t.batch_size} RoIs sampled, fc_dim {t.fc_dim}, {t.optimizer}, {dtype}), "
+          f"set-up {setup_s:.1f} s; {DET_STEPS} steps, ms forward / backward / optimizer (CUDA "
+          f"events; the first builds cuDNN plans): "
+          + "; ".join("/".join(f"{x:.2f}" for x in row) for row in split)
+          + f" (steps 2-{DET_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}, "
+          f"{1e3 / steady.sum():.2f} images/s on the step's device time), peak memory "
+          f"{peak_gb:.2f} GB, {flops / 1e12:.3f} TFLOP a step (FlopCounterMode), MFU "
+          f"{100 * flops / (steady.sum() / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16; "
+          f"losses of the last step "
+          + ", ".join(f"{k} {v:.4f}" for k, v in metrics[-1].items())
+          + f"; proposal_layer {propose_ms:.2f} ms (host clock to a synchronise, mean of 5: "
+          f"top-{pkw['pre_nms_topk']} of {anchors.shape[0]} anchors, decode, NMS, top-"
+          f"{pkw['post_nms_topk']}), of which NMS {nms_ms:.2f} ms ({kept} of "
+          f"{int(size_ok.sum())} boxes kept, {int(proposals.valid.sum())} valid proposals); "
+          f"a small fp32 PoseCNNDet on the card == the CPU (proposals, anchor and RoI labels "
+          f"equal, {small_valid} valid proposals; losses within {rel:.2e} relative) | "
+          f"test_net on its {trained}-step snapshot, {DET_EVAL_IMAGES} held-out renders: "
+          f"{run['images_per_s']:.2f} images/s ({eval_s:.1f} s with set-up), seconds render / "
+          f"forward / extract / evaluate {sec['render']:.3f} / {sec['forward']:.3f} / "
+          f"{sec['extract']:.3f} / {sec['evaluate']:.3f}, {run['detections']} detections, "
+          f"mAP@0.5 {result['map']:.4f} over {len(result['per_class'])} classes | demo "
+          f"--refine on {DEMO_FRAMES} rendered 480x640 frames (written in {frames_s:.1f} s; the "
+          f"flagship yaml's widths, seeded random weights): ms a frame {frame_ms}, detections "
+          f"{[len(f['detections']) for f in results]} (classes "
+          f"{[[d['class'] for d in f['detections']] for f in results]}), launches {launches}; "
+          f"flat, window and tile == plain bit for bit on each of the {len(recorded)} forwards "
+          f"(slots, live, samples, peak coarse vote: "
+          f"{max(shapes.values(), key=lambda v: v[1])} at the liveliest), max_abs_err {errs}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1708,6 +1946,7 @@ def main() -> int:
     phase_train(card)
     eval_launches = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
+    demo_launches = phase_det_demo(card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -1723,7 +1962,7 @@ def main() -> int:
          "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
          "test_net_launches": eval_launches[k], "real_train_launches": real_launches[k],
-         "real_test_net_launches": real_eval_launches[k]}
+         "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

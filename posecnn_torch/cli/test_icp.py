@@ -15,9 +15,10 @@ before and after:
     python -m posecnn_torch.cli.test_icp --device cpu --output output/icp_toy \\
         --set train.num_classes=4 train.syn_height=96 train.syn_width=128
 
-Writes `<output>/icp_report.json`. With the same cfg and seed, the scenes
-and perturbations are the JAX drive's. `--visualize` waits for
-`utils/visualize.py` (ROADMAP.md Queue 1, 'The demo and visualize').
+Writes `<output>/icp_report.json`, and with `--visualize` each scene's
+refined poses as projected 3D boxes on its render, `<output>/NNN-refined.png`.
+With the same cfg and seed, the scenes and perturbations are the JAX
+drive's.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.refine.icp import icp_refine_batch
 from posecnn_torch.utils.pose_error import re as rot_err, te as trans_err
 from posecnn_torch.utils.quaternion import mat_to_quat_np, quat_to_mat_np
+from posecnn_torch.utils.visualize import draw_detections, save_image
 
 
 def make_parser():
@@ -46,7 +48,8 @@ def make_parser():
     p.add_argument("--num_iters", type=int, default=8)
     p.add_argument("--rot_perturb", type=float, default=0.0,
                    help="rotation-hypothesis half-angle (rad); 0 = off")
-    p.add_argument("--visualize", action="store_true", help="not ported yet; raises")
+    p.add_argument("--visualize", action="store_true",
+                   help="write NNN-refined.png: the refined poses' 3D boxes on each render")
     return p
 
 
@@ -83,7 +86,10 @@ def perturbed_scenes(cfg, num_scenes: int, rot_noise_deg: float, trans_noise: fl
         scenes.append(dict(gt=gt, quats=np.stack(quats), transs=np.stack(transs),
                            model_pts=proc.points[classes],
                            masks=np.stack([s.label == cls for cls in classes]),
-                           depth=s.depth, k=k))
+                           depth=s.depth, k=k,
+                           # the render in RGB, and what its boxes are drawn with
+                           rgb=np.clip(s.image + gen.pixel_means, 0, 255)[:, :, ::-1],
+                           extents=proc.extents, colors=gen.class_colors))
     return scenes
 
 
@@ -103,9 +109,6 @@ def _errors(q, t, q_gt, t_gt):
 
 def main(argv=None) -> dict:
     args = make_parser().parse_args(argv)
-    if args.visualize:
-        raise NotImplementedError("--visualize waits for utils/visualize.py (ROADMAP.md Queue 1, "
-                                  "'The demo and visualize')")
     cfg = load_config(args)
     device = setup_device(args.device)
     os.makedirs(args.output, exist_ok=True)
@@ -121,6 +124,11 @@ def main(argv=None) -> dict:
             report.append(dict(scene=si, cls=cls, before=before, after=after))
             print(f"scene {si} cls {cls}: RE {re0:.2f}->{re1:.2f} deg, "
                   f"TE {te0 * 100:.2f}->{te1 * 100:.2f} cm, score {after['score']:.3f}")
+        if args.visualize:
+            dets = [(cls, quats[i], transs[i]) for i, (cls, _, _) in enumerate(scene["gt"])]
+            save_image(os.path.join(args.output, f"{si:03d}-refined.png"),
+                       draw_detections(scene["rgb"], dets, scene["extents"], scene["k"],
+                                       scene["colors"]))
     te_before = np.mean([r["before"]["te"] for r in report]) if report else 0.0
     te_after = np.mean([r["after"]["te"] for r in report]) if report else 0.0
     summary = dict(num_objects=len(report), mean_te_before_cm=float(te_before * 100),

@@ -37,8 +37,21 @@ evaluate), with the number of detections and of refined ones. Weights
 come from `--ckpt` (the JAX `.npz` layout, either package's), else
 seeded random ones (`init_weights`, `rng_seed`).
 
-Not ported yet, raising: the detection family (`network: posecnn_det`);
-ROADMAP.md Queue 1 names what it waits for.
+`network: posecnn_det` evaluates the detection family instead
+(`detection_eval`, `posecnn_tpu/cli/test_net.py:423-573`): held-out
+renders of the procedural class library (seed `--seed`, f = 500), the
+model's proposals and RoI head, softmax scores, un-normalised box deltas
+decoded and clipped, one NMS per class at `test.nms_threshold` (all
+classes in one call), the 0.05 score threshold, each detection's own
+class quaternion and its translation from the box
+(`ops/rpn.estimate_translation_from_box`, batched over the frame's
+detections), then AP@0.5 (`detection_ap`) and `PoseEvaluator` with
+instance matching. It writes `<output>/eval_det.json`: the JAX summary,
+plus a "run" block of images/s and stage seconds (render, forward,
+extract = decode, NMS and the depth fit, evaluate).
+
+Not ported yet, raising: the other network families; ROADMAP.md Queue 1
+names what they wait for.
 """
 
 from __future__ import annotations
@@ -67,19 +80,25 @@ from posecnn_torch.data.minibatch import (
     build_image_blobs,
     build_meta_blob,
     depth_blob,
+    label_to_boxes,
     mat_to_quat_np,
     resize_bilinear,
     resize_nearest,
 )
+from posecnn_torch.data.procedural import synthetic_class_library
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.engine.evaluate import (
     PoseEvaluator,
+    detection_ap,
     extract_detections,
     format_per_class_table,
 )
 from posecnn_torch.engine.train import INPUTS
+from posecnn_torch.models.detection import PoseCNNDet
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import nms_per_class
+from posecnn_torch.ops.nms import nms, nms_per_class
+from posecnn_torch.ops.rpn import estimate_translation_from_box
+from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
 from posecnn_torch.refine.icp import icp_refine_batch
 from posecnn_torch.refine.ransac import draw_hypotheses, estimate_center
 
@@ -111,9 +130,9 @@ def make_parser():
 def check_supported(cfg) -> None:
     """Raise on what the port's evaluation cannot run yet, naming the
     ROADMAP.md Queue 1 item it waits for."""
-    if cfg.network == "posecnn_det":
-        raise NotImplementedError("network posecnn_det: the detection family's evaluation "
-                                  "waits for ROADMAP.md Queue 1, 'Secondary families'")
+    if cfg.network not in ("posecnn", "posecnn_det"):
+        raise NotImplementedError(f"network {cfg.network}: the family's evaluation waits for "
+                                  "ROADMAP.md Queue 1, 'Secondary families'")
     if cfg.input not in INPUTS:
         raise ValueError(f"input {cfg.input!r}: one of {INPUTS}")
 
@@ -170,11 +189,116 @@ def refine_detections(dets, label_t, depth, points, k, cfg, device):
     return [(c, quats[i], transs[i]) for i, (c, _, _) in enumerate(dets)]
 
 
+DET_STAGES = ("render", "forward", "extract", "evaluate")
+DET_SCORE_THRESH = 0.05
+
+
+def detection_eval(args, cfg, device) -> dict:
+    """The detection family's evaluation (see the module's docstring);
+    returns what it writes to eval_det.json."""
+    c = cfg.train.num_classes
+    width, height = cfg.train.syn_width, cfg.train.syn_height
+    proc = synthetic_class_library(c, 256)
+    k = np.array([[500.0, 0, width / 2], [0, 500.0, height / 2], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(proc.points, proc.extents, k, width=width, height=height,
+                                  t_near=cfg.train.syn_tnear, t_far=cfg.train.syn_tfar,
+                                  pixel_means=cfg.pixel_means, seed=args.seed,
+                                  point_colors=proc.colors, point_normals=proc.normals)
+    model = PoseCNNDet.from_config(
+        cfg, c, train=False,
+        compute_dtype=getattr(torch, cfg.compute_dtype) if device.type == "cuda"
+        else torch.float32)
+    if args.ckpt:
+        print(f"restored checkpoint at step {restore_params(args.ckpt, model)}")
+    else:
+        init_weights(model, cfg.rng_seed)
+    model = model.to(device).eval()
+    # trained deltas are standardised (BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
+    norm_on = cfg.train.bbox_normalize_targets
+    means = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_means, np.float32), c),
+                         device=device)
+    stds = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_stds, np.float32), c),
+                        device=device)
+    points_sub = torch.from_numpy(np.ascontiguousarray(
+        proc.points[:, :: max(1, proc.points.shape[1] // 256)])).to(device)
+    k_t = torch.from_numpy(k).to(device)
+    pose_eval = PoseEvaluator(num_classes=c, points=proc.points, extents=proc.extents,
+                              instance_matching=True, device=str(device))
+    all_dets, all_gts, pose_errs = [], [], []
+    seconds = dict.fromkeys(DET_STAGES, 0.0)
+    n_dets = 0
+    wall0 = time.perf_counter()
+    for _ in range(args.num_images):
+        t = [time.perf_counter()]
+        sample = gen.render()
+        t.append(time.perf_counter())
+        with torch.no_grad():
+            out = model(torch.from_numpy(sample.image[None]).to(device))
+            scores = torch.softmax(out.cls_logits, dim=-1)  # (R, C)
+            deltas = out.bbox_pred * stds + means if norm_on else out.bbox_pred
+            rois = out.proposals.rois[:, 1:5]
+            boxes = (bbox_transform_inv(rois, deltas) if cfg.test.bbox_reg
+                     else rois.repeat(1, c))
+            boxes = clip_boxes(boxes, height, width).reshape(-1, c, 4)  # (R, C, 4)
+        _sync(device)
+        t.append(time.perf_counter())
+        with torch.no_grad():
+            # one NMS per foreground class, in one call; then the score gate
+            keep = nms(boxes[:, 1:].transpose(0, 1), scores[:, 1:].t(),
+                       cfg.test.nms_threshold, valid=out.proposals.valid)  # (C-1, R)
+            hit = keep & (scores[:, 1:].t() > DET_SCORE_THRESH) & out.proposals.valid
+            cls_i, roi_i = (x.cpu() for x in torch.nonzero(hit, as_tuple=True))  # class-major
+            cls_i = cls_i + 1
+            det_boxes = boxes[roi_i, cls_i]  # (N, 4)
+            q = out.poses_pred.reshape(-1, c, 4)[roi_i, cls_i]
+            q = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
+            trans = estimate_translation_from_box(q, det_boxes, points_sub[cls_i], k_t)
+            det_scores = scores[roi_i, cls_i].cpu().numpy()
+            det_boxes, q, trans = det_boxes.cpu().numpy(), q.cpu().numpy(), trans.cpu().numpy()
+        dets = [(int(cls), float(det_scores[j]), tuple(det_boxes[j]), q[j], trans[j])
+                for j, cls in enumerate(cls_i.tolist())]
+        n_dets += len(dets)
+        t.append(time.perf_counter())
+        # translation error of each detection against the first GT of its class
+        for cls, _, _, _, t_i in dets:
+            for pose in sample.poses:
+                if int(pose[1]) == cls:
+                    pose_errs.append(float(np.linalg.norm(t_i - pose[10:13])))
+                    break
+        pose_eval.add_image([(cls, q_i, t_i) for cls, _, _, q_i, t_i in dets],
+                            [(int(p[1]), p[6:10], p[10:13]) for p in sample.poses])
+        all_dets.append([d[:3] for d in dets])
+        gt_boxes = label_to_boxes(sample.label, sample.poses[:, 1].astype(np.int64))
+        all_gts.append([(int(b[4]), tuple(b[:4])) for b in gt_boxes])
+        t.append(time.perf_counter())
+        for name, a, b in zip(DET_STAGES, t, t[1:]):
+            seconds[name] += b - a
+    wall = time.perf_counter() - wall0
+
+    result = detection_ap(all_dets, all_gts, c, iou_threshold=0.5)
+    result["mean_trans_err_m"] = float(np.mean(pose_errs)) if pose_errs else None
+    result["pose"] = {k_: v for k_, v in pose_eval.summarize().items()
+                      if k_ in ("add_auc", "adds_auc", "per_class")}
+    result["run"] = {
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "images_per_s": args.num_images / wall if args.num_images else 0.0,
+        "seconds": seconds, "detections": n_dets,
+    }
+    os.makedirs(args.output, exist_ok=True)
+    with open(os.path.join(args.output, "eval_det.json"), "w") as f:
+        json.dump(result, f, indent=2)
+    print(json.dumps({"map@0.5": result["map"], "classes": len(result["per_class"])}))
+    print(f"wrote {args.output}/eval_det.json")
+    return result
+
+
 def main(argv=None) -> dict:
     args = make_parser().parse_args(argv)
     cfg = load_config(args)
     check_supported(cfg)
     device = setup_device(args.device)
+    if cfg.network == "posecnn_det":
+        return detection_eval(args, cfg, device)
     geo = class_geometry(args, cfg, **data_flags_from_ckpt(cfg, args.ckpt))
     c, ds, k = geo.num_classes, geo.ds, geo.k
     width, height = cfg.train.syn_width, cfg.train.syn_height

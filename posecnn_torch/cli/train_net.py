@@ -38,8 +38,18 @@ CLI instead keeps the count at 0 and offsets the schedule by
 bias correction after a resume is not.)
 `--reinit` re-randomises named modules after the restore.
 
-Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the other network
-families, and data parallelism (`--num_data`).
+`network: posecnn_det` (`experiments/cfgs/lov_det.yaml` and the LINEMOD
+`*_det.yaml`s) trains the detection family instead
+(`posecnn_tpu/cli/train_net.py:70-167`): one render a step, its GT boxes
+from the label map (8 rows, a box row and its pose row one object),
+`PoseCNNDet` with the RPN and RoI targets, the ADD pose term on the class
+points, the same optimizer, logging and snapshots:
+
+    python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_det.yaml --iters 200 \
+        --output output/det
+
+Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the segmentation,
+video, GAN and fusion families, and data parallelism (`--num_data`).
 """
 
 from __future__ import annotations
@@ -82,16 +92,22 @@ from posecnn_torch.data.pipeline import (
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.engine.train import (
     TrainState,
+    TrainStep,
     check_supported,
     create_train_state,
     fastforward_opt_counts,
+    make_det_train_step,
+    make_train_step,
     train_loop,
 )
+from posecnn_torch.models.detection import PoseCNNDet
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 
 # the JAX package's top-level parameter modules → the port's (for --reinit)
 _MODULES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head", "vertex_head": "vertex_head",
             "pose_head": "pose_head", "domain_head": "domain_head"}
+_DET_MODULES = {name: name for name in ("trunk", "rpn_conv", "rpn_cls_score", "rpn_bbox_pred",
+                                        "fc6", "fc7", "cls_score", "bbox_pred", "pose_pred")}
 
 
 class Trainer(NamedTuple):
@@ -99,7 +115,7 @@ class Trainer(NamedTuple):
 
     cfg: Config
     device: torch.device
-    model: PoseCNN
+    model: torch.nn.Module  # PoseCNN or PoseCNNDet
     state: TrainState
     batches: Prefetcher
     points: torch.Tensor  # (C, add_num_points, 3) ADD-loss model points
@@ -107,6 +123,7 @@ class Trainer(NamedTuple):
     symmetry: torch.Tensor  # (C,)
     head_meta: dict
     make_batch_factory: Callable  # worker id → a producer of host batches (the feed's)
+    step: TrainStep  # the family's train step
 
 
 def newest_snapshot(output_dir: str):
@@ -117,9 +134,56 @@ def newest_snapshot(output_dir: str):
     return max(snaps)[1] if snaps else None
 
 
+def det_targets(sample, max_gt: int = 8) -> dict:
+    """A rendered scene as a detection batch of one image: data (1, H, W, 3)
+    and GT boxes from the label map, (max_gt, 5) [x1, y1, x2, y2, cls],
+    with their pose rows (max_gt, 13) and valid flags. Box row i and pose
+    row i are one object: a class the splat hid entirely has no box, so
+    its pose row is dropped too (`posecnn_tpu/cli/train_net.py:103-128`)."""
+    gt_boxes = np.zeros((max_gt, 5), np.float32)
+    gt_valid = np.zeros(max_gt, bool)
+    gt_poses = np.zeros((max_gt, 13), np.float32)
+    row = 0
+    for pose in sample.poses:
+        if row >= max_gt:
+            break
+        ys, xs = np.nonzero(sample.label == int(pose[1]))
+        if len(ys) == 0:
+            continue
+        gt_boxes[row] = [xs.min(), ys.min(), xs.max(), ys.max(), int(pose[1])]
+        gt_poses[row] = pose
+        gt_valid[row] = True
+        row += 1
+    return {"data": sample.image[None], "gt_boxes": gt_boxes, "gt_poses": gt_poses,
+            "gt_valid": gt_valid}
+
+
+def _restore(args, model, modules: dict) -> int:
+    """`--ckpt` into `model` with `--reinit`'s modules re-randomised;
+    returns the restored step (0 without `--ckpt`)."""
+    if not args.ckpt:
+        if args.reinit:
+            raise ValueError("--reinit needs --ckpt or --resume")
+        return 0
+    fresh = {k_: v.clone() for k_, v in model.state_dict().items()}
+    step0 = restore_params(args.ckpt, model)
+    for name in (n.strip() for n in (args.reinit or "").split(",")):
+        if not name:
+            continue
+        prefix = modules.get(name, name)
+        if prefix not in modules.values():
+            raise ValueError(f"--reinit {name!r}: no such module; have {sorted(modules)}")
+        model.load_state_dict({k_: v for k_, v in fresh.items()
+                               if k_.startswith(prefix + ".")}, strict=False)
+        print(f"--reinit: re-randomized '{name}'")
+    return step0
+
+
 def build_trainer(args, cfg: Config) -> Trainer:
-    """The model, optimizer state, prefetching feed and loss geometry of
-    a training run, with `--ckpt` / `--resume` and `--reinit` applied."""
+    """The model, optimizer state, prefetching feed, loss geometry and
+    train step of a training run, with `--ckpt` / `--resume` and
+    `--reinit` applied; `network: posecnn_det` gets the detection model
+    and step."""
     check_supported(cfg)
     device = setup_device(args.device)
     t = cfg.train
@@ -151,41 +215,52 @@ def build_trainer(args, cfg: Config) -> Trainer:
         point_colors=geo.colors, point_normals=geo.normals,
         backgrounds=load_backgrounds(getattr(args, "backgrounds", None), (train_h, train_w)),
     )
+    # bf16 compute on the card (cfg.compute_dtype); fp32 on the CPU
+    compute_dtype = getattr(torch, cfg.compute_dtype) if device.type == "cuda" else torch.float32
+    points = torch.from_numpy(np.ascontiguousarray(geo.points[:, idx])).to(device)
+    extents = torch.from_numpy(np.asarray(geo.extents, np.float32)).to(device)
+    symmetry = torch.from_numpy(np.asarray(geo.symmetry, np.float32)).to(device)
+
+    def synthetic_factory(produce):
+        def make_batch_factory(worker_id):
+            g = copy.deepcopy(gen)
+            g.rng = np.random.RandomState(cfg.rng_seed + 1000 * (worker_id + 1))
+            return lambda: produce(g)
+
+        return make_batch_factory
 
     batch_size = t.ims_per_batch
-    model = PoseCNN(
-        c, num_units=t.num_units, fc_dim=t.fc_dim, vote_threshold=t.voting_threshold,
-        hough_num_samples=t.hough_num_samples, max_objects=max(1, t.max_rois // batch_size // 9),
-        hough_backend=t.hough_backend, max_pose_rois=t.max_pose_rois,
-        gt_pose_rois=t.gt_pose_rois, pose_pool_size=t.pose_pool_size,
-        norm_features=t.norm_features, quat_activation=t.quat_activation,
-        adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
-        # bf16 compute on the card (cfg.compute_dtype); fp32 on the CPU
-        compute_dtype=getattr(torch, cfg.compute_dtype) if device.type == "cuda"
-        else torch.float32,
-    )
+    det = cfg.network == "posecnn_det"
+    if det:
+        model = PoseCNNDet.from_config(cfg, c, train=True, compute_dtype=compute_dtype)
+    else:
+        model = PoseCNN(
+            c, num_units=t.num_units, fc_dim=t.fc_dim, vote_threshold=t.voting_threshold,
+            hough_num_samples=t.hough_num_samples,
+            max_objects=max(1, t.max_rois // batch_size // 9),
+            hough_backend=t.hough_backend, max_pose_rois=t.max_pose_rois,
+            gt_pose_rois=t.gt_pose_rois, pose_pool_size=t.pose_pool_size,
+            norm_features=t.norm_features, quat_activation=t.quat_activation,
+            adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
+            compute_dtype=compute_dtype,
+        )
     init_weights(model, cfg.rng_seed)
-    step0 = 0
-    if args.ckpt:
-        fresh = {k_: v.clone() for k_, v in model.state_dict().items()}
-        step0 = restore_params(args.ckpt, model)
-        for name in (n.strip() for n in (args.reinit or "").split(",")):
-            if not name:
-                continue
-            prefix = _MODULES.get(name, name)
-            if prefix not in _MODULES.values():
-                raise ValueError(f"--reinit {name!r}: no such module; have {sorted(_MODULES)}")
-            model.load_state_dict({k_: v for k_, v in fresh.items()
-                                   if k_.startswith(prefix + ".")}, strict=False)
-            print(f"--reinit: re-randomized '{name}'")
-    elif args.reinit:
-        raise ValueError("--reinit needs --ckpt or --resume")
+    step0 = _restore(args, model, _DET_MODULES if det else _MODULES)
     model = model.to(device)
     state = create_train_state(cfg, model)
     state.step = step0
     if args.ckpt:
         # the staircase and Adam's bias correction follow the global step
         fastforward_opt_counts(state.opt, step0)
+
+    if det:
+        # train_net_det: one rendered image a step, GT boxes from its label
+        # map, the ADD pose term on the unscaled class points
+        factory = synthetic_factory(lambda g: det_targets(g.render(dense_vertex_targets=False)))
+        batches = Prefetcher(make_batch_factory=factory, queue_size=8, num_workers=2,
+                             device_put=lambda b: to_device(b, device))
+        return Trainer(cfg, device, model, state, batches, points, extents, symmetry, {},
+                       factory, make_det_train_step(cfg, model, points, symmetry))
 
     max_gt = 8 * batch_size
     pixel_means = np.asarray(cfg.pixel_means, np.float32)
@@ -234,11 +309,7 @@ def build_trainer(args, cfg: Config) -> Trainer:
 
         num_workers = 1
     else:
-        def make_batch_factory(worker_id):
-            g = copy.deepcopy(gen)
-            g.rng = np.random.RandomState(cfg.rng_seed + 1000 * (worker_id + 1))
-            return lambda: syn_batch(g)
-
+        make_batch_factory = synthetic_factory(syn_batch)
         num_workers = 2
     batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8,
                          num_workers=num_workers, device_put=lambda b: to_device(b, device))
@@ -250,13 +321,8 @@ def build_trainer(args, cfg: Config) -> Trainer:
         "pose_pool_size": t.pose_pool_size,
         "train_scale_base": scale_base,
     }
-    return Trainer(
-        cfg, device, model, state, batches,
-        torch.from_numpy(np.ascontiguousarray(geo.points[:, idx])).to(device),
-        torch.from_numpy(np.asarray(geo.extents, np.float32)).to(device),
-        torch.from_numpy(np.asarray(geo.symmetry, np.float32)).to(device),
-        head_meta, make_batch_factory,
-    )
+    return Trainer(cfg, device, model, state, batches, points, extents, symmetry, head_meta,
+                   make_batch_factory, make_train_step(cfg, model, points, extents, symmetry))
 
 
 def main_run(args, cfg: Config, max_iters: int) -> TrainState:
@@ -282,7 +348,8 @@ def main_run(args, cfg: Config, max_iters: int) -> TrainState:
     try:
         state = train_loop(cfg, tr.model, tr.state, tr.batches, tr.points, tr.extents,
                            tr.symmetry, max_iters=max_iters, log_fn=log_fn,
-                           snapshot_fn=lambda it, _: print(f"snapshot → {snapshot(it)}"))
+                           snapshot_fn=lambda it, _: print(f"snapshot → {snapshot(it)}"),
+                           step=tr.step)
     finally:
         tr.batches.close()
         log_f.close()

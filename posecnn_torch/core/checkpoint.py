@@ -2,7 +2,7 @@
 
 Counterpart of `posecnn_tpu/core/checkpoint.py:25-117`. `save_params`
 writes what that module's `save_params` writes: one flat `.npz` of
-`params/<module>/<name>/<kernel|bias>` arrays in flax layout (conv HWIO,
+`params/<module>[/<name>]/<kernel|bias>` arrays in flax layout (conv HWIO,
 dense (in, out)), `__step__`, and `__meta_<flag>__` for the forward-pass
 flags that do not change parameter shapes. So a port snapshot restores in
 the JAX package (`posecnn_tpu.core.checkpoint.restore_params`) and a JAX
@@ -22,12 +22,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from posecnn_torch.core.weights import load_jax_checkpoint, params_to_jax
+from posecnn_torch.core.weights import FLAGSHIP_TRUNK, load_jax_checkpoint, params_to_jax
 
 
 def save_params(path: str, model: torch.nn.Module, step: int = 0,
                 meta: Optional[dict] = None) -> None:
-    flat = params_to_jax(model.state_dict())
+    flat = params_to_jax(model.state_dict(), getattr(model, "JAX_TRUNK", FLAGSHIP_TRUNK))
     flat["__step__"] = np.asarray(step)
     for k, v in (meta or {}).items():
         flat[f"__meta_{k}__"] = np.asarray(v)

@@ -12,15 +12,23 @@ alone and maps each parameter onto the port's module names:
   params/pose_head/fc{6,7,8}/…               → pose_head.fc{6,7,8}.…
   params/domain_head/{fc9,domain_score}/…    → domain_head.{fc9,domain_score}.…
 
+and the detection model's (`PoseCNNDet`), whose trunk is named `trunk`
+and whose heads are one level deep:
+
+  params/trunk/convS_I/{kernel,bias}         → trunk.convS_I.{weight,bias}
+  params/rpn_{conv,cls_score,bbox_pred}/…    → rpn_….{weight,bias}
+  params/{fc6,fc7,cls_score,bbox_pred,pose_pred}/… → ….{weight,bias}
+
 The RGBD model has the same keys, with 1024 input channels in the heads'
 conv4/conv5 kernels and p·p·1024 rows in fc6 (and in fc9 with adaptation).
 
 Conv kernels go from flax's HWIO to torch's OIHW; Dense kernels from
 (in, out) to Linear's (out, in). fc6's rows need no permutation: the
 port flattens the pooled (R, p, p, C) features in the same NHWC order
-as the JAX pose head (`posecnn_tpu/models/posecnn.py:134`).
+as the JAX pose head (`posecnn_tpu/models/posecnn.py:134`), and the
+detection head's fc6 likewise (`posecnn_tpu/models/detection.py:146`).
 `params_to_jax` is the inverse map, which `core/checkpoint.save_params`
-writes.
+writes; the model's `JAX_TRUNK` names its trunk there.
 """
 
 from __future__ import annotations
@@ -32,8 +40,14 @@ import torch
 
 _MODULE_NAMES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head",
                  "vertex_head": "vertex_head", "pose_head": "pose_head",
-                 "domain_head": "domain_head"}
-_KEY = re.compile(r"params/([^/]+)/([^/]+)/(kernel|bias)")
+                 "domain_head": "domain_head",
+                 # PoseCNNDet
+                 "trunk": "trunk", "rpn_conv": "rpn_conv", "rpn_cls_score": "rpn_cls_score",
+                 "rpn_bbox_pred": "rpn_bbox_pred", "fc6": "fc6", "fc7": "fc7",
+                 "cls_score": "cls_score", "bbox_pred": "bbox_pred", "pose_pred": "pose_pred"}
+FLAGSHIP_TRUNK = "VGG16Trunk_0"
+# params/<module>[/<layer>]/<kernel|bias>
+_KEY = re.compile(r"params/([^/]+)/(?:([^/]+)/)?(kernel|bias)")
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:
@@ -74,26 +88,31 @@ def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
                 arr = arr.T
             else:
                 raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
-        name = f"{_MODULE_NAMES[module]}.{layer}.{'weight' if kind == 'kernel' else 'bias'}"
+        path = _MODULE_NAMES[module] + (f".{layer}" if layer else "")
+        name = f"{path}.{'weight' if kind == 'kernel' else 'bias'}"
         state[name] = torch.tensor(arr)  # a contiguous copy
     return state
 
 
-def params_to_jax(state: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
-    """The inverse of `params_from_jax`: a PoseCNN `state_dict` as flat
-    `params/<module>/<name>/<kernel|bias>` fp32 arrays, conv kernels
-    OIHW → HWIO, Linear weights (out, in) → (in, out)."""
+def params_to_jax(state: dict[str, torch.Tensor],
+                  trunk: str = FLAGSHIP_TRUNK) -> dict[str, np.ndarray]:
+    """The inverse of `params_from_jax`: a PoseCNN or PoseCNNDet
+    `state_dict` as flat `params/<module>[/<name>]/<kernel|bias>` fp32
+    arrays, conv kernels OIHW → HWIO, Linear weights (out, in) → (in, out);
+    `trunk` is the trunk's JAX module name."""
     modules = {port: jax_name for jax_name, port in _MODULE_NAMES.items()}
+    modules["trunk"] = trunk
     flat = {}
     for name, value in state.items():
-        module, layer, kind = name.split(".")
-        if module not in modules or kind not in ("weight", "bias"):
+        *path, kind = name.split(".")
+        if path[0] not in modules or len(path) > 2 or kind not in ("weight", "bias"):
             raise KeyError(f"state_dict key {name!r} has no place in a JAX checkpoint")
         arr = value.detach().cpu().float().numpy()
         if kind == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        flat[f"params/{modules[module]}/{layer}/{'kernel' if kind == 'weight' else 'bias'}"] = (
-            np.ascontiguousarray(arr))
+        key = "/".join(["params", modules[path[0]], *path[1:],
+                        "kernel" if kind == "weight" else "bias"])
+        flat[key] = np.ascontiguousarray(arr)
     return flat
 
 

@@ -10,6 +10,8 @@ intrinsic_matrix, factor_depth), each frame rendered by
 `SyntheticSceneGenerator` with YCB-Video's camera; and a pose bank under
 `poses/`. `write_linemod_tree` writes the LINEMOD files the readers use
 without frames: `extents.txt` and `indexes/<cls>_<set>.txt`.
+`write_demo_frames` writes frames in the demo's format (`<idx>-color.png`,
+`<idx>-depth.png`), seen through the demo's camera.
 
 They stand in for the real datasets wherever those are absent: the
 loaders, `train_net` and `test_net` run on them as on the real trees.
@@ -21,8 +23,8 @@ import os
 
 import numpy as np
 
-from posecnn_torch.data.datasets import LINEMOD_CLASSES, YCB_CLASSES, YCB_K
-from posecnn_torch.data.procedural import make_procedural_objects
+from posecnn_torch.data.datasets import LINEMOD_CLASSES, YCB_CLASSES, YCB_K, DemoDataset
+from posecnn_torch.data.procedural import make_procedural_objects, synthetic_class_library
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.utils.quaternion import quat_to_mat_np
 
@@ -66,10 +68,7 @@ def write_ycb_tree(root: str, *, sets=(("train", 8), ("val", 4)), height: int = 
             prefix = os.path.join(root, "data", index)
             os.makedirs(os.path.dirname(prefix), exist_ok=True)
             s = gen.render(dense_vertex_targets=False)
-            bgr = np.clip(np.rint(s.image), 0, 255).astype(np.uint8)
-            Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(prefix + "-color.png")
-            Image.fromarray(np.clip(np.rint(s.depth * FACTOR_DEPTH), 0, 65535).astype(
-                np.uint16)).save(prefix + "-depth.png")
+            _write_rgbd(prefix, s)
             Image.fromarray(s.label.astype(np.uint8)).save(prefix + "-label.png")
             poses = np.stack([np.concatenate([quat_to_mat_np(row[6:10]), row[10:13, None]], 1)
                               for row in s.poses], axis=2)
@@ -84,6 +83,35 @@ def write_ycb_tree(root: str, *, sets=(("train", 8), ("val", 4)), height: int = 
             frame += 1
         with open(os.path.join(root, f"{name}.txt"), "w") as f:
             f.write("\n".join(indexes[name]) + "\n")
+    return indexes
+
+
+def _write_rgbd(prefix: str, sample) -> None:
+    """`<prefix>-color.png` (RGB of the render's BGR) and `-depth.png`
+    (uint16, metres × FACTOR_DEPTH, 0 where nothing was drawn)."""
+    from PIL import Image
+
+    bgr = np.clip(np.rint(sample.image), 0, 255).astype(np.uint8)
+    Image.fromarray(np.ascontiguousarray(bgr[:, :, ::-1])).save(prefix + "-color.png")
+    Image.fromarray(np.clip(np.rint(sample.depth * FACTOR_DEPTH), 0, 65535).astype(
+        np.uint16)).save(prefix + "-depth.png")
+
+
+def write_demo_frames(root: str, count: int = 5, *, height: int = 480, width: int = 640,
+                      num_points: int = 512, seed: int = 0) -> list:
+    """`count` frames `000000`… in the demo's format under `root`, renders
+    of the procedural library the demo falls back to (YCB-Video's 22
+    classes, `num_points` a class) through the demo's camera; returns
+    their indexes."""
+    os.makedirs(root, exist_ok=True)
+    lib = synthetic_class_library(len(YCB_CLASSES), num_points)
+    k = DemoDataset(root).intrinsic_matrix
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=width, height=height,
+                                  pixel_means=np.zeros(3, np.float32), seed=seed,
+                                  point_colors=lib.colors, point_normals=lib.normals)
+    indexes = [f"{i:06d}" for i in range(count)]
+    for index in indexes:
+        _write_rgbd(os.path.join(root, index), gen.render(dense_vertex_targets=False))
     return indexes
 
 

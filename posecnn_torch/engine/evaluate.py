@@ -10,7 +10,7 @@
 `PoseEvaluator` matches each image's detections to its GT poses on the
 host, computes every matched pair's errors on its `device` in one batched
 call, and accumulates them on the host in numpy, as the JAX evaluator
-does. `detection_ap` waits for the detection family.
+does. `detection_ap` scores the detection family's boxes (AP@IoU).
 """
 
 from __future__ import annotations
@@ -285,3 +285,57 @@ def extract_detections(
     if with_indices:
         return dets
     return [(c, q, t) for c, q, t, _ in dets]
+
+
+def _box_iou_np(a, b) -> float:
+    """IoU of two xyxy boxes without the +1 pixel convention (AP's)."""
+    ix1, iy1 = max(a[0], b[0]), max(a[1], b[1])
+    ix2, iy2 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(ix2 - ix1, 0.0) * max(iy2 - iy1, 0.0)
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / union if union > 0 else 0.0
+
+
+def detection_ap(all_dets: list, all_gts: list, num_classes: int,
+                 iou_threshold: float = 0.5) -> dict:
+    """VOC-style average precision of box detections, greedy-matched at
+    `iou_threshold` (`posecnn_tpu/engine/evaluate.py:335`). all_dets: per
+    image a list of (cls, score, box4 xyxy); all_gts: per image a list of
+    (cls, box4). Classes without GT are left out. Returns {"map": float,
+    "per_class": {cls: ap}}."""
+    per_class = {}
+    for c in range(1, num_classes):
+        npos = sum(1 for gts in all_gts for g in gts if int(g[0]) == c)
+        if npos == 0:
+            continue
+        rows = [(float(score), i, np.asarray(box, np.float64))
+                for i, dets in enumerate(all_dets) for cls, score, box in dets if int(cls) == c]
+        rows.sort(key=lambda r: -r[0])  # stable: equal scores keep image order
+        matched = [set() for _ in all_gts]
+        tp = np.zeros(len(rows))
+        fp = np.zeros(len(rows))
+        for r, (_, i, box) in enumerate(rows):
+            best, best_j = 0.0, -1
+            for j, g in enumerate(all_gts[i]):
+                if int(g[0]) != c:
+                    continue
+                ov = _box_iou_np(box, np.asarray(g[1], np.float64))
+                if ov > best:
+                    best, best_j = ov, j
+            if best >= iou_threshold and best_j not in matched[i]:
+                tp[r] = 1
+                matched[i].add(best_j)
+            else:
+                fp[r] = 1
+        ctp, cfp = np.cumsum(tp), np.cumsum(fp)
+        recall = ctp / npos
+        precision = ctp / np.maximum(ctp + cfp, 1e-10)
+        # the precision envelope, then the area under the PR curve
+        mrec = np.concatenate([[0.0], recall, [1.0]])
+        mpre = np.concatenate([[0.0], precision, [0.0]])
+        for k in range(len(mpre) - 2, -1, -1):
+            mpre[k] = max(mpre[k], mpre[k + 1])
+        idx = np.nonzero(mrec[1:] != mrec[:-1])[0]
+        per_class[c] = float(np.sum((mrec[idx + 1] - mrec[idx]) * mpre[idx + 1]))
+    mean_ap = float(np.mean(list(per_class.values()))) if per_class else 0.0
+    return {"map": mean_ap, "per_class": per_class}

@@ -1,7 +1,8 @@
-"""Training engine: loss assembly, optimizer, train step and loop.
+"""Training engine: loss assembly, optimizer, train steps and loop.
 
 Counterpart of `posecnn_tpu/engine/train.py:49-462` for the posecnn
-family. Loss composition as in the reference's train_net:
+family and of `make_det_train_step` (`:647`) for the detection family.
+Loss composition as in the reference's train_net:
 
   loss = loss_cls
        + VERTEX_W · smooth_l1_vertex
@@ -24,7 +25,12 @@ backward and need none). Dropout streams come from (seed, step), as
 The inputs are COLOR, DEPTH or NORMAL blobs in `data`, or RGBD's colour
 in `data` and depth in `data_p`.
 
-Not ported: the GAN, detection, segmentation and video steps, 3D vertex
+The detection step (`DetTrainStep`) is train_net_det's: the
+`models.detection.detection_losses` terms with the ADD pose term, on one
+COLOR image a step, with the same optimizer; its targets' sampling noise
+is drawn a step from a generator seeded by (seed, step).
+
+Not ported: the GAN, segmentation and video steps, 3D vertex
 regression, the host-RSS handoff and multi-device data parallelism.
 """
 
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from posecnn_torch.core.config import Config
+from posecnn_torch.models.detection import detection_losses
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.hard_label import hard_label
 from posecnn_torch.ops.losses import (
@@ -48,6 +55,7 @@ from posecnn_torch.ops.losses import (
     softmax_cross_entropy_with_logits,
 )
 from posecnn_torch.ops.matching_loss import roi_matching_loss
+from posecnn_torch.ops.rpn import target_noise
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -59,15 +67,16 @@ def check_supported(cfg: Config) -> None:
     """Raise on a configuration the port's training path does not run:
     the posecnn family on COLOR, RGBD, DEPTH or NORMAL input, with 2D
     vertex and pose regression, and optionally the domain-adaptation and
-    matching losses, trains here."""
+    matching losses, trains here, and the detection family on COLOR."""
     t = cfg.train
+    posecnn = cfg.network == "posecnn"
     unsupported = {
-        f"network={cfg.network!r}": cfg.network != "posecnn",
-        f"input={cfg.input!r}": cfg.input not in INPUTS,
+        f"network={cfg.network!r}": cfg.network not in ("posecnn", "posecnn_det"),
+        f"input={cfg.input!r}": cfg.input not in (INPUTS if posecnn else ("COLOR",)),
         "train.gan (the GAN step)": t.gan,
-        "train.vertex_reg_3d": t.vertex_reg_3d,
-        "train.vertex_reg_2d=False": not t.vertex_reg_2d,
-        "train.pose_reg=False": not t.pose_reg,
+        "train.vertex_reg_3d": posecnn and t.vertex_reg_3d,
+        "train.vertex_reg_2d=False": posecnn and not t.vertex_reg_2d,
+        "train.pose_reg=False": posecnn and not t.pose_reg,
         "train.max_host_rss_gb (the host-RSS handoff)": t.max_host_rss_gb > 0,
     }
     bad = [name for name, hit in unsupported.items() if hit]
@@ -342,15 +351,50 @@ def make_train_step(cfg: Config, model, points, extents, symmetry, *,
     return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
 
 
+def det_noise_generator(seed: int, step: int, device) -> torch.Generator:
+    """The detection step's sampling stream, seeded from (seed, step)."""
+    state = np.random.SeedSequence([seed, step]).generate_state(1)
+    return torch.Generator(device=device).manual_seed(int(state[0]))
+
+
+class DetTrainStep(TrainStep):
+    """One detection training step (`engine/train.py:647-684`): the
+    forward with the targets' noise of this step, `detection_losses` with
+    the pose term when points and symmetry are given, then the shared
+    backward and update. batch keys: data (1, H, W, 3), gt_boxes (G, 5),
+    gt_poses (G, 13), gt_valid (G,)."""
+
+    def __init__(self, cfg: Config, model, points=None, symmetry=None):
+        super().__init__(cfg, model, points, None, symmetry)
+
+    def forward(self, state: TrainState, batch: dict):
+        data = batch["data"]
+        gen = det_noise_generator(self.cfg.rng_seed, state.step, data.device)
+        noise = target_noise(*self.model.noise_shapes(data.shape[1], data.shape[2],
+                                                      batch["gt_boxes"].shape[0]),
+                             gen, data.device)
+        out = self.model(data, batch["gt_boxes"], batch["gt_poses"], batch["gt_valid"],
+                         train=True, noise=noise)
+        metrics = detection_losses(out, self.model.num_classes, self.points, self.symmetry)
+        return metrics["loss"], {k: v.detach() for k, v in metrics.items()}
+
+
+def make_det_train_step(cfg: Config, model, points=None, symmetry=None) -> DetTrainStep:
+    check_supported(cfg)
+    return DetTrainStep(cfg, model, points, symmetry)
+
+
 def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extents, symmetry, *,
                max_iters: Optional[int] = None,
                log_fn: Optional[Callable[[int, dict], None]] = None,
-               snapshot_fn: Optional[Callable[[int, TrainState], None]] = None) -> TrainState:
+               snapshot_fn: Optional[Callable[[int, TrainState], None]] = None,
+               step: Optional[TrainStep] = None) -> TrainState:
     """Host loop (`engine/train.py:403-462`): one step per batch, the
     metrics every `display` iterations, a snapshot every
-    `snapshot_iters`. A restored state continues its numbering."""
+    `snapshot_iters`. A restored state continues its numbering. `step`
+    defaults to the posecnn family's."""
     max_iters = max_iters or cfg.train.max_iters
-    step = make_train_step(cfg, model, points, extents, symmetry)
+    step = step or make_train_step(cfg, model, points, extents, symmetry)
     start = state.step
     if start >= max_iters:
         print(f"train_loop: restored step {start} >= max_iters {max_iters}; nothing to do "

@@ -1,14 +1,16 @@
 """Training losses (counterpart of `posecnn_tpu/ops/losses.py:19-46, 76-136`).
 
   loss_cross_entropy_single_frame — normalised CE on hard-label weights
+  smooth_l1_loss                  — Fast-RCNN box smooth-L1 (the RPN's and
+                                    the RoI head's box terms)
   smooth_l1_loss_vertex           — weighted smooth-L1 of the vertex map
   build_vertex_targets            — dense vertex targets from per-class
                                     centres, on the device
   softmax_cross_entropy_with_logits — sparse CE
 
 Plain tensor code: elementwise work and reductions, with no product a
-kernel would do better. `smooth_l1_loss` and `loss_quaternion` wait for
-the detection family.
+kernel would do better. `loss_quaternion` is not ported: no training step
+of the JAX package calls it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,18 @@ def loss_cross_entropy_single_frame(log_prob: torch.Tensor, labels: torch.Tensor
     one-hot weights from hard_label."""
     ce = -torch.sum(labels * log_prob, dim=-1)
     return torch.sum(ce) / (torch.sum(labels) + 1e-10)
+
+
+def smooth_l1_loss(bbox_pred, bbox_targets, bbox_inside_weights, bbox_outside_weights,
+                   sigma: float = 1.0):
+    """Fast-RCNN box smooth-L1 summed over dim 1, mean over dim 0
+    (`posecnn_tpu/ops/losses.py:49`)."""
+    sigma_2 = sigma**2
+    diff = bbox_inside_weights * (bbox_pred - bbox_targets)
+    abs_diff = diff.abs()
+    sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
+    in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
+    return torch.mean(torch.sum(bbox_outside_weights * in_loss, dim=1))
 
 
 def smooth_l1_loss_vertex(vertex_pred: torch.Tensor, vertex_targets: torch.Tensor,

@@ -104,14 +104,16 @@ def test_test_icp_reduces_translation_error(tmp_path):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--set", "network=posecnn_det"], NotImplementedError, "Secondary families"),
+    (["--set", "network=fcn8"], NotImplementedError, "Secondary families"),
     (["--dataset", "coco"], ValueError, "unknown --dataset"),
     (["--set", "input=RGBX"], ValueError, "RGBX"),
 ])
 def test_unsupported_test_net_branches_raise_naming_their_roadmap_item(argv, error, match):
-    """Only the detection family waits for a ROADMAP item now; an unknown
-    dataset or input mode is an error (the dataset branches and the other
-    inputs run: tests/test_torch_real_cli.py)."""
+    """Only the segmentation, video, GAN and fusion families wait for a
+    ROADMAP item now (the detection family runs:
+    tests/test_torch_det_cli.py); an unknown dataset or input mode is an
+    error (the dataset branches and the other inputs run:
+    tests/test_torch_real_cli.py)."""
     with pytest.raises(error, match=match):
         test_net.main(["--device", "cpu", *argv])
 
@@ -135,9 +137,14 @@ def test_backgrounds_that_match_nothing_raise(ckpt, tmp_path):
         run_port(tmp_path, ckpt, "--backgrounds", str(tmp_path / "none_*.png"))
 
 
-def test_test_icp_visualize_raises():
-    with pytest.raises(NotImplementedError, match="demo and visualize"):
-        test_icp.main(["--device", "cpu", "--visualize"])
+def test_test_icp_visualize_raises(tmp_path):
+    """The name dates from before `utils/visualize.py`: `--visualize` no
+    longer raises, and writes each scene's refined boxes (compared with
+    the JAX CLI's in tests/test_torch_demo.py)."""
+    test_icp.main(["--device", "cpu", "--visualize", "--output", str(tmp_path),
+                   "--num_scenes", "1", "--set", "train.num_classes=4", "train.syn_height=48",
+                   "train.syn_width=64"])
+    assert os.path.exists(tmp_path / "000-refined.png")
 
 
 def test_the_default_device_is_the_card():
