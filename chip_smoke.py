@@ -97,6 +97,25 @@ that fails, with a non-zero exit:
      widths, flat and window launched once a forward and bit for bit equal
      to plain on each forward's inputs.
 
+ 12. the segmentation and video families and fusion at full width, with
+     seeded random weights: 4 train steps each of
+     `rgbd_scene_single_color_fcn8.yaml` as written (FCN8, 10 classes,
+     480×640, batch 2, fc_dim 4096, bf16) and of the same yaml with
+     `network=resnet50_seg` (num_units 64) through
+     `cli/train_net.build_trainer`, split into forward / backward /
+     optimizer (CUDA events), every loss and gradient finite, peak memory,
+     FLOPs a step (FlopCounterMode) and MFU; small fp32 FCN8, ResNet50Seg
+     and RecurrentSegNet on the card against the CPU (log-probs within
+     1e-4); 4 steps of `lov_color_rnn.yaml` as written (RecurrentSegNet,
+     22 classes, T = 5, batch 1, 480×640, num_units 64, fp32) with the same
+     split, `compute_flow`'s ms a frame and peak memory, then 2 steps on a
+     fabricated YCB-Video tree with a moving camera (the real-video feed);
+     `test_video` on the video snapshot (2 sequences of 5 frames, TSDF grid
+     `test.grid_size` 256): the seconds of render, forward, fuse, track and
+     extract, IoU, surface points and `video_eval.json`; `test_fusion` at
+     its grid 64, and one `fuse_frame` at grid 512 with 10 classes (ms and
+     peak memory). No vote kernel launches in the phase.
+
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
 or without the posecnn_torch package beside it, it prints no result
@@ -143,6 +162,12 @@ REAL_STEPS, REAL_FRAMES = 3, (8, 4)  # train steps per config; train and val fra
 DET_CFG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "experiments", "cfgs",
                        "lov_det.yaml")
 DET_STEPS, DET_EVAL_IMAGES, DEMO_FRAMES = 4, 8, 5
+# phase 12: the segmentation and video families and fusion, each yaml as
+# written; SEG_SET's runs on the fcn8 yaml
+SEG_CFG, RNN_CFG = "rgbd_scene_single_color_fcn8", "lov_color_rnn"
+SEG_SET = {"fcn8": [], "resnet50_seg": ["--set", "network=resnet50_seg"]}
+SEG_STEPS, RNN_STEPS, RNN_REAL_STEPS, VIDEO_SEQUENCES = 4, 4, 2, 2
+FUSE_GRID, FUSE_CLASSES = 512, 10
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -1910,6 +1935,262 @@ def phase_det_demo(card):
     return launches
 
 
+def split_steps(step, state, batches):
+    """Each batch through `step.forward`, `.backward` and `.update` with
+    CUDA events between: (ms forward / backward / optimizer per step,
+    metrics per step). Raises on a non-finite loss or gradient."""
+    import torch
+
+    split, metrics = [], []
+    for i, batch in enumerate(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        total, m = step.forward(state, batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        grads_ok = all(bool(torch.isfinite(p.grad).all()) for p in step.model.parameters()
+                       if p.grad is not None)
+        ev_upd = torch.cuda.Event(enable_timing=True)
+        ev_upd.record()
+        m["lr"] = step.update(state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.append([ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]),
+                      ev_upd.elapsed_time(ev[3])])
+        metrics.append({name: float(v) for name, v in m.items()})
+        if not grads_ok or not np.isfinite(list(metrics[-1].values())).all():
+            raise AssertionError(f"step {i}: gradients finite {grads_ok}, metrics {metrics[-1]}")
+    return split, metrics
+
+
+def seg_card_vs_cpu(device):
+    """Small fp32 FCN8, ResNet50Seg and RecurrentSegNet on the card against
+    the CPU with the same weights and inputs: the largest log-prob
+    difference, within 1e-4."""
+    import copy
+
+    import torch
+
+    from posecnn_torch.data.procedural import synthetic_class_library
+    from posecnn_torch.data.synthetic import SyntheticSceneGenerator, SyntheticSequenceGenerator
+    from posecnn_torch.models import FCN8, RecurrentSegNet, ResNet50Seg
+    from posecnn_torch.models.posecnn import init_weights
+
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 96, 128, 3).astype(np.float32) * 40.0)
+    lib = synthetic_class_library(4, 256)
+    k = np.array([[90.0, 0, 64], [0, 90.0, 48], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=128, height=96, seed=3,
+                                  point_colors=lib.colors, point_normals=lib.normals)
+    seq = SyntheticSequenceGenerator(gen, num_steps=3).minibatch(1)
+    blobs = [torch.from_numpy(seq[key]) for key in ("image", "depth", "meta")]
+    errs = {}
+    for name, model, inputs in (("fcn8", FCN8(4, fc_dim=64), [x]),
+                                ("resnet50_seg", ResNet50Seg(4, num_units=16), [x]),
+                                ("recurrent_seg", RecurrentSegNet(4, num_units=16), blobs)):
+        init_weights(model, 1)
+        if name == "recurrent_seg":  # a live gate, so the warped state matters
+            torch.nn.init.normal_(model.fusion.gate.weight, 0.0, 0.1,
+                                  generator=torch.Generator().manual_seed(2))
+        with torch.no_grad():
+            want = model(*inputs)[0]
+            got = copy.deepcopy(model).to(device)(*(a.to(device) for a in inputs))[0].cpu()
+        errs[name] = float((got - want).abs().max())
+    if max(errs.values()) > 1e-4:
+        raise AssertionError(f"seg and video models on the card vs the CPU: {errs}")
+    return errs
+
+
+def phase_seg_video(device, card):
+    """Phase 12: the segmentation and video families' training, the video
+    evaluation and fusion at full width. Returns the vote kernels' launches
+    in the phase (all must be 0)."""
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from posecnn_torch.cli import test_fusion, test_video, train_net
+    from posecnn_torch.core.checkpoint import save_params
+    from posecnn_torch.data.fabricate import write_ycb_tree
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.flow import compute_flow
+    from posecnn_torch.refine.fusion import create_volume, fuse_frame
+
+    for key in hk.LAUNCHES:
+        hk.LAUNCHES[key] = 0
+    parts = []
+
+    def run(argv, steps):
+        """build_trainer on argv, `steps` held batches through split_steps:
+        (trainer, split, metrics, peak GB, FLOPs of one more step, set-up s,
+        the batches)."""
+        args = train_net.make_parser().parse_args(argv)
+        t0 = time.perf_counter()
+        tr = train_net.build_trainer(args, train_net.load_config(args))
+        try:
+            batches = [next(tr.batches) for _ in range(steps)]
+        finally:
+            tr.batches.close()
+        setup_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        split, metrics = split_steps(tr.step, tr.state, batches)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        with FlopCounterMode(display=False) as counter:
+            tr.step(tr.state, batches[-1])
+        return tr, split, metrics, peak_gb, counter.get_total_flops(), setup_s, batches
+
+    def describe(split, flops, peak_gb, peak_flops, peak_name):
+        steady = np.mean(split[1:], 0)
+        return ("ms forward / backward / optimizer (CUDA events; the first builds cuDNN plans) "
+                + "; ".join("/".join(f"{x:.2f}" for x in row) for row in split)
+                + f" (steps 2-{len(split)} mean {'/'.join(f'{x:.2f}' for x in steady)}), peak "
+                f"memory {peak_gb:.2f} GB, {flops / 1e12:.3f} TFLOP a step (FlopCounterMode), "
+                f"MFU {100 * flops / (steady.sum() / 1e3) / peak_flops:.2f}% of {peak_name}")
+
+    # 12.1: the segmentation family on the fcn8 yaml, as FCN8 and ResNet50Seg
+    for network, extra in SEG_SET.items():
+        tr, split, metrics, peak_gb, flops, setup_s, _ = run(
+            ["--cfg", cfg_path(SEG_CFG), *extra], SEG_STEPS)
+        t = tr.cfg.train
+        width = f"fc_dim {t.fc_dim}" if network == "fcn8" else f"num_units {t.num_units}"
+        parts.append(f"{network} on {SEG_CFG}.yaml ({t.num_classes} classes, {t.syn_height}x"
+                     f"{t.syn_width}, batch {t.ims_per_batch}, {width}, "
+                     f"{str(tr.model.compute_dtype).removeprefix('torch.')}, set-up {setup_s:.1f}"
+                     f" s): {describe(split, flops, peak_gb, PEAK_BF16_FLOPS, '989 TFLOP/s bf16')}"
+                     f", losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}")
+        del tr
+        torch.cuda.empty_cache()
+    errs = seg_card_vs_cpu(device)
+    parts.append("small fp32 models on the card == the CPU, log-probs within "
+                 + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 12.2: the video family on lov_color_rnn.yaml, synthetic sequences
+        tr, split, metrics, peak_gb, flops, setup_s, batches = run(["--cfg", cfg_path(RNN_CFG)],
+                                                                    RNN_STEPS)
+        t, model, grid = tr.cfg.train, tr.model, tr.cfg.test.grid_size
+        snapshot = os.path.join(tmp, "rnn", f"rnn_iter_{tr.state.step}.npz")
+        save_params(snapshot, model, step=tr.state.step)  # what train_net's snapshot writes
+        # compute_flow alone on a step's frames 0 → 1: the warp of frame 1,
+        # forward and forward + backward
+        depth, meta = batches[-1]["depth"], batches[-1]["meta"]
+        b, h, w, u = depth.shape[1], depth.shape[2], depth.shape[3], t.num_units
+        zeros = torch.zeros((b, h, w, u), device=device)
+        points = compute_flow(zeros, zeros, torch.zeros((b, h, w, 3), device=device), depth[0],
+                              meta[0])[2]
+        depth, meta = depth[1], meta[1]
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = torch.randn((b, h, w, u), device=device, generator=gen).requires_grad_(True)
+        weights = torch.rand((b, h, w, u), device=device, generator=gen).requires_grad_(True)
+
+        def flow_ms(backward, n=5):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            for i in range(n + 1):
+                if i == 1:
+                    ev[0].record()
+                out = compute_flow(state, weights, points, depth, meta)
+                if backward:
+                    (out[0].sum() + out[1].sum()).backward()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return ev[0].elapsed_time(ev[1]) / n, float((out[1] != 1).float().mean())
+
+        (flow_f, matched), (flow_fb, _) = flow_ms(False), flow_ms(True)
+        parts.append(f"recurrent_seg on {RNN_CFG}.yaml ({t.num_classes} classes, T = "
+                     f"{t.num_steps}, batch {t.ims_per_batch}, {t.syn_height}x{t.syn_width}, "
+                     f"num_units {t.num_units}, fp32, set-up {setup_s:.1f} s): "
+                     f"{describe(split, flops, peak_gb, PEAK_FP32_OPS, '67 TFLOP/s fp32')}, "
+                     f"losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}; compute_flow "
+                     f"{flow_f:.2f} ms a frame forward, {flow_fb:.2f} ms forward + backward "
+                     f"(CUDA events, mean of 5; {100 * matched:.1f}% of pixels matched)")
+        del tr, model, state, weights, batches
+        torch.cuda.empty_cache()
+
+        # the real-video feed: a fabricated YCB-Video tree with a moving camera
+        root = os.path.join(tmp, "lov")
+        t0 = time.perf_counter()
+        write_ycb_tree(root, sets=(("train", 6),), video_length=6, moving_camera=True)
+        fab_s = time.perf_counter() - t0
+        tr, split, metrics, peak_gb, _, setup_s, _ = run(
+            ["--cfg", cfg_path(RNN_CFG), "--dataset", "ycb_video", "--data_root", root],
+            RNN_REAL_STEPS)
+        parts.append(f"recurrent_seg on a fabricated moving-camera YCB-Video tree (6 frames "
+                     f"written in {fab_s:.1f} s, set-up {setup_s:.1f} s): ms forward / backward "
+                     f"/ optimizer " + "; ".join("/".join(f"{x:.2f}" for x in row)
+                                                 for row in split)
+                     + f", losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}, peak memory "
+                     f"{peak_gb:.2f} GB")
+        del tr
+        torch.cuda.empty_cache()
+
+        # 12.3: test_video on the video snapshot
+        out = os.path.join(tmp, "video")
+        t0 = time.perf_counter()
+        results = test_video.main(["--cfg", cfg_path(RNN_CFG), "--ckpt", snapshot,
+                                   "--num_sequences", str(VIDEO_SEQUENCES), "--num_steps",
+                                   str(t.num_steps), "--output", out])
+        video_s = time.perf_counter() - t0
+        if not os.path.exists(os.path.join(out, "video_eval.json")) or len(results) != (
+                VIDEO_SEQUENCES) or not all(np.isfinite(r["mean_iou"]) for r in results):
+            raise AssertionError(f"test_video: {results}")
+        sec = {k: sum(r["seconds"][k] for r in results) for k in test_video.STAGES}
+        parts.append(f"test_video on its snapshot ({VIDEO_SEQUENCES} sequences of {t.num_steps} "
+                     f"frames, grid {grid}, {video_s:.1f} s with set-up): seconds "
+                     + " / ".join(f"{k} {v:.3f}" for k, v in sec.items())
+                     + "; IoU " + ", ".join(f"{r['mean_iou']:.4f}" for r in results)
+                     + "; surface points " + ", ".join(str(r["surface_points"]) for r in results)
+                     + "; tracked motion m " + ", ".join(
+                         "/".join(f"{x:.4f}" for x in r["tracked_motion_m"]) for r in results))
+        torch.cuda.empty_cache()
+
+        # 12.4: test_fusion at its grid 64, and one fuse_frame at grid 512
+        t0 = time.perf_counter()
+        report = test_fusion.main(["--output", os.path.join(tmp, "fusion")])
+        fusion_s = time.perf_counter() - t0
+        if not os.path.exists(os.path.join(tmp, "fusion", "model.ply")) or report[
+                "surface_points"] <= 0:
+            raise AssertionError(f"test_fusion: {report}")
+    torch.cuda.empty_cache()
+    vol = create_volume(FUSE_GRID, FUSE_CLASSES, origin=(-1.0, -1.0, 0.3), voxel_size=2.0 / FUSE_GRID,
+                        device=device)
+    gen = torch.Generator(device=device).manual_seed(1)
+    depth = 0.8 + torch.rand((HEIGHT, WIDTH), device=device, generator=gen)
+    prob = torch.softmax(torch.randn((HEIGHT, WIDTH, FUSE_CLASSES), device=device, generator=gen),
+                         -1)
+    kk = torch.tensor([[1066.8, 0, WIDTH / 2], [0, 1066.8, HEIGHT / 2], [0, 0, 1]], device=device)
+    pose = torch.eye(3, 4, device=device)
+    fuse_frame(vol, depth, prob, kk, pose)  # warm-up
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    fuse_frame(vol, depth, prob, kk, pose)
+    ev[1].record()
+    torch.cuda.synchronize()
+    fuse_ms, fuse_peak = ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated() / 1e9
+    updated = int((vol.weight == 2).sum())
+    del vol
+    parts.append(f"test_fusion (grid {report['grid_size']}, {fusion_s:.1f} s): surface points "
+                 f"{report['surface_points']}, classes {report['surface_classes']}, "
+                 f"{report['mesh_triangles']} triangles, raycast depth MAE "
+                 f"{report['raycast_depth_mae_m']:.4f} m, label accuracy "
+                 f"{report['raycast_fg_label_acc']:.4f}, tracking errors deg "
+                 f"{[round(x, 3) for x in report['tracking_rot_err_deg']]}; fuse_frame at grid "
+                 f"{FUSE_GRID} with {FUSE_CLASSES} classes ({HEIGHT}x{WIDTH} frame): "
+                 f"{fuse_ms:.2f} ms (CUDA events), peak memory {fuse_peak:.2f} GB over the "
+                 f"volume's {base_gb:.2f} GB, {updated} voxels updated twice")
+    launches = dict(hk.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"phase 12 launched a vote kernel: {launches}")
+    print(f"phase 12 segmentation, video and fusion on {card}: " + " | ".join(parts)
+          + f" | vote kernel launches {launches}", flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1947,6 +2228,7 @@ def main() -> int:
     eval_launches = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
     demo_launches = phase_det_demo(card)
+    seg_launches = phase_seg_video(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -1962,7 +2244,8 @@ def main() -> int:
          "ms": times[k][0], "call_ms": times[k][1], "plain_ms": times[k][2],
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
          "test_net_launches": eval_launches[k], "real_train_launches": real_launches[k],
-         "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k]}
+         "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k],
+         "seg_video_launches": seg_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,9 +9,12 @@ built at first use and bound with ctypes (`ops/_cuda.py`).
 Ported so far: the single-frame serving path (`cli/serve.py`) — VGG16
 trunk, seg and vertex skip heads, Hough voting (single- and
 multi-instance; coarse-to-fine, exhaustive and dense) with the three
-CUDA vote kernels, RoI pooling, the pose head and NMS — the synthetic
-scene generator (`data/synthetic.py`) and the GPU validation entry
-point (`cli/validate.py`).
+CUDA vote kernels, RoI pooling, the pose head and NMS — the GPU
+validation entry point (`cli/validate.py`), training and evaluation of
+the posecnn, detection, segmentation (FCN8, ResNet50) and recurrent
+video families (`cli/train_net.py`, `cli/test_net.py`,
+`cli/test_video.py`), ICP, RANSAC and TSDF fusion (`refine/`), the demo
+and the dataset readers. `ROADMAP.md` lists what is left.
 """
 
 __version__ = "0.1.0"

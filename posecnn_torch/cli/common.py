@@ -173,7 +173,7 @@ def class_geometry(args, cfg, orient_detail: bool, paint_version: int) -> ClassG
                   a 500 px focal length at the centre of the training size
     """
     if args.dataset == "linemod":
-        lm = datasets.DATASETS["linemod"](args.data_root, args.image_set, cls=args.cls)
+        lm = datasets.DATASETS.get("linemod")(args.data_root, args.image_set, cls=args.cls)
         ci = list(lm.classes).index(args.cls) if args.cls else 1
         pts, cols, nrms = fill_missing_points(lm.points, lm.extents, orient_detail=orient_detail,
                                               paint_version=paint_version)
@@ -185,7 +185,7 @@ def class_geometry(args, cfg, orient_detail: bool, paint_version: int) -> ClassG
             args.dataset == "synthetic" and args.data_root
             and os.path.exists(os.path.join(args.data_root, "models"))):
         name = "ycb_video" if args.dataset == "synthetic" else args.dataset
-        ds = datasets.DATASETS[name](args.data_root, args.image_set)
+        ds = datasets.DATASETS.get(name)(args.data_root, args.image_set)
         cols, nrms = colorize_model_library(ds.points, orient_detail=orient_detail,
                                             paint_version=paint_version)
         return ClassGeometry(ds.num_classes, ds.points, ds.extents, np.asarray(ds.symmetry),

@@ -50,8 +50,10 @@ instance matching. It writes `<output>/eval_det.json`: the JAX summary,
 plus a "run" block of images/s and stage seconds (render, forward,
 extract = decode, NMS and the depth fit, evaluate).
 
-Not ported yet, raising: the other network families; ROADMAP.md Queue 1
-names what they wait for.
+The segmentation and video families raise here: the JAX `test_net`
+has no branch for them and builds a `PoseCNN` whatever `network` says
+(`posecnn_tpu/cli/test_net.py:86-100`). `recurrent_seg` is evaluated by
+`cli/test_video`.
 """
 
 from __future__ import annotations
@@ -128,11 +130,14 @@ def make_parser():
 
 
 def check_supported(cfg) -> None:
-    """Raise on what the port's evaluation cannot run yet, naming the
-    ROADMAP.md Queue 1 item it waits for."""
+    """Raise on a network family this CLI does not evaluate."""
+    if cfg.network == "recurrent_seg":
+        raise NotImplementedError("network recurrent_seg: evaluate the video family with "
+                                  "python -m posecnn_torch.cli.test_video")
     if cfg.network not in ("posecnn", "posecnn_det"):
-        raise NotImplementedError(f"network {cfg.network}: the family's evaluation waits for "
-                                  "ROADMAP.md Queue 1, 'Secondary families'")
+        raise NotImplementedError(f"network {cfg.network}: test_net evaluates the posecnn and "
+                                  "posecnn_det families only (the JAX test_net builds a PoseCNN "
+                                  "whatever the network)")
     if cfg.input not in INPUTS:
         raise ValueError(f"input {cfg.input!r}: one of {INPUTS}")
 

@@ -48,8 +48,24 @@ points, the same optimizer, logging and snapshots:
     python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_det.yaml --iters 200 \
         --output output/det
 
-Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the segmentation,
-video, GAN and fusion families, and data parallelism (`--num_data`).
+`network: fcn8` or `resnet50_seg` (the `rgbd_scene_single_*_fcn8.yaml`s;
+`--set network=resnet50_seg`) trains a segmentation backbone
+(`posecnn_tpu/cli/train_net.py:170-208`): `FCN8` with `train.fc_dim` or
+`ResNet50Seg` with `train.num_units`, in `compute_dtype`, on rendered
+batches' `data` and `label` with the normalised cross-entropy.
+`network: recurrent_seg` (`lov_color_rnn.yaml`, the `*_scene_multi_*`
+yamls) trains `RecurrentSegNet` in fp32 (`:211-288`) on
+`SyntheticSequenceGenerator` sequences of `train.num_steps` frames, or,
+where `--dataset`'s image set names frames on disk, on
+`get_real_video_minibatch` sequences from random starts. Both keep the
+loop, logging and snapshots above. As in the JAX trainers, their frames
+are colour whatever `input` says (a line says so):
+
+    python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_color_rnn.yaml \
+        --iters 200 --output output/rnn
+
+Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the GAN family, and
+data parallelism (`--num_data`).
 """
 
 from __future__ import annotations
@@ -81,7 +97,8 @@ from posecnn_torch.core.checkpoint import (
     snapshot_path,
 )
 from posecnn_torch.core.config import Config
-from posecnn_torch.data.minibatch import depth_blob, get_real_minibatch
+from posecnn_torch.core.registry import MODELS
+from posecnn_torch.data.minibatch import depth_blob, get_real_minibatch, get_real_video_minibatch
 from posecnn_torch.data.pipeline import (
     Prefetcher,
     RatioSampler,
@@ -89,19 +106,22 @@ from posecnn_torch.data.pipeline import (
     compact_feed,
     to_device,
 )
-from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+from posecnn_torch.data.synthetic import SyntheticSceneGenerator, SyntheticSequenceGenerator
 from posecnn_torch.engine.train import (
+    SEG_FAMILIES,
     TrainState,
     TrainStep,
     check_supported,
     create_train_state,
     fastforward_opt_counts,
     make_det_train_step,
+    make_seg_train_step,
     make_train_step,
+    make_video_train_step,
     train_loop,
 )
-from posecnn_torch.models.detection import PoseCNNDet
-from posecnn_torch.models.posecnn import PoseCNN, init_weights
+from posecnn_torch.models import PoseCNN, PoseCNNDet
+from posecnn_torch.models.posecnn import init_weights
 
 # the JAX package's top-level parameter modules → the port's (for --reinit)
 _MODULES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head", "vertex_head": "vertex_head",
@@ -115,12 +135,12 @@ class Trainer(NamedTuple):
 
     cfg: Config
     device: torch.device
-    model: torch.nn.Module  # PoseCNN or PoseCNNDet
+    model: torch.nn.Module  # the network family's model
     state: TrainState
     batches: Prefetcher
     points: torch.Tensor  # (C, add_num_points, 3) ADD-loss model points
     extents: torch.Tensor  # (C, 3)
-    symmetry: torch.Tensor  # (C,)
+    symmetry: torch.Tensor  # (C,) (the three unused by the seg and video steps)
     head_meta: dict
     make_batch_factory: Callable  # worker id → a producer of host batches (the feed's)
     step: TrainStep  # the family's train step
@@ -179,11 +199,26 @@ def _restore(args, model, modules: dict) -> int:
     return step0
 
 
+def _initialised(args, cfg: Config, model, modules: dict, device):
+    """`model` with seeded weights, `--ckpt` / `--reinit` applied, on
+    `device`, and its optimizer state at the restored step."""
+    init_weights(model, cfg.rng_seed)
+    step0 = _restore(args, model, modules)
+    model = model.to(device)
+    state = create_train_state(cfg, model)
+    state.step = step0
+    if args.ckpt:
+        # the staircase and Adam's bias correction follow the global step
+        fastforward_opt_counts(state.opt, step0)
+    return model, state
+
+
 def build_trainer(args, cfg: Config) -> Trainer:
     """The model, optimizer state, prefetching feed, loss geometry and
     train step of a training run, with `--ckpt` / `--resume` and
     `--reinit` applied; `network: posecnn_det` gets the detection model
-    and step."""
+    and step, fcn8 / resnet50_seg the segmentation ones and recurrent_seg
+    the video ones."""
     check_supported(cfg)
     device = setup_device(args.device)
     t = cfg.train
@@ -230,6 +265,12 @@ def build_trainer(args, cfg: Config) -> Trainer:
         return make_batch_factory
 
     batch_size = t.ims_per_batch
+    if cfg.network in SEG_FAMILIES + ("recurrent_seg",):
+        if cfg.input != "COLOR":
+            print(f"input {cfg.input}: the {cfg.network} trainer feeds colour frames, as the "
+                  "JAX trainer does")
+        return _seg_trainer(args, cfg, device, gen, ds, c, compute_dtype, synthetic_factory,
+                            (points, extents, symmetry))
     det = cfg.network == "posecnn_det"
     if det:
         model = PoseCNNDet.from_config(cfg, c, train=True, compute_dtype=compute_dtype)
@@ -244,14 +285,7 @@ def build_trainer(args, cfg: Config) -> Trainer:
             adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
             compute_dtype=compute_dtype,
         )
-    init_weights(model, cfg.rng_seed)
-    step0 = _restore(args, model, _DET_MODULES if det else _MODULES)
-    model = model.to(device)
-    state = create_train_state(cfg, model)
-    state.step = step0
-    if args.ckpt:
-        # the staircase and Adam's bias correction follow the global step
-        fastforward_opt_counts(state.opt, step0)
+    model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device)
 
     if det:
         # train_net_det: one rendered image a step, GT boxes from its label
@@ -323,6 +357,56 @@ def build_trainer(args, cfg: Config) -> Trainer:
     }
     return Trainer(cfg, device, model, state, batches, points, extents, symmetry, head_meta,
                    make_batch_factory, make_train_step(cfg, model, points, extents, symmetry))
+
+
+def _seg_trainer(args, cfg: Config, device, gen, ds, c: int, compute_dtype,
+                 synthetic_factory, geometry) -> Trainer:
+    """The segmentation (fcn8, resnet50_seg) or video (recurrent_seg)
+    trainer (`posecnn_tpu/cli/train_net.py:170-288`)."""
+    t = cfg.train
+    batch_size = t.ims_per_batch
+    if cfg.network == "recurrent_seg":
+        # built without compute_dtype in JAX: fp32 on every device
+        model = MODELS.get(cfg.network)(c, num_units=t.num_units)
+    else:
+        width = {"fc_dim": t.fc_dim} if cfg.network == "fcn8" else {"num_units": t.num_units}
+        model = MODELS.get(cfg.network)(c, compute_dtype=compute_dtype, **width)
+    model, state = _initialised(args, cfg, model,
+                                {name: name for name, _ in model.named_children()}, device)
+
+    num_workers = 2
+    if cfg.network != "recurrent_seg":
+        def seg_batch(g):
+            b = g.minibatch(batch_size, dense_vertex_targets=False)
+            return {"data": b["data"], "label": b["label"]}
+
+        make_batch_factory = synthetic_factory(seg_batch)
+        step = make_seg_train_step(cfg, model)
+    elif has_real_frames(ds):
+        # real sequences from random starts, one producer in the JAX feed's order
+        frame0 = ds.load_frame(ds.image_index[0])
+        sb = float(t.scales_base[0]) if t.scales_base else 1.0
+        rh, rw = (int(round(n * sb)) for n in frame0["color"].shape[:2])
+        pixel_means = np.asarray(cfg.pixel_means, np.float32)
+        data_rng = np.random.RandomState(cfg.rng_seed)
+
+        def make_batch_factory(worker_id):
+            if worker_id != 0:
+                raise ValueError("the real-video feed has one producer")
+            return lambda: get_real_video_minibatch(
+                ds, data_rng.randint(0, len(ds.image_index), batch_size),
+                num_steps=t.num_steps, height=rh, width=rw, pixel_means=pixel_means,
+                rng=data_rng, chromatic=t.chromatic, scale=sb)
+
+        num_workers = 1
+        step = make_video_train_step(cfg, model)
+    else:
+        make_batch_factory = synthetic_factory(
+            lambda g: SyntheticSequenceGenerator(g, num_steps=t.num_steps).minibatch(batch_size))
+        step = make_video_train_step(cfg, model)
+    batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8,
+                         num_workers=num_workers, device_put=lambda b: to_device(b, device))
+    return Trainer(cfg, device, model, state, batches, *geometry, {}, make_batch_factory, step)
 
 
 def main_run(args, cfg: Config, max_iters: int) -> TrainState:

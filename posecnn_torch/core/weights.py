@@ -19,14 +19,22 @@ and whose heads are one level deep:
   params/rpn_{conv,cls_score,bbox_pred}/…    → rpn_….{weight,bias}
   params/{fc6,fc7,cls_score,bbox_pred,pose_pred}/… → ….{weight,bias}
 
+The segmentation and video families keep the JAX module names at any
+depth (`FCN8`'s `score_fr`, `ResNet50Seg`'s
+`params/trunk/stage2_block1/conv1/kernel`, `RecurrentSegNet`'s `fusion/gate`
+and `GRU3DCell`'s `gate`): the path maps to the torch module path
+segment for segment.
+
 The RGBD model has the same keys, with 1024 input channels in the heads'
 conv4/conv5 kernels and p·p·1024 rows in fc6 (and in fc9 with adaptation).
 
-Conv kernels go from flax's HWIO to torch's OIHW; Dense kernels from
-(in, out) to Linear's (out, in). fc6's rows need no permutation: the
-port flattens the pooled (R, p, p, C) features in the same NHWC order
-as the JAX pose head (`posecnn_tpu/models/posecnn.py:134`), and the
-detection head's fc6 likewise (`posecnn_tpu/models/detection.py:146`).
+Conv kernels go from flax's HWIO to torch's OIHW (DHWIO to OIDHW for 3-D
+convs); Dense kernels from (in, out) to Linear's (out, in); a GroupNorm's
+`scale` is its torch `weight` (the only 1-D weight in the port's models).
+Convs without a bias have no `bias` entry on either side. fc6's rows need
+no permutation: the port flattens the pooled (R, p, p, C) features in the
+same NHWC order as the JAX pose head (`posecnn_tpu/models/posecnn.py:134`),
+and the detection head's fc6 likewise (`posecnn_tpu/models/detection.py:146`).
 `params_to_jax` is the inverse map, which `core/checkpoint.save_params`
 writes; the model's `JAX_TRUNK` names its trunk there.
 """
@@ -44,10 +52,19 @@ _MODULE_NAMES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head",
                  # PoseCNNDet
                  "trunk": "trunk", "rpn_conv": "rpn_conv", "rpn_cls_score": "rpn_cls_score",
                  "rpn_bbox_pred": "rpn_bbox_pred", "fc6": "fc6", "fc7": "fc7",
-                 "cls_score": "cls_score", "bbox_pred": "bbox_pred", "pose_pred": "pose_pred"}
+                 "cls_score": "cls_score", "bbox_pred": "bbox_pred", "pose_pred": "pose_pred",
+                 # FCN8, ResNet50Seg, RecurrentSegNet and the fusion cells alone
+                 "score_fr": "score_fr", "score_pool4": "score_pool4",
+                 "score_pool5": "score_pool5", "score_c3": "score_c3", "score_c4": "score_c4",
+                 "score": "score", "score_conv4": "score_conv4", "score_conv5": "score_conv5",
+                 "fusion": "fusion", "gate": "gate", "gates": "gates",
+                 "candidate": "candidate", "conv": "conv"}
 FLAGSHIP_TRUNK = "VGG16Trunk_0"
-# params/<module>[/<layer>]/<kernel|bias>
-_KEY = re.compile(r"params/([^/]+)/(?:([^/]+)/)?(kernel|bias)")
+# params/<module>[/<layer>…]/<kernel|bias|scale>
+_KEY = re.compile(r"params/([^/]+)((?:/[^/]+)*)/(kernel|bias|scale)")
+# flax kernel layout → torch weight layout, by rank
+_TO_TORCH = {5: (4, 3, 0, 1, 2), 4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_JAX = {5: (2, 3, 4, 1, 0), 4: (2, 3, 1, 0), 2: (1, 0), 1: (0,)}
 
 
 def load_npz(path: str) -> dict[str, np.ndarray]:
@@ -71,47 +88,46 @@ def read_ckpt_meta(path: str) -> dict:
 
 
 def params_from_jax(flat: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Map flat `params/<module>/<name>/<kernel|bias>` arrays to the port's
-    PoseCNN `state_dict` keys. Raises on a key it cannot map; the
+    """Map flat `params/<module>[/<name>…]/<kernel|bias|scale>` arrays to
+    the port's `state_dict` keys. Raises on a key it cannot map; the
     caller's `load_state_dict(strict=True)` raises on one missing."""
     state = {}
     for key, value in flat.items():
         m = _KEY.fullmatch(key)
         if m is None or m.group(1) not in _MODULE_NAMES:
             raise KeyError(f"unmapped checkpoint key {key!r}")
-        module, layer, kind = m.groups()
+        module, rest, kind = m.groups()
         arr = np.asarray(value, np.float32)
         if kind == "kernel":
-            if arr.ndim == 4:  # conv HWIO → OIHW
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:  # dense (in, out) → (out, in)
-                arr = arr.T
-            else:
+            if arr.ndim not in (2, 4, 5):
                 raise ValueError(f"{key}: unexpected kernel rank {arr.ndim}")
-        path = _MODULE_NAMES[module] + (f".{layer}" if layer else "")
-        name = f"{path}.{'weight' if kind == 'kernel' else 'bias'}"
-        state[name] = torch.tensor(arr)  # a contiguous copy
+            arr = arr.transpose(_TO_TORCH[arr.ndim])
+        path = _MODULE_NAMES[module] + rest.replace("/", ".")
+        name = f"{path}.{'bias' if kind == 'bias' else 'weight'}"
+        state[name] = torch.tensor(np.ascontiguousarray(arr))  # a contiguous copy
     return state
 
 
 def params_to_jax(state: dict[str, torch.Tensor],
                   trunk: str = FLAGSHIP_TRUNK) -> dict[str, np.ndarray]:
-    """The inverse of `params_from_jax`: a PoseCNN or PoseCNNDet
-    `state_dict` as flat `params/<module>[/<name>]/<kernel|bias>` fp32
-    arrays, conv kernels OIHW → HWIO, Linear weights (out, in) → (in, out);
-    `trunk` is the trunk's JAX module name."""
+    """The inverse of `params_from_jax`: a model's `state_dict` as flat
+    `params/<module>[/<name>…]/<kernel|bias|scale>` fp32 arrays, conv
+    kernels OI(D)HW → (D)HWIO, Linear weights (out, in) → (in, out), a
+    GroupNorm's 1-D weight as `scale`; `trunk` is the trunk's JAX module
+    name."""
     modules = {port: jax_name for jax_name, port in _MODULE_NAMES.items()}
     modules["trunk"] = trunk
     flat = {}
     for name, value in state.items():
         *path, kind = name.split(".")
-        if path[0] not in modules or len(path) > 2 or kind not in ("weight", "bias"):
+        if path[0] not in modules or kind not in ("weight", "bias"):
             raise KeyError(f"state_dict key {name!r} has no place in a JAX checkpoint")
         arr = value.detach().cpu().float().numpy()
+        leaf = "bias"
         if kind == "weight":
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        key = "/".join(["params", modules[path[0]], *path[1:],
-                        "kernel" if kind == "weight" else "bias"])
+            arr = arr.transpose(_TO_JAX[arr.ndim])
+            leaf = "scale" if arr.ndim == 1 else "kernel"
+        key = "/".join(["params", modules[path[0]], *path[1:], leaf])
         flat[key] = np.ascontiguousarray(arr)
     return flat
 

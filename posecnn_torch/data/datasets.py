@@ -13,10 +13,11 @@ The port's copy of `posecnn_tpu/data/datasets.py:28-320`, carried because
   extents.txt               per-class 3D extents
   poses/<cls>.txt           the pose bank of `train.syn_sample_pose`
 
-Images are read by PIL; `.mat` meta through `scipy.io`. `DATASETS` maps the names the CLIs
-take to the classes. Not carried yet: the scene-segmentation datasets
-(`SymDataset`, `YumiDataset`, `SceneSegDataset` and its subclasses),
-which wait for the segmentation families.
+Images are read by PIL; `.mat` meta through `scipy.io`. `core/registry.DATASETS`
+maps the names the CLIs take to the classes. The scene-segmentation
+readers (`SceneSegDataset` and its subclasses: RGB-D Scenes, ShapeNet
+scenes, GMU scenes) read the same layout with frames and labels only, and
+`SymDataset` and `YumiDataset` the pose layout with their own classes.
 """
 
 from __future__ import annotations
@@ -26,16 +27,9 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-DATASETS: dict = {}
+from posecnn_torch.core.registry import DATASETS
 
-
-def _register(name: str):
-    def deco(cls):
-        DATASETS[name] = cls
-        return cls
-
-    return deco
-
+_register = DATASETS.register
 
 YCB_CLASSES = (
     "__background__",
@@ -325,3 +319,65 @@ class LOVSingleDataset(YCBVideoDataset):
     def __init__(self, root: str, image_set: str = "train", cls: str = "", num_points: int = 2620):
         self.cls = cls
         super().__init__(root, image_set, num_points)
+
+
+SYM_CLASSES = ("__background__", "block_blue", "block_green", "block_red", "block_yellow")
+
+
+@_register("sym")
+class SymDataset(PoseDataset):
+    """Symmetric-block toy dataset (ref: lib/datasets/sym.py)."""
+
+    def __init__(self, root: str, image_set: str = "train", num_points: int = 2620):
+        super().__init__(root, image_set, SYM_CLASSES,
+                         np.ones(len(SYM_CLASSES), np.float32), num_points)
+
+
+YUMI_CLASSES = ("__background__", "cube")
+
+
+@_register("yumi")
+class YumiDataset(PoseDataset):
+    """YuMi robot-cell dataset (ref: lib/datasets/yumi.py)."""
+
+    def __init__(self, root: str, image_set: str = "train", num_points: int = 2620):
+        super().__init__(root, image_set, YUMI_CLASSES,
+                         np.zeros(len(YUMI_CLASSES), np.float32), num_points)
+
+
+class SceneSegDataset(PoseDataset):
+    """Scene-segmentation datasets without pose models (ref:
+    lib/datasets/rgbd_scene.py, shapenet_scene.py, shapenet_single.py,
+    gmu_scene.py): frames and labels only."""
+
+    def __init__(self, root: str, image_set: str, classes):
+        super().__init__(root, image_set, classes, np.zeros(len(classes), np.float32),
+                         num_points=1)
+
+
+@_register("rgbd_scene")
+class RGBDSceneDataset(SceneSegDataset):
+    CLASSES = ("__background__", "bowl", "cap", "cereal_box", "coffee_mug",
+               "coffee_table", "office_chair", "soda_can", "sofa", "table")
+
+    def __init__(self, root: str, image_set: str = "train"):
+        super().__init__(root, image_set, self.CLASSES)
+
+
+@_register("shapenet_scene")
+@_register("shapenet_single")
+class ShapeNetSceneDataset(SceneSegDataset):
+    CLASSES = ("__background__",) + tuple(f"class_{i}" for i in range(1, 8))
+
+    def __init__(self, root: str, image_set: str = "train"):
+        super().__init__(root, image_set, self.CLASSES)
+
+
+@_register("gmu_scene")
+class GMUSceneDataset(SceneSegDataset):
+    CLASSES = ("__background__", "coca_cola", "coffee_mate", "honey_bunches",
+               "hunts_sauce", "mahatma_rice", "nature_v1", "nature_v2",
+               "palmolive_orange", "pop_secret", "pringles_bbq", "red_bull")
+
+    def __init__(self, root: str, image_set: str = "train"):
+        super().__init__(root, image_set, self.CLASSES)

@@ -1,8 +1,7 @@
 """Minibatch blob construction: synthetic scenes and real dataset frames.
 
 The port's numpy copy of `posecnn_tpu/data/minibatch.py` (carried because
-`posecnn_tpu.data` imports jax), all but `get_real_video_minibatch`, which
-waits for the recurrent family:
+`posecnn_tpu.data` imports jax):
 
   generate_vertex_targets — per labelled pixel of class c, channels
     [3c, 3c+1] = unit direction (centre − pixel), 3c+2 = log z; weights
@@ -19,6 +18,10 @@ waits for the recurrent family:
   get_real_minibatch — a training batch of dataset frames: rescale,
     crop/pad to the training size, mirrored copies, GT poses and the dense
     or sparse vertex-target form
+  get_real_video_minibatch — the recurrent family's sequences of dataset
+    frames: NUM_STEPS consecutive frames of one video each, the camera
+    motion from each frame's rotation_translation_matrix, the voxel grid
+    from the first frame's depth
   label_to_boxes — GT boxes from a label map
 
 Augmentations draw from the caller's `RandomState` in the original's
@@ -486,6 +489,116 @@ def get_real_minibatch(
     if datas_p:
         batch["data_p"] = np.stack(datas_p)
     return batch
+
+
+def get_real_video_minibatch(
+    dataset,
+    start_indices,
+    *,
+    num_steps: int,
+    height: int,
+    width: int,
+    pixel_means,
+    input_mode: str = "COLOR",
+    rng: Optional[np.random.RandomState] = None,
+    chromatic: bool = False,
+    noise: bool = False,
+    voxelizer=None,
+    scale: float = 1.0,
+) -> dict:
+    """Sequences of dataset frames for the recurrent net
+    (`posecnn_tpu/data/minibatch.py:518-658`; ref: GtDataLayer
+    lib/gt_data_layer/minibatch.py:20-310).
+
+    One sequence per start index: frames t are image_index[start + t]. A
+    sequence never crosses a `<video>/<frame>` boundary: where the video id
+    changes (or the list ends) the last in-video frame repeats. Flat
+    indices (no '/') count as one video. The meta blob carries each
+    frame's pose_world2live / live2world relative to the sequence's first
+    frame, from the `.mat`'s rotation_translation_matrix (identity without
+    one), and the voxel grid set up from the first frame's depth.
+
+    Returns time-major blobs: image (T, B, H, W, 3) mean-subtracted, depth
+    (T, B, H, W) metres, meta (T, B, 48), label (T, B, H, W) int32.
+    """
+    from posecnn_torch.utils.voxelizer import Voxelizer
+
+    n_index = len(dataset.image_index)
+
+    def video_of(idx_str: str) -> str:
+        return idx_str.split("/")[0] if "/" in idx_str else ""
+
+    images, depths, metas, labels = [], [], [], []
+    for start in start_indices:
+        start = int(start) % n_index
+        video = video_of(dataset.image_index[start])
+        seq_im, seq_d, seq_m, seq_l = [], [], [], []
+        rt_world = None
+        vox = voxelizer or Voxelizer()
+        frame_i, prev_i, frame = start, -1, None
+        for t in range(num_steps):
+            cand = min(start + t, n_index - 1)
+            if video_of(dataset.image_index[cand]) == video:
+                frame_i = cand  # else the last in-video frame repeats
+            if frame_i != prev_i:
+                frame = dataset.load_frame(dataset.image_index[frame_i])
+                prev_i = frame_i
+            k = np.array(frame.get("intrinsic_matrix", np.eye(3, dtype=np.float32)), np.float32)
+            factor = 1000.0
+            if "meta" in frame:
+                factor = float(np.squeeze(frame["meta"].get("factor_depth", 1000.0)))
+            color = frame["color"][..., :3]
+            depth_raw = frame.get("depth_raw")
+            if scale != 1.0:
+                color = resize_bilinear(color, scale).astype(color.dtype)
+                if depth_raw is not None:
+                    depth_raw = resize_nearest(depth_raw, scale)
+                k = k.copy()
+                k[:2, :] *= scale
+            color = _fit_hw(color, height, width)
+            if depth_raw is not None:
+                depth_raw = _fit_hw(depth_raw.astype(np.float32), height, width)
+            data, _ = build_image_blobs(color, depth_raw, k, input_mode=input_mode,
+                                        pixel_means=pixel_means, rng=rng, chromatic=chromatic,
+                                        noise=noise, depth_factor=factor)
+            seq_im.append(data)
+            depth_m = (depth_raw.astype(np.float32) / factor if depth_raw is not None
+                       else np.zeros((height, width), np.float32))
+            seq_d.append(depth_m)
+            label = frame.get("label", np.zeros((height, width), np.int32))
+            if scale != 1.0:
+                label = resize_nearest(np.asarray(label), scale)
+            seq_l.append(_fit_hw(label, height, width).astype(np.int32))
+
+            # camera motion, the world frame being the sequence's first
+            # (ref: minibatch.py:216-222 pose_world2live / live2world)
+            rt_live = None
+            if "meta" in frame and "rotation_translation_matrix" in frame["meta"]:
+                rt_live = np.asarray(frame["meta"]["rotation_translation_matrix"],
+                                     np.float64).reshape(3, 4)
+            if rt_live is None:
+                w2l = l2w = np.concatenate([np.eye(3), np.zeros((3, 1))], 1)
+            else:
+                if rt_world is None:
+                    rt_world = rt_live
+                # w2l = RT_live · RT_world⁻¹
+                r_w, t_w = rt_world[:, :3], rt_world[:, 3]
+                inv_w = np.concatenate([r_w.T, (-r_w.T @ t_w)[:, None]], 1)
+                r_l = rt_live[:, :3]
+                w2l = np.concatenate(
+                    [r_l @ inv_w[:, :3], (r_l @ inv_w[:, 3] + rt_live[:, 3])[:, None]], 1)
+                r2, t2 = w2l[:, :3], w2l[:, 3]
+                l2w = np.concatenate([r2.T, (-r2.T @ t2)[:, None]], 1)
+            if t == 0:
+                vox.setup_from_depth(depth_m, k)
+            step, mn = vox.meta_fields()
+            seq_m.append(build_meta_blob(k, w2l, l2w, step, mn))
+        images.append(np.stack(seq_im))
+        depths.append(np.stack(seq_d))
+        metas.append(np.stack(seq_m))
+        labels.append(np.stack(seq_l))
+    return {"image": np.stack(images, axis=1), "depth": np.stack(depths, axis=1),
+            "meta": np.stack(metas, axis=1), "label": np.stack(labels, axis=1)}
 
 
 def label_to_boxes(im_label: np.ndarray, cls_indexes: np.ndarray) -> np.ndarray:

@@ -17,8 +17,13 @@ which picks the same nearest point per pixel.
 
 `pooled_minibatch` is the training feed's replay pool (`:405-445`):
 `fresh` new renders per call, the batch drawn from a rolling pool of
-recent scenes, with σ = 8 gaussian noise per draw. Not carried yet:
-`SyntheticSequenceGenerator` (the video family).
+recent scenes, with σ = 8 gaussian noise per draw.
+
+`SyntheticSequenceGenerator` (`:479-547`) is the video family's feed:
+one scene a sequence, re-rendered from a camera that moves a little each
+frame, with pose_world2live / live2world in meta[18:42] for the state
+warp. It draws from the scene generator's `rng` in the original's order,
+so its frames are the original's bit for bit.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 
 from posecnn_torch.data.minibatch import build_meta_blob, build_pose_blob, generate_vertex_targets
-from posecnn_torch.utils.quaternion import quat_to_mat_np
+from posecnn_torch.utils.quaternion import axis_angle_to_quat_np, quat_mul_np, quat_to_mat_np
 
 
 class SyntheticSample(NamedTuple):
@@ -353,3 +358,68 @@ class SyntheticSceneGenerator:
         batch["gt_poses"] = gt
         batch["gt_valid"] = gt_valid
         return batch
+
+
+class SyntheticSequenceGenerator:
+    """Multi-frame sequences with camera motion (ref: GtDataLayer's
+    NUM_STEPS-frame minibatches, minibatch.py:20-310). Objects stay fixed
+    in the world; per frame the camera turns by up to `cam_step_r` rad
+    about a random axis and moves by up to `cam_step_t` m per axis."""
+
+    def __init__(self, scene_gen: SyntheticSceneGenerator, num_steps: int = 5,
+                 cam_step_t: float = 0.01, cam_step_r: float = 0.02):
+        self.gen = scene_gen
+        self.num_steps = num_steps
+        self.cam_step_t = cam_step_t
+        self.cam_step_r = cam_step_r
+
+    def views(self):
+        """One sequence's scene: its first render (a `SyntheticSample`; the
+        frame-0 camera is the world frame) and, for each later frame,
+        (r (3, 3), t (3,), image, label, depth): the camera's world→live
+        rotation and translation and the render from there."""
+        g = self.gen
+        rng = g.rng
+        base = g.render(dense_vertex_targets=False)
+        cam_q = np.array([1.0, 0, 0, 0], np.float32)
+        cam_t = np.zeros(3, np.float32)
+        later = []
+        for _ in range(1, self.num_steps):
+            axis = rng.randn(3).astype(np.float32)
+            dq = axis_angle_to_quat_np(
+                axis, np.float32(rng.uniform(-self.cam_step_r, self.cam_step_r)))
+            cam_q = quat_mul_np(dq, cam_q)
+            cam_t = cam_t + rng.uniform(-self.cam_step_t, self.cam_step_t, 3).astype(np.float32)
+            r = quat_to_mat_np(cam_q)
+            # the same objects from the new camera, through the shared splat
+            depth = np.full((g.height, g.width), np.inf, np.float32)
+            label = np.zeros((g.height, g.width), np.int32)
+            image = np.zeros((g.height, g.width, 3), np.float32)
+            light = g._scene_light()
+            for pose in base.poses:
+                g._splat_object(int(pose[1]), r @ quat_to_mat_np(pose[6:10]),
+                                r @ pose[10:13] + cam_t, depth, label, image, light)
+            depth[np.isinf(depth)] = 0.0
+            g._fill_background(label, image)
+            later.append((r, cam_t, image - g.pixel_means, label, depth))
+        return base, later
+
+    def render_sequence(self) -> dict:
+        """(T, H, W, …) image, label, depth and (T, 48) meta of one sequence,
+        with pose_world2live / live2world in each later frame's meta."""
+        base, later = self.views()
+        frames = {"image": [base.image], "label": [base.label], "depth": [base.depth],
+                  "meta": [base.meta]}
+        for r, cam_t, image, label, depth in later:
+            w2l = np.concatenate([r, cam_t[:, None]], 1).astype(np.float32)
+            l2w = np.concatenate([r.T, (-r.T @ cam_t)[:, None]], 1).astype(np.float32)
+            frames["image"].append(image)
+            frames["label"].append(label)
+            frames["depth"].append(depth)
+            frames["meta"].append(build_meta_blob(self.gen.k, w2l, l2w))
+        return {k: np.stack(v) for k, v in frames.items()}
+
+    def minibatch(self, batch_size: int) -> dict:
+        """(T, B, …) stacked sequences."""
+        seqs = [self.render_sequence() for _ in range(batch_size)]
+        return {k: np.stack([s[k] for s in seqs], axis=1) for k in seqs[0]}

@@ -30,8 +30,16 @@ The detection step (`DetTrainStep`) is train_net_det's: the
 COLOR image a step, with the same optimizer; its targets' sampling noise
 is drawn a step from a generator seeded by (seed, step).
 
-Not ported: the GAN, segmentation and video steps, 3D vertex
-regression, the host-RSS handoff and multi-device data parallelism.
+The segmentation step (`SegTrainStep`, `make_seg_train_step` `:686-725`)
+trains `FCN8` and `ResNet50Seg` on the normalised cross-entropy of their
+log-probs against `label`, without dropout, as the JAX step does; the
+video step (`VideoTrainStep`, `:728-757`) trains `RecurrentSegNet` on
+`compute_video_losses`, the per-frame normalised cross-entropy averaged
+over the sequence, backpropagated through time. Both use the same
+optimizer.
+
+Not ported: the GAN step, 3D vertex regression, the host-RSS handoff and
+multi-device data parallelism.
 """
 
 from __future__ import annotations
@@ -61,18 +69,23 @@ ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
 
 INPUTS = ("COLOR", "RGBD", "DEPTH", "NORMAL")
+SEG_FAMILIES = ("fcn8", "resnet50_seg")
+FAMILIES = ("posecnn", "posecnn_det") + SEG_FAMILIES + ("recurrent_seg",)
 
 
 def check_supported(cfg: Config) -> None:
     """Raise on a configuration the port's training path does not run:
     the posecnn family on COLOR, RGBD, DEPTH or NORMAL input, with 2D
     vertex and pose regression, and optionally the domain-adaptation and
-    matching losses, trains here, and the detection family on COLOR."""
+    matching losses, trains here; the detection family on COLOR; the
+    segmentation (fcn8, resnet50_seg) and video (recurrent_seg) families
+    on colour frames, whatever the input mode names."""
     t = cfg.train
     posecnn = cfg.network == "posecnn"
     unsupported = {
-        f"network={cfg.network!r}": cfg.network not in ("posecnn", "posecnn_det"),
-        f"input={cfg.input!r}": cfg.input not in (INPUTS if posecnn else ("COLOR",)),
+        f"network={cfg.network!r}": cfg.network not in FAMILIES,
+        f"input={cfg.input!r}": cfg.input not in (
+            ("COLOR",) if cfg.network == "posecnn_det" else INPUTS),
         "train.gan (the GAN step)": t.gan,
         "train.vertex_reg_3d": posecnn and t.vertex_reg_3d,
         "train.vertex_reg_2d=False": posecnn and not t.vertex_reg_2d,
@@ -413,3 +426,63 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
         if snapshot_fn is not None and (it + 1) % cfg.train.snapshot_iters == 0:
             snapshot_fn(it + 1, state)
     return state
+
+
+def seg_cross_entropy(log_prob: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
+    """−Σ onehot(label)·log_prob / (Σ onehot + 1e-10) over every leading
+    axis: the normalised cross-entropy (ref: loss_cross_entropy
+    train.py:440-465). A label outside [0, C) has an all-zero one-hot row,
+    as `jax.nn.one_hot` gives it."""
+    c = log_prob.shape[-1]
+    label = label.long()
+    inside = (label >= 0) & (label < c)
+    picked = log_prob.gather(-1, label.clamp(0, c - 1)[..., None])[..., 0]
+    return -(picked * inside).sum() / (inside.sum() + 1e-10)
+
+
+class SegTrainStep(TrainStep):
+    """One segmentation step (`engine/train.py:686-725`): the model's
+    log-probs on `data` (B, H, W, 3), the normalised cross-entropy against
+    `label` (B, H, W). No dropout: the JAX step passes no keep rate."""
+
+    def __init__(self, cfg: Config, model):
+        super().__init__(cfg, model, None, None, None)
+
+    def forward(self, state: TrainState, batch: dict):
+        log_prob, _ = self.model(batch["data"])
+        loss = seg_cross_entropy(log_prob, batch["label"])
+        return loss, {"loss": loss.detach(), "loss_cls": loss.detach()}
+
+
+def make_seg_train_step(cfg: Config, model) -> SegTrainStep:
+    check_supported(cfg)
+    return SegTrainStep(cfg, model)
+
+
+def compute_video_losses(model, frames, depths, metas, gt_labels):
+    """Per-frame normalised cross-entropy of the recurrent net over a
+    sequence, averaged over the frames (`engine/train.py:626-644`).
+    frames (T, B, H, W, 3), depths (T, B, H, W), metas (T, B, 48),
+    gt_labels (T, B, H, W) → (loss, {"loss", "per_step" (T,), "labels_pred"})."""
+    log_probs, labels_pred, _ = model(frames, depths, metas)
+    per_step = torch.stack([seg_cross_entropy(lp, gt) for lp, gt in zip(log_probs, gt_labels)])
+    loss = per_step.mean()
+    return loss, {"loss": loss, "per_step": per_step, "labels_pred": labels_pred}
+
+
+class VideoTrainStep(TrainStep):
+    """One video step (`engine/train.py:728-757`): `compute_video_losses`
+    on a batch of sequences {image, depth, meta, label}, time-major."""
+
+    def __init__(self, cfg: Config, model):
+        super().__init__(cfg, model, None, None, None)
+
+    def forward(self, state: TrainState, batch: dict):
+        loss, _ = compute_video_losses(self.model, batch["image"], batch["depth"],
+                                       batch["meta"], batch["label"])
+        return loss, {"loss": loss.detach()}
+
+
+def make_video_train_step(cfg: Config, model) -> VideoTrainStep:
+    check_supported(cfg)
+    return VideoTrainStep(cfg, model)

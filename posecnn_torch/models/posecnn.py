@@ -155,15 +155,24 @@ class DomainHead(nn.Module):
 def init_weights(model: nn.Module, seed: int) -> None:
     """Seeded initialisation in flax's defaults: every conv and dense
     kernel LeCun-normal (truncated at ±2σ, variance 1/fan_in), every
-    bias zero. Draws from a CPU `torch.Generator`; move the model after."""
+    bias zero, every GroupNorm scale one. A module with a `flax_init`
+    method then applies its own initialisers (a zero-initialised gate).
+    Draws from a CPU `torch.Generator`; move the model after."""
     g = torch.Generator().manual_seed(seed)
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv2d, nn.Linear)):
+        if isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.Linear)):
             fan_in = mod.weight[0].numel()
             # 0.8796… is the std of a unit normal truncated at ±2
             std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
             nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+            if mod.bias is not None:
+                nn.init.zeros_(mod.bias)
+        elif isinstance(mod, nn.GroupNorm):
+            nn.init.ones_(mod.weight)
             nn.init.zeros_(mod.bias)
+    for mod in model.modules():
+        if hasattr(mod, "flax_init"):
+            mod.flax_init()
 
 
 # the JAX package's backend names (`core/config.py` train.hough_backend,

@@ -116,10 +116,9 @@ def test_demo_dataset_reads_as_in_jax(tmp_path):
 
 
 def test_registry_names_the_jax_packages_pose_datasets():
-    assert set(tds.DATASETS) == {"ycb_video", "lov", "linemod", "demo", "ycb", "ycb_single",
-                                 "lov_single"}
-    for name, cls in tds.DATASETS.items():
-        assert name in JAX_DATASETS and cls.__name__ == JAX_DATASETS.get(name).__name__
+    assert set(tds.DATASETS.names()) == set(JAX_DATASETS.names())
+    for name in tds.DATASETS.names():
+        assert tds.DATASETS.get(name).__name__ == JAX_DATASETS.get(name).__name__
 
 
 def test_load_points_xyz_matches_jax(tmp_path):

@@ -104,16 +104,16 @@ def test_test_icp_reduces_translation_error(tmp_path):
 
 
 @pytest.mark.parametrize("argv, error, match", [
-    (["--set", "network=fcn8"], NotImplementedError, "Secondary families"),
+    (["--set", "network=fcn8"], NotImplementedError, "posecnn and posecnn_det families only"),
     (["--dataset", "coco"], ValueError, "unknown --dataset"),
     (["--set", "input=RGBX"], ValueError, "RGBX"),
 ])
 def test_unsupported_test_net_branches_raise_naming_their_roadmap_item(argv, error, match):
-    """Only the segmentation, video, GAN and fusion families wait for a
-    ROADMAP item now (the detection family runs:
-    tests/test_torch_det_cli.py); an unknown dataset or input mode is an
-    error (the dataset branches and the other inputs run:
-    tests/test_torch_real_cli.py)."""
+    """test_net evaluates the posecnn and detection families only (the
+    detection family: tests/test_torch_det_cli.py; the segmentation and
+    video families raise, as tests/test_torch_seg_cli.py checks); an
+    unknown dataset or input mode is an error (the dataset branches and
+    the other inputs run: tests/test_torch_real_cli.py)."""
     with pytest.raises(error, match=match):
         test_net.main(["--device", "cpu", *argv])
 
