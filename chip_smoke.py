@@ -115,6 +115,25 @@ that fails, with a non-zero exit:
      extract, IoU, surface points and `video_eval.json`; `test_fusion` at
      its grid 64, and one `fuse_frame` at grid 512 with 10 classes (ms and
      peak memory). No vote kernel launches in the phase.
+ 13. the head switches and the GAN step at full width, with seeded random
+     weights: 4 steps of `shapenet_single_single_color_gan.yaml` as written
+     (2 classes, 480×640, batch 4, num_units 64, seg + vertex, vertex_w 10,
+     lr 2e-4) through `cli/train_net.build_trainer`, each split into the
+     generator's forward / backward / optimizer and the discriminator's
+     step (CUDA events), every loss and gradient finite
+     (`utils/debug.finite_check`), peak memory, FLOPs a step; one small
+     fp64 GAN step on the card against the CPU; 3 steps each of
+     `lov_color_3d.yaml` on a fabricated YCB-Video tree (22 classes, batch
+     2, real and synthetic 1:3), `linemod_ape_3d.yaml` on a fabricated
+     LINEMOD tree (720×960) and `rgbd_scene_single_depth.yaml` (seg only,
+     DEPTH, 10 classes; the posecnn trainer renders the procedural library
+     for it, as the JAX one does), each step's terms exactly the yaml's,
+     with no vote kernel launched; `test_net --dataset lov --save_results`
+     on the lov_color_3d snapshot (every head built, the pose head kept at
+     its seeded values and named), flat and window launched once a forward
+     and bit for bit equal to plain on each forward's inputs;
+     `render_poses` on its results; `check_data` and `test_synthesis`
+     (scenes/s on the host) on the flagship yaml.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -168,6 +187,11 @@ SEG_CFG, RNN_CFG = "rgbd_scene_single_color_fcn8", "lov_color_rnn"
 SEG_SET = {"fcn8": [], "resnet50_seg": ["--set", "network=resnet50_seg"]}
 SEG_STEPS, RNN_STEPS, RNN_REAL_STEPS, VIDEO_SEQUENCES = 4, 4, 2, 2
 FUSE_GRID, FUSE_CLASSES = 512, 10
+# phase 13: the GAN step and the switched posecnn yamls, each as written;
+# the train and val frames of the fabricated YCB-Video tree, the scenes
+# test_synthesis renders
+GAN_CFG = "shapenet_single_single_color_gan"
+GAN_STEPS, SWITCH_STEPS, SWITCH_FRAMES, SYNTHESIS_SAMPLES = 4, 3, (4, 2), 8
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -2191,6 +2215,311 @@ def phase_seg_video(device, card):
     return launches
 
 
+def gan_card_vs_cpu(device):
+    """One small GAN step (3 classes, 48×64, num_units 8, seg + vertex,
+    keep_prob 1) on the card and on the CPU from the same weights and
+    batch, in fp64 (the scores and vertex maps cast to fp32, as the model
+    casts them): the losses within 1e-4 relative, every generator and
+    discriminator gradient within 1e-3 of its tensor's largest entry. In
+    fp32 a ReLU or leaky-ReLU input within ~1e-6 of zero falls on either
+    side of its kink on the two devices and moves a gradient by ~1e-3.
+    Returns (largest relative loss difference, largest gradient one)."""
+    import copy
+
+    import torch
+
+    from posecnn_torch.core.config import cfg_from_dict
+    from posecnn_torch.data.procedural import synthetic_class_library
+    from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+    from posecnn_torch.engine.train import create_gan_train_state, make_gan_train_step
+    from posecnn_torch.models.gan import FeatureDiscriminator
+    from posecnn_torch.models.posecnn import PoseCNN, init_weights
+
+    c, h, w = 3, 48, 64
+    lib = synthetic_class_library(c, 256)
+    k = np.array([[90.0, 0, w / 2], [0, 90.0, h / 2], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(lib.points, lib.extents, k, width=w, height=h, seed=4,
+                                  point_colors=lib.colors, point_normals=lib.normals)
+    batch = {key: torch.from_numpy(v) for key, v in
+             gen.minibatch(2, max_gt=8, dense_vertex_targets=False).items() if key != "depth"}
+    cfg = cfg_from_dict({"train": {"num_classes": c, "num_units": 8, "vertex_reg_2d": True,
+                                   "gan": True, "learning_rate": 2e-4, "vertex_w": 10.0}})
+    model, disc = PoseCNN(c, num_units=8, fc_dim=32, pose_reg=False), FeatureDiscriminator(3 * c + 3)
+    init_weights(model, 0)
+    init_weights(disc, 1)
+    for mod in list(model.modules()) + list(disc.modules()):
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    model, disc = model.double(), disc.double()
+    batch = {key: v.double() if v.dtype == torch.float32 else v for key, v in batch.items()}
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        m, d = copy.deepcopy(model).to(dev), copy.deepcopy(disc).to(dev)
+        state = create_gan_train_state(cfg, m, d)
+        step = make_gan_train_step(cfg, m, d, *(torch.from_numpy(a).to(dev).double() for a in (
+            lib.points[:, :32], lib.extents, lib.symmetry)), keep_prob=1.0)
+        metrics = step(state, {key: v.to(dev) for key, v in batch.items()})
+        grads = {f"{side}.{name}": p.grad.cpu() for side, mod in (("g", m), ("d", d))
+                 for name, p in mod.named_parameters()}
+        runs.append(({key: float(v) for key, v in metrics.items()}, grads))
+    (got, got_g), (want, want_g) = runs
+    loss_rel = max(abs(got[key] - want[key]) / max(abs(want[key]), 1e-12) for key in want)
+    grad_rel, worst = max((float((got_g[n] - want_g[n]).abs().max())
+                           / max(float(want_g[n].abs().max()), 1e-12), n) for n in want_g)
+    if set(got) != set(want) or loss_rel > 1e-4 or grad_rel > 1e-3:
+        raise AssertionError(f"GAN step on the card vs the CPU: losses {got} / {want}, "
+                             f"gradients within {grad_rel:.2e} of their largest entry ({worst})")
+    return loss_rel, grad_rel
+
+
+def switched_steps(tr, steps, want):
+    """`steps` batches from a switched trainer's feed (the host clock of
+    each wait), the feed stopped, then a train step on each, split into
+    forward / backward / optimizer (CUDA events): every metric finite, the
+    terms exactly `want` (with lr), and no vote kernel launched. Returns
+    (rows of ms: wait, forward, backward, optimizer; metrics; peak GB;
+    the batches; the feed's production seconds)."""
+    import torch
+
+    from posecnn_torch.ops import hough_kernels as hk
+
+    waits, batches = [], []
+    try:
+        for _ in range(steps):
+            w0 = time.perf_counter()
+            batches.append(next(tr.batches))
+            waits.append(1e3 * (time.perf_counter() - w0))
+    finally:
+        tr.batches.close()
+    rows, metrics = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i, (wait, batch) in enumerate(zip(waits, batches)):
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        split, m = split_steps(tr.step, tr.state, [batch])
+        launches = dict(hk.LAUNCHES)
+        if any(launches.values()) or set(m[0]) != want | {"lr"}:
+            raise AssertionError(f"switched step {i}: launches {launches}, terms "
+                                 f"{sorted(m[0])}, want {sorted(want)}")
+        rows.append([wait, *split[0]])
+        metrics.append(m[0])
+    return (rows, metrics, torch.cuda.max_memory_allocated() / 1e9, batches,
+            list(tr.batches.produce_seconds))
+
+
+def phase_switches_gan(device, card):
+    """Phase 13: the GAN step at full width, the switched posecnn yamls on
+    fabricated trees, the evaluation of a switched snapshot and the
+    inspection CLIs. Returns the kernels' launches in that test_net run."""
+    import contextlib
+    import io
+    import tempfile
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from posecnn_torch.cli import check_data, render_poses, test_net, test_synthesis, train_net
+    from posecnn_torch.core.checkpoint import save_params, snapshot_path
+    from posecnn_torch.data.fabricate import write_linemod_tree, write_ycb_tree
+    from posecnn_torch.engine.train import decompress_feed
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.utils.debug import finite_check
+
+    parts = []
+    # 13.1: the GAN step on its yaml as written
+    args = train_net.make_parser().parse_args(["--cfg", cfg_path(GAN_CFG)])
+    t0 = time.perf_counter()
+    tr = train_net.build_trainer(args, train_net.load_config(args))
+    setup_s = time.perf_counter() - t0
+    t, step, state = tr.cfg.train, finite_check(tr.step), tr.state
+    try:
+        batches = [next(tr.batches) for _ in range(GAN_STEPS)]
+    finally:
+        tr.batches.close()
+    for key in hk.LAUNCHES:
+        hk.LAUNCHES[key] = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    split, metrics = [], []
+    for batch in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        total, m = step.forward(state, batch)
+        ev[1].record()
+        step.backward(total)
+        ev[2].record()
+        m["lr"] = step.update(state)
+        ev[3].record()
+        m["loss_d"] = step.discriminator(state, batch)
+        ev[4].record()
+        torch.cuda.synchronize()
+        split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
+        metrics.append({name: float(v) for name, v in m.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gan_launches = dict(hk.LAUNCHES)
+    want = {"loss", "loss_cls", "loss_vertex", "loss_g_adv", "loss_d", "lr"}
+    if any(gan_launches.values()) or not all(set(m) == want and np.isfinite(
+            list(m.values())).all() for m in metrics):
+        raise AssertionError(f"GAN steps: launches {gan_launches}, metrics {metrics}")
+    with FlopCounterMode(display=False) as counter:
+        step(state, batches[-1])
+    flops = counter.get_total_flops()
+    steady = np.mean(split[1:], 0)
+    loss_rel, grad_rel = gan_card_vs_cpu(device)
+    parts.append(
+        f"GAN step on {GAN_CFG}.yaml ({t.num_classes} classes, {t.syn_height}x{t.syn_width}, "
+        f"batch {t.ims_per_batch}, num_units {t.num_units}, vertex_w {t.vertex_w}, lr "
+        f"{t.learning_rate:g}, {t.optimizer}, gan_weight {t.gan_weight}, "
+        f"{str(tr.model.trunk.compute_dtype).removeprefix('torch.')} generator, fp32 discriminator; "
+        f"set-up {setup_s:.1f} s): {GAN_STEPS} steps, ms generator forward / backward / "
+        f"optimizer / discriminator step (CUDA events; the first builds cuDNN plans) "
+        + "; ".join("/".join(f"{x:.2f}" for x in row) for row in split)
+        + f" (steps 2-{GAN_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}, "
+        f"{1e3 * t.ims_per_batch / steady.sum():.2f} images/s on the step's device time), "
+        f"peak memory {peak_gb:.2f} GB, {flops / 1e12:.3f} TFLOP a step (FlopCounterMode), "
+        f"MFU {100 * flops / (steady.sum() / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16; "
+        f"loss_d {', '.join(f'{m['loss_d']:.4f}' for m in metrics)}, loss_g_adv "
+        f"{', '.join(f'{m['loss_g_adv']:.4g}' for m in metrics)}, every loss and gradient "
+        f"finite (utils/debug.finite_check), vote launches {gan_launches}; a small fp64 GAN "
+        f"step on the card == the CPU (losses within {loss_rel:.2e} relative, gradients within "
+        f"{grad_rel:.2e} of their largest entry)")
+    del tr, step, state, batches
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 13.2: the switched yamls, 3 steps each
+        root, lm_root = os.path.join(tmp, "lov"), os.path.join(tmp, "linemod")
+        t0 = time.perf_counter()
+        write_ycb_tree(root, sets=(("train", SWITCH_FRAMES[0]), ("val", SWITCH_FRAMES[1])))
+        os.makedirs(lm_root)
+        write_linemod_tree(lm_root, "ape")
+        fab_s = time.perf_counter() - t0
+        runs = {"lov_color_3d": ["--dataset", "lov", "--data_root", root],
+                "linemod_ape_3d": ["--dataset", "linemod", "--cls", "ape", "--data_root",
+                                   lm_root],
+                "rgbd_scene_single_depth": []}
+        snapshot = None
+        for name, extra in runs.items():
+            out = os.path.join(tmp, name)
+            args = train_net.make_parser().parse_args(
+                ["--cfg", cfg_path(name), "--output", out, *extra])
+            t0 = time.perf_counter()
+            tr = train_net.build_trainer(args, train_net.load_config(args))
+            setup_s = time.perf_counter() - t0
+            t = tr.cfg.train
+            heads = [n for n in ("vertex_head", "pose_head", "domain_head")
+                     if getattr(tr.model, n) is not None]
+            want = {"loss", "loss_cls"} | ({"loss_vertex"} if heads else set())
+            rows, metrics, peak_gb, batches, produced = switched_steps(tr, SWITCH_STEPS, want)
+            if name == "lov_color_3d":
+                snapshot = snapshot_path(out, t.snapshot_prefix, t.snapshot_infix, tr.state.step)
+                save_params(snapshot, tr.model, step=tr.state.step, meta=tr.head_meta)
+                # the last batch's GT Hough inputs (live slots) for the
+                # kernels at test_net's shapes below
+                b = decompress_feed(batches[-1], tr.cfg)
+                gt_inputs, gt_meta = gt_hough_inputs(tr, b), b["meta"]
+            rows = np.asarray(rows)
+            steady = rows[1:].mean(0)
+            parts.append(
+                f"{name} (input {tr.cfg.input}, {t.num_classes} classes, "
+                f"{tr.cfg.train.syn_height}x{tr.cfg.train.syn_width} x scales_base "
+                f"{t.scales_base[0]}, batch {t.ims_per_batch}, vertex_reg_2d {t.vertex_reg_2d}, "
+                f"vertex_reg_3d {t.vertex_reg_3d}, pose_reg {t.pose_reg}: heads "
+                f"{heads or 'seg only'}; set-up {setup_s:.1f} s): ms feed wait (the feed "
+                f"running) / forward / backward / optimizer (on the held batches, the feed "
+                f"stopped) " + "; ".join("/".join(f"{x:.2f}" for x in row) for row in rows)
+                + f" (steps 2-{SWITCH_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}, "
+                f"{1e3 * t.ims_per_batch / steady[1:].sum():.2f} images/s on the step's device "
+                f"time), batch production {', '.join(f'{1e3 * x:.0f}' for x in produced)} ms, "
+                f"peak memory {peak_gb:.2f} GB, terms of the last step "
+                + ", ".join(f"{k} {v:.4f}" for k, v in metrics[-1].items())
+                + ", no vote launch")
+            del tr, batches
+            torch.cuda.empty_cache()
+
+        # 13.3: test_net on the seg + vertex snapshot: every head built,
+        # the pose head's seeded; render_poses on its results
+        recorded = Recorded()
+        record, original = recording_hough(recorded)
+        out = os.path.join(tmp, "eval")
+        captured = io.StringIO()
+        posecnn_module.hough_voting = record
+        try:
+            for key in hk.LAUNCHES:
+                hk.LAUNCHES[key] = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(captured):
+                summary = test_net.main(["--dataset", "lov", "--data_root", root, "--cfg",
+                                         cfg_path("lov_color_3d"), "--ckpt", snapshot,
+                                         "--num_images", str(SWITCH_FRAMES[1]),
+                                         "--save_results", "--output", out])
+            eval_s = time.perf_counter() - t0
+            launches = dict(hk.LAUNCHES)
+        finally:
+            posecnn_module.hough_voting = original
+        kept = [line.split(" has no ")[1].split(";")[0]
+                for line in captured.getvalue().splitlines() if "kept the model" in line]
+        if kept != ["pose_head"]:
+            raise AssertionError(f"test_net on the seg + vertex snapshot kept {kept}, not the "
+                                 "pose head alone")
+        n = SWITCH_FRAMES[1]
+        if launches["flat"] != n or launches["window"] != n or len(recorded) != n:
+            raise AssertionError(f"test_net on the switched snapshot: launches {launches}, "
+                                 f"{len(recorded)} forwards")
+        extents, kw = recorded.call
+        shapes, errs = {}, {}
+        for i, (label, vert, meta) in [*enumerate(recorded), ("GT", (*gt_inputs, gt_meta))]:
+            sh, er = kernels_vs_plain(kw, extents, meta, {f"forward {i}": (label, vert)},
+                                      "test_net on the switched snapshot")
+            shapes.update(sh)
+            errs = {k: max(errs.get(k, 0.0), v) for k, v in er.items()}
+        if shapes["forward GT"][1] == 0:
+            raise AssertionError("the switched step's GT Hough inputs have no live slot")
+        run = summary["run"]
+        if not np.isfinite([summary["seg_mean_iou"], run["images_per_s"]]).all():
+            raise AssertionError(f"test_net on the switched snapshot: {summary}")
+        written = render_poses.main(["--results", out, "--output", os.path.join(tmp, "poses")])
+        if written != n:
+            raise AssertionError(f"render_poses wrote {written} renderings of {n}")
+        parts.append(
+            f"test_net --dataset lov on the {SWITCH_STEPS}-step lov_color_3d snapshot "
+            f"({n} val frames, {eval_s:.1f} s with set-up): every head built, the file's "
+            f"missing {kept[0]} kept at its seeded values and named; "
+            f"{run['images_per_s']:.2f} images/s, "
+            f"{run['detections']} detections, seg mean IoU {summary['seg_mean_iou']:.4f}, "
+            f"launches {launches}; flat, window and tile == plain bit for bit at its Hough's "
+            f"shapes on each of the {len(recorded)} forwards' inputs and on the last lov_color_3d "
+            f"batch's GT inputs (slots, live, samples, peak coarse vote: "
+            + "; ".join(f"{k} {v}" for k, v in shapes.items())
+            + f"), max_abs_err {errs}; render_poses drew {written} results_NNNN.npz")
+
+        # 13.4: check_data and test_synthesis on the flagship yaml
+        t0 = time.perf_counter()
+        check_data.main(["--cfg", TRAIN_CFG, "--num_samples", "2", "--output",
+                         os.path.join(tmp, "check")])
+        check_s = time.perf_counter() - t0
+        images = sorted(os.listdir(os.path.join(tmp, "check")))
+        report = test_synthesis.main(["--cfg", TRAIN_CFG, "--num_samples",
+                                      str(SYNTHESIS_SAMPLES), "--output",
+                                      os.path.join(tmp, "synthesis")])
+        if len(images) != 10 or not report["tz_within_config"]:
+            raise AssertionError(f"check_data wrote {images}; test_synthesis {report}")
+        parts.append(
+            f"check_data on the flagship yaml: {len(images)} images in {check_s:.1f} s; "
+            f"test_synthesis: {report['scenes_per_sec']} scenes/s on this machine's host "
+            f"({SYNTHESIS_SAMPLES} 480x640 scenes), {report['mean_objects_per_scene']:.2f} "
+            f"objects a scene, foreground {report['mean_fg_fraction']:.3f}, tz "
+            f"{[round(z, 3) for z in report['tz_range']]} within the config, quaternion norm "
+            f"error {report['max_quat_norm_err']:.2e}")
+        fab_line = (f"fabricated trees (YCB-Video {SWITCH_FRAMES[0]} + {SWITCH_FRAMES[1]} "
+                    f"frames at 480x640, LINEMOD's indexes and extents) in {fab_s:.1f} s")
+    print(f"phase 13 head switches, GAN step and inspection CLIs on {card}: {fab_line} | "
+          + " | ".join(parts), flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2229,6 +2558,7 @@ def main() -> int:
     real_launches, real_eval_launches = phase_real(card)
     demo_launches = phase_det_demo(card)
     seg_launches = phase_seg_video(device, card)
+    switch_launches = phase_switches_gan(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -2245,7 +2575,8 @@ def main() -> int:
          "bound_ms": bounds[k][0], "bound_by": bounds[k][1], "library_ms": None,
          "test_net_launches": eval_launches[k], "real_train_launches": real_launches[k],
          "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k],
-         "seg_video_launches": seg_launches[k]}
+         "seg_video_launches": seg_launches[k],
+         "switched_test_net_launches": switch_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from posecnn_torch.cli.common import base_parser, head_flags_from_ckpt, load_config, setup_device
-from posecnn_torch.core.checkpoint import restore_params
+from posecnn_torch.core.checkpoint import restore_for_eval
 from posecnn_torch.data.datasets import YCB_CLASS_COLORS, DemoDataset, YCBVideoDataset
 from posecnn_torch.data.minibatch import build_meta_blob
 from posecnn_torch.data.procedural import synthetic_class_library
@@ -84,10 +84,11 @@ def main(argv=None) -> list:
         hough_num_samples=cfg.test.hough_num_samples, max_objects=16,
         vote_threshold=-1.0,  # single instance, as the reference demo
     )
+    # every head; a switched model's checkpoint keeps the seeded values of
+    # the heads it lacks (core/checkpoint.restore_for_eval)
+    init_weights(model, cfg.rng_seed)
     if args.ckpt:
-        print(f"restored checkpoint at step {restore_params(args.ckpt, model)}")
-    else:
-        init_weights(model, cfg.rng_seed)
+        print(f"restored checkpoint at step {restore_for_eval(args.ckpt, model)}")
     model = model.to(device).eval()
     k = ds.intrinsic_matrix
     meta = torch.from_numpy(build_meta_blob(k)[None]).to(device)

@@ -41,6 +41,7 @@ from posecnn_torch.cli.common import (
     load_config,
     setup_device,
 )
+from posecnn_torch.core.checkpoint import restore_for_eval
 from posecnn_torch.engine.evaluate import extract_detections
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
 from posecnn_torch.ops.nms import nms_per_class
@@ -72,12 +73,11 @@ class InferenceEngine:
             hough_num_samples=cfg.test.hough_num_samples,
             max_objects=16,
         )
+        # every head; a switched model's checkpoint keeps the seeded
+        # values of the heads it lacks (core/checkpoint.restore_for_eval)
+        init_weights(model, cfg.rng_seed)
         if ckpt:
-            from posecnn_torch.core.weights import load_jax_checkpoint
-
-            load_jax_checkpoint(model, ckpt)
-        else:
-            init_weights(model, cfg.rng_seed)
+            restore_for_eval(ckpt, model)
         self.model = model.to(self.device).eval()
         self._extents = torch.as_tensor(np.asarray(extents, np.float32), device=self.device)
         self._pixel_means = torch.tensor(cfg.pixel_means, dtype=torch.float32, device=self.device)

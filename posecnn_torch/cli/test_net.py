@@ -33,9 +33,13 @@ optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
 writes it, and under "run" the device, the images/s of the loop and the
 seconds of each stage (render = rendering or reading a frame and making
 its blobs, forward, extract = NMS, detections and RANSAC, icp,
-evaluate), with the number of detections and of refined ones. Weights
-come from `--ckpt` (the JAX `.npz` layout, either package's), else
-seeded random ones (`init_weights`, `rng_seed`).
+evaluate), with the number of detections and of refined ones. The model has
+every head whatever the training switches said (as the JAX test_net
+builds it); its weights come from `--ckpt` (the JAX `.npz` layout, either
+package's, of any posecnn-family model: a seg-only or seg + vertex
+checkpoint keeps the seeded values of the heads it lacks, and a line
+names them, `core/checkpoint.restore_for_eval`), else seeded random ones
+(`init_weights`, `rng_seed`).
 
 `network: posecnn_det` evaluates the detection family instead
 (`detection_eval`, `posecnn_tpu/cli/test_net.py:423-573`): held-out
@@ -76,7 +80,7 @@ from posecnn_torch.cli.common import (
     load_config,
     setup_device,
 )
-from posecnn_torch.core.checkpoint import restore_params
+from posecnn_torch.core.checkpoint import restore_for_eval, restore_params
 from posecnn_torch.data.minibatch import (
     _fit_hw,
     build_image_blobs,
@@ -350,10 +354,12 @@ def main(argv=None) -> dict:
         # a checkpoint trained with the domain head carries its parameters
         adaptation=cfg.train.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
     )
+    # every head, whatever the training switches: a checkpoint of a
+    # switched model keeps the seeded values of the heads it lacks, as the
+    # JAX test_net keeps its template (posecnn_tpu/cli/test_net.py:194-216)
+    init_weights(model, cfg.rng_seed)
     if args.ckpt:
-        print(f"restored checkpoint at step {restore_params(args.ckpt, model)}")
-    else:
-        init_weights(model, cfg.rng_seed)
+        print(f"restored checkpoint at step {restore_for_eval(args.ckpt, model)}")
     model = model.to(device).eval()
     extents_t = torch.from_numpy(np.asarray(geo.extents, np.float32)).to(device)
     points_t = torch.from_numpy(np.ascontiguousarray(points)).to(device)

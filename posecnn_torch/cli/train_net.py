@@ -64,8 +64,24 @@ are colour whatever `input` says (a line says so):
     python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_color_rnn.yaml \
         --iters 200 --output output/rnn
 
-Not ported: `--pretrained` (an ImageNet `vgg16.npy`), the GAN family, and
-data parallelism (`--num_data`).
+The posecnn family's head switches follow the cfg as in the JAX trainer:
+`vertex_reg = train.vertex_reg_2d or train.vertex_reg_3d` builds the
+vertex head (3D vertex regression trains it as 2D does), `train.pose_reg`
+the pose head; seg-only yamls (`rgbd_scene_single_*`, `lov_single_depth`)
+and seg + vertex ones (the LINEMOD `*_3d` and 2D yamls, `lov_color_3d`)
+train with the terms of their heads only. `train.gan`
+(`shapenet_single_single_color_gan.yaml`) trains the PoseCNN as a
+generator against a `FeatureDiscriminator` on [255·vertex map ‖ image]
+(`engine/train.GanTrainStep`, `posecnn_tpu/cli/train_net.py:697-730`):
+`--ckpt` restores the generator, and the snapshots hold the generator's
+parameters, as JAX's do. A GAN yaml without a vertex head
+(`shapenet_single_color_gan.yaml`) raises: the JAX GAN step fails on it.
+
+`--profile DIR` writes a `torch.profiler` Chrome trace of the whole run
+into DIR (`utils/debug.profile_trace`); use it with a small `--iters`.
+
+Not ported: `--pretrained` (an ImageNet `vgg16.npy`) and data parallelism
+(`--num_data`).
 """
 
 from __future__ import annotations
@@ -109,19 +125,25 @@ from posecnn_torch.data.pipeline import (
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator, SyntheticSequenceGenerator
 from posecnn_torch.engine.train import (
     SEG_FAMILIES,
+    GanTrainState,
     TrainState,
     TrainStep,
     check_supported,
     create_train_state,
+    discriminator_optimizer,
     fastforward_opt_counts,
     make_det_train_step,
+    make_gan_train_step,
     make_seg_train_step,
     make_train_step,
     make_video_train_step,
     train_loop,
+    vertex_reg,
 )
 from posecnn_torch.models import PoseCNN, PoseCNNDet
+from posecnn_torch.models.gan import FeatureDiscriminator
 from posecnn_torch.models.posecnn import init_weights
+from posecnn_torch.utils.debug import profile_trace
 
 # the JAX package's top-level parameter modules → the port's (for --reinit)
 _MODULES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head", "vertex_head": "vertex_head",
@@ -135,8 +157,8 @@ class Trainer(NamedTuple):
 
     cfg: Config
     device: torch.device
-    model: torch.nn.Module  # the network family's model
-    state: TrainState
+    model: torch.nn.Module  # the network family's model (the GAN's generator)
+    state: TrainState  # a GanTrainState for the GAN step
     batches: Prefetcher
     points: torch.Tensor  # (C, add_num_points, 3) ADD-loss model points
     extents: torch.Tensor  # (C, 3)
@@ -191,7 +213,7 @@ def _restore(args, model, modules: dict) -> int:
         if not name:
             continue
         prefix = modules.get(name, name)
-        if prefix not in modules.values():
+        if prefix not in modules.values() or getattr(model, prefix, None) is None:
             raise ValueError(f"--reinit {name!r}: no such module; have {sorted(modules)}")
         model.load_state_dict({k_: v for k_, v in fresh.items()
                                if k_.startswith(prefix + ".")}, strict=False)
@@ -283,9 +305,17 @@ def build_trainer(args, cfg: Config) -> Trainer:
             gt_pose_rois=t.gt_pose_rois, pose_pool_size=t.pose_pool_size,
             norm_features=t.norm_features, quat_activation=t.quat_activation,
             adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
-            compute_dtype=compute_dtype,
+            vertex_reg=vertex_reg(cfg), pose_reg=t.pose_reg, compute_dtype=compute_dtype,
         )
     model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device)
+    disc = None
+    if t.gan:
+        # the discriminator scores [255·vertex map ‖ image], in fp32 as the
+        # JAX one is built; --ckpt restored the generator only
+        disc = FeatureDiscriminator(3 * c + 3)
+        init_weights(disc, cfg.rng_seed + 1)
+        disc = disc.to(device)
+        state = GanTrainState(state.opt, state.step, d_opt=discriminator_optimizer(cfg, disc))
 
     if det:
         # train_net_det: one rendered image a step, GT boxes from its label
@@ -347,6 +377,11 @@ def build_trainer(args, cfg: Config) -> Trainer:
         num_workers = 2
     batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8,
                          num_workers=num_workers, device_put=lambda b: to_device(b, device))
+    if disc is not None:
+        # the JAX GAN snapshots record no head metadata
+        step = make_gan_train_step(cfg, model, disc, points, extents, symmetry)
+        return Trainer(cfg, device, model, state, batches, points, extents, symmetry, {},
+                       make_batch_factory, step)
     head_meta = {
         "norm_features": t.norm_features,
         "quat_activation": t.quat_activation,
@@ -461,12 +496,20 @@ def make_parser():
     parser.add_argument("--backgrounds", default=None,
                         help="glob of RGB frames composited behind the renders (default: "
                         "none, uniform noise backgrounds)")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="write a torch.profiler Chrome trace of the whole run into DIR "
+                        "(use with a small --iters)")
     return parser
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     cfg = load_config(args)
+    if args.profile:
+        with profile_trace(args.profile) as path:
+            main_run(args, cfg, args.iters or cfg.train.max_iters)
+        print(f"profiler trace → {path}")
+        return 0
     main_run(args, cfg, args.iters or cfg.train.max_iters)
     return 0
 

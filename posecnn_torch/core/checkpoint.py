@@ -10,7 +10,16 @@ one here, both ways.
 
 `restore_params` is strict where the JAX one keeps its template for a
 missing or reshaped entry: every parameter must be in the file with its
-shape (`core/weights.load_jax_checkpoint`).
+shape (`core/weights.load_jax_checkpoint`). Training's `--ckpt` and
+`--resume` use it.
+
+`restore_for_eval` is what `test_net`, `serve` and `demo` use: they build
+every head, as the JAX CLIs do, and a checkpoint of a switched model (seg
+only, seg + vertex) lacks whole head groups. Where the file lacks every
+parameter of one of `HEAD_GROUPS`, that group keeps the model's seeded
+initial values, as the JAX restore keeps its template, and a line names
+the groups kept. Any other missing key, an extra key or a reshaped one
+raises.
 """
 
 from __future__ import annotations
@@ -22,7 +31,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from posecnn_torch.core.weights import FLAGSHIP_TRUNK, load_jax_checkpoint, params_to_jax
+from posecnn_torch.core.weights import (
+    FLAGSHIP_TRUNK,
+    load_jax_checkpoint,
+    load_npz,
+    params_from_jax,
+    params_to_jax,
+)
+
+# the head groups a switched PoseCNN does not build (models/posecnn.py)
+HEAD_GROUPS = ("vertex_head", "pose_head", "domain_head")
 
 
 def save_params(path: str, model: torch.nn.Module, step: int = 0,
@@ -38,8 +56,34 @@ def save_params(path: str, model: torch.nn.Module, step: int = 0,
 def restore_params(path: str, model: torch.nn.Module) -> int:
     """Load a snapshot into `model` in place; returns its step."""
     load_jax_checkpoint(model, path)
+    return _step(path)
+
+
+def _step(path: str) -> int:
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         return int(data["__step__"]) if "__step__" in data.files else 0
+
+
+def restore_for_eval(path: str, model: torch.nn.Module) -> int:
+    """Load a snapshot into an evaluation model in place, keeping the
+    model's values for each head group the file lacks whole; returns the
+    snapshot's step. Raises on any other missing key, on an extra one and
+    on a shape that differs."""
+    state = params_from_jax(load_npz(path))
+    own = model.state_dict()
+    extra = sorted(set(state) - set(own))
+    in_file = {k.split(".")[0] for k in state}
+    missing = sorted(set(own) - set(state))
+    kept = sorted({k.split(".")[0] for k in missing
+                   if k.split(".")[0] in HEAD_GROUPS and k.split(".")[0] not in in_file})
+    rest = [k for k in missing if k.split(".")[0] not in kept]
+    if extra or rest:
+        raise KeyError(f"{path} does not fit the model: missing {rest[:8]}, "
+                       f"unexpected {extra[:8]}")
+    model.load_state_dict(state, strict=False)  # raises on a shape that differs
+    if kept:
+        print(f"restore: {path} has no {', '.join(kept)}; kept the model's initial values")
+    return _step(path)
 
 
 def snapshot_path(output_dir: str, prefix: str, infix: str, iteration: int) -> str:

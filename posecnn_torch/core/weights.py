@@ -23,7 +23,15 @@ The segmentation and video families keep the JAX module names at any
 depth (`FCN8`'s `score_fr`, `ResNet50Seg`'s
 `params/trunk/stage2_block1/conv1/kernel`, `RecurrentSegNet`'s `fusion/gate`
 and `GRU3DCell`'s `gate`): the path maps to the torch module path
-segment for segment.
+segment for segment. So do the GAN models' (`models/gan.py`:
+`FeatureDiscriminator`'s `conv1`, `conv2`, `logit`; the DCGAN pair's
+`project`, `deconv1-3`, `norm1-3`, `deconv_out`, `conv1-4`); a flax
+`ConvTranspose` kernel (HWIO, not flipped) maps as a conv kernel, and the
+port's module flips it at the call.
+
+A model built with `vertex_reg` or `pose_reg` off has no `vertex_head`,
+`pose_head` or `domain_head` parameters, and neither has the JAX model's
+tree: the key sets stay equal both ways.
 
 The RGBD model has the same keys, with 1024 input channels in the heads'
 conv4/conv5 kernels and p·p·1024 rows in fc6 (and in fc9 with adaptation).
@@ -58,7 +66,11 @@ _MODULE_NAMES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head",
                  "score_pool5": "score_pool5", "score_c3": "score_c3", "score_c4": "score_c4",
                  "score": "score", "score_conv4": "score_conv4", "score_conv5": "score_conv5",
                  "fusion": "fusion", "gate": "gate", "gates": "gates",
-                 "candidate": "candidate", "conv": "conv"}
+                 "candidate": "candidate", "conv": "conv",
+                 # the GAN models (FeatureDiscriminator, the DCGAN pair)
+                 **{name: name for name in ("conv1", "conv2", "conv3", "conv4", "logit",
+                                            "project", "deconv1", "deconv2", "deconv3",
+                                            "deconv_out", "norm1", "norm2", "norm3")}}
 FLAGSHIP_TRUNK = "VGG16Trunk_0"
 # params/<module>[/<layer>…]/<kernel|bias|scale>
 _KEY = re.compile(r"params/([^/]+)((?:/[^/]+)*)/(kernel|bias|scale)")

@@ -38,8 +38,21 @@ video step (`VideoTrainStep`, `:728-757`) trains `RecurrentSegNet` on
 over the sequence, backpropagated through time. Both use the same
 optimizer.
 
-Not ported: the GAN step, 3D vertex regression, the host-RSS handoff and
-multi-device data parallelism.
+The head switches gate the terms as in JAX: the vertex term with
+`vertex_reg_2d or vertex_reg_3d` (3D vertex regression trains the same
+head and term as 2D), the pose, magnitude, matching and domain terms with
+`pose_reg` too; a seg-only model trains on the cross-entropy alone.
+
+The GAN step (`GanTrainStep`, `make_gan_train_step` `:477-623`) trains the
+PoseCNN as a generator against a `models.gan.FeatureDiscriminator` on
+[255·vertex map ‖ image]: the generator's update takes the task losses
+plus `gan_weight · E softplus(−D(fake))` under the cfg's optimizer; then
+the discriminator's takes `gan_losses` of the real (the vertex targets)
+and the detached fake maps under a constant-rate Adam (optax.adam: no
+decay, no clip), both scored by the discriminator as it was before the
+step.
+
+Not ported: the host-RSS handoff and multi-device data parallelism.
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ import torch
 
 from posecnn_torch.core.config import Config
 from posecnn_torch.models.detection import detection_losses
+from posecnn_torch.models.gan import gan_losses
 from posecnn_torch.ops.add_loss import average_distance_loss
 from posecnn_torch.ops.hard_label import hard_label
 from posecnn_torch.ops.losses import (
@@ -75,26 +89,33 @@ FAMILIES = ("posecnn", "posecnn_det") + SEG_FAMILIES + ("recurrent_seg",)
 
 def check_supported(cfg: Config) -> None:
     """Raise on a configuration the port's training path does not run:
-    the posecnn family on COLOR, RGBD, DEPTH or NORMAL input, with 2D
-    vertex and pose regression, and optionally the domain-adaptation and
-    matching losses, trains here; the detection family on COLOR; the
-    segmentation (fcn8, resnet50_seg) and video (recurrent_seg) families
-    on colour frames, whatever the input mode names."""
+    the posecnn family on COLOR, RGBD, DEPTH or NORMAL input, with any of
+    its head switches (seg only, seg + 2D or 3D vertex, + pose), the
+    domain-adaptation and matching losses and the GAN step, trains here;
+    the detection family on COLOR; the segmentation (fcn8, resnet50_seg)
+    and video (recurrent_seg) families on colour frames, whatever the
+    input mode names. The GAN step needs a vertex head: the JAX one
+    multiplies the missing vertex map (`engine/train.py:516-519`) and
+    fails."""
     t = cfg.train
     posecnn = cfg.network == "posecnn"
     unsupported = {
         f"network={cfg.network!r}": cfg.network not in FAMILIES,
         f"input={cfg.input!r}": cfg.input not in (
             ("COLOR",) if cfg.network == "posecnn_det" else INPUTS),
-        "train.gan (the GAN step)": t.gan,
-        "train.vertex_reg_3d": posecnn and t.vertex_reg_3d,
-        "train.vertex_reg_2d=False": posecnn and not t.vertex_reg_2d,
-        "train.pose_reg=False": posecnn and not t.pose_reg,
+        "train.gan without a vertex head (train.vertex_reg_2d and vertex_reg_3d off; the "
+        "JAX GAN step fails on it too)": posecnn and t.gan and not vertex_reg(cfg),
         "train.max_host_rss_gb (the host-RSS handoff)": t.max_host_rss_gb > 0,
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
         raise NotImplementedError("the port's training path does not support: " + ", ".join(bad))
+
+
+def vertex_reg(cfg: Config) -> bool:
+    """Whether the posecnn model has its vertex head: 2D or 3D vertex
+    regression (`posecnn_tpu/cli/train_net.py:557`)."""
+    return bool(cfg.train.vertex_reg_2d or cfg.train.vertex_reg_3d)
 
 
 def lr_schedule(cfg: Config) -> Callable[[int], float]:
@@ -246,25 +267,38 @@ def compute_losses(model, batch: dict, cfg: Config, points, extents, symmetry,
     return _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry)
 
 
+def vertex_targets(batch: dict, cfg: Config):
+    """The batch's dense vertex targets and weights, or those
+    `build_vertex_targets` makes from the sparse feed on the device."""
+    if "vertex_targets" in batch:
+        return batch["vertex_targets"], batch["vertex_weights"]
+    return build_vertex_targets(batch["label"], batch["vertex_centers"], batch["vertex_logz"],
+                                batch["vertex_valid"], weight_inside=cfg.train.vertex_w_inside)
+
+
 def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry):
-    """Total loss and the metrics dict (`engine/train.py:177-309`)."""
+    """Total loss and the metrics dict (`engine/train.py:177-309`): the
+    vertex term with a vertex head, the pose terms with `pose_reg` too."""
     t = cfg.train
     labels_w = hard_label(out.prob, batch["label"], t.threshold_label)
     loss_cls = loss_cross_entropy_single_frame(out.log_prob, labels_w)
     total = loss_cls
     metrics = {"loss_cls": loss_cls}
+    if vertex_reg(cfg):
+        v_targets, v_weights = vertex_targets(batch, cfg)
+        loss_vertex = t.vertex_w * smooth_l1_loss_vertex(out.vertex_pred, v_targets, v_weights)
+        total = total + loss_vertex
+        metrics["loss_vertex"] = loss_vertex
+        if t.pose_reg:
+            total = _pose_terms(out, batch, t, points, symmetry, total, metrics)
+    metrics["loss"] = total
+    return total, {k: v.detach() for k, v in metrics.items()}
 
-    if "vertex_targets" in batch:
-        v_targets, v_weights = batch["vertex_targets"], batch["vertex_weights"]
-    else:
-        v_targets, v_weights = build_vertex_targets(
-            batch["label"], batch["vertex_centers"], batch["vertex_logz"],
-            batch["vertex_valid"], weight_inside=t.vertex_w_inside,
-        )
-    loss_vertex = t.vertex_w * smooth_l1_loss_vertex(out.vertex_pred, v_targets, v_weights)
-    total = total + loss_vertex
-    metrics["loss_vertex"] = loss_vertex
 
+def _pose_terms(out, batch, t, points, symmetry, total, metrics: dict) -> torch.Tensor:
+    """`total` plus the pose head's terms (`engine/train.py:209-306`),
+    added in JAX's order: ADD(-S), the quaternion magnitude, matching and
+    domain; each also goes into `metrics`."""
     hough = out.hough
     # normalise by the weight-carrying valid rows (engine/train.py:211-227)
     weighted_rows = (hough.poses_weight.amax(dim=1) > 0) & hough.valid
@@ -301,9 +335,7 @@ def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry):
         loss_domain = t.adapt_weight * (dom_ce * mask).sum() / (mask.sum() + 1e-10)
         total = total + loss_domain
         metrics["loss_domain"] = loss_domain
-
-    metrics["loss"] = total
-    return total, {k: v.detach() for k, v in metrics.items()}
+    return total
 
 
 def loss_point_scale(points: torch.Tensor, extents: torch.Tensor, symmetry: torch.Tensor,
@@ -362,6 +394,100 @@ def make_train_step(cfg: Config, model, points, extents, symmetry, *,
                     keep_prob: float = 0.5) -> TrainStep:
     check_supported(cfg)
     return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+
+
+@dataclass
+class GanTrainState(TrainState):
+    """The generator's optimizer and the step (`TrainState`), and the
+    discriminator's constant-rate Adam; the parameters live in the two
+    models."""
+
+    d_opt: Optional[torch.optim.Optimizer] = None
+
+
+def discriminator_optimizer(cfg: Config, disc: torch.nn.Module) -> torch.optim.Adam:
+    """optax.adam(learning_rate) over the discriminator: a constant rate,
+    no decay, no clip (`engine/train.py:513`)."""
+    d_params = list(disc.parameters())
+    return torch.optim.Adam(d_params, lr=cfg.train.learning_rate, betas=(ADAM_B1, ADAM_B2),
+                            eps=ADAM_EPS, fused=d_params[0].is_cuda)
+
+
+def create_gan_train_state(cfg: Config, model: torch.nn.Module,
+                           disc: torch.nn.Module) -> GanTrainState:
+    """The cfg's optimizer over the generator (the PoseCNN) and the
+    discriminator's Adam (`engine/train.py:599-623`)."""
+    return GanTrainState(create_optimizer(cfg, list(model.parameters())),
+                         d_opt=discriminator_optimizer(cfg, disc))
+
+
+def discriminator_input(vertex_map: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """[255·vertex map ‖ image] along channels (ref: vgg16_gan.py:151-156)."""
+    return torch.cat([255.0 * vertex_map, data], dim=-1)
+
+
+class GanTrainStep(TrainStep):
+    """One adversarial vertex-map step (`make_gan_train_step`,
+    `engine/train.py:485-577`): `forward` gives the generator's loss (the
+    task losses on the raw class points, as the JAX step passes them, plus
+    `gan_weight` times the non-saturating adversarial term), `backward`
+    and `update` move the generator, and `discriminator` moves the
+    discriminator on the real and the detached fake maps. Both sides see
+    the discriminator as it was before the step. Metrics: the task terms,
+    `loss_g_adv`, `loss_d`, `lr`."""
+
+    def __init__(self, cfg: Config, model, disc, points, extents, symmetry, *,
+                 keep_prob: float = 0.5):
+        super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+        self.disc = disc
+        self.fake = None  # the last forward's vertex map, for the discriminator
+
+    def forward(self, state: GanTrainState, batch: dict):
+        cfg = self.cfg
+        batch = decompress_feed(batch, cfg)
+        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device)
+        out = self.model.train_forward(batch["data"], self.extents, batch["meta"],
+                                       batch["gt_poses"], batch.get("gt_valid"),
+                                       data_p=batch.get("data_p"), keep_prob=self.keep_prob,
+                                       generators=gens)
+        total, metrics = _compose_losses_from_outputs(out, batch, cfg, self.points,
+                                                      self.extents, self.symmetry)
+        # the generator's gradient only: no discriminator weight gradient
+        self.disc.requires_grad_(False)
+        fake_logits = self.disc(discriminator_input(out.vertex_pred, batch["data"]))
+        self.disc.requires_grad_(True)
+        g_adv = torch.nn.functional.softplus(-fake_logits).mean()
+        metrics["loss_g_adv"] = g_adv.detach()
+        self.fake = out.vertex_pred.detach()
+        return total + cfg.train.gan_weight * g_adv, metrics
+
+    def discriminator(self, state: GanTrainState, batch: dict) -> torch.Tensor:
+        """The discriminator's update on `batch` and the last forward's
+        vertex map; returns its loss."""
+        batch = decompress_feed(batch, self.cfg)
+        real, _ = vertex_targets(batch, self.cfg)
+        real_logits = self.disc(discriminator_input(real, batch["data"]))
+        fake_logits = self.disc(discriminator_input(self.fake, batch["data"]))
+        d_loss, _ = gan_losses(real_logits, fake_logits)
+        state.d_opt.zero_grad(set_to_none=True)
+        d_loss.backward()
+        state.d_opt.step()
+        self.fake = None
+        return d_loss.detach()
+
+    def __call__(self, state: GanTrainState, batch: dict) -> dict:
+        total, metrics = self.forward(state, batch)
+        self.backward(total)
+        lr = self.update(state)
+        metrics["loss_d"] = self.discriminator(state, batch)
+        metrics["lr"] = lr
+        return metrics
+
+
+def make_gan_train_step(cfg: Config, model, disc, points, extents, symmetry, *,
+                        keep_prob: float = 0.5) -> GanTrainStep:
+    check_supported(cfg)
+    return GanTrainStep(cfg, model, disc, points, extents, symmetry, keep_prob=keep_prob)
 
 
 def det_noise_generator(seed: int, step: int, device) -> torch.Generator:

@@ -23,6 +23,15 @@ on the CPU) casts each conv's and dense layer's inputs and weights, as
 flax's `dtype=` does. Scores are cast to fp32 before the softmax, the
 vertex map before Hough, and fc8 runs in fp32.
 
+The head switches are the JAX model's: `vertex_reg` builds the vertex
+head and runs Hough, `pose_reg` (with `vertex_reg`) the pose head and,
+with `adaptation`, the domain head; the outputs of a head that is not
+built are None. Seg only (both off) and seg + vertex (`pose_reg` off) are
+the switched yamls' models; 3D vertex regression trains the same vertex
+head (`vertex_reg = vertex_reg_2d or vertex_reg_3d`). `train_forward`
+runs Hough only for the pose head: with `pose_reg` off the JAX model
+computes it and nothing reads it.
+
 Training adds flax-semantics dropout (keep with probability `keep_prob`,
 scale by 1/keep_prob) on the two heads' skip sums, after fc6 and fc7 and
 after fc9, each drawn from its own `torch.Generator` (five streams, where
@@ -50,9 +59,9 @@ class PoseCNNOutputs(NamedTuple):
     prob: torch.Tensor  # (B, H, W, C) softmax
     label_2d: torch.Tensor  # (B, H, W) argmax labels
     vertex_pred: Optional[torch.Tensor]  # (B, H, W, 3C), with full_vertex=True
-    hough: HoughOutputs
-    poses_pred: torch.Tensor  # (R, 4C) masked unit quaternions
-    poses_tanh: torch.Tensor  # (R, 4C) raw fc8 output (after tanh if chosen)
+    hough: Optional[HoughOutputs]  # with vertex_reg (in training, with pose_reg too)
+    poses_pred: Optional[torch.Tensor]  # (R, 4C) masked unit quaternions, with pose_reg
+    poses_tanh: Optional[torch.Tensor]  # (R, 4C) raw fc8 output (after tanh if chosen)
     domain_logits: Optional[torch.Tensor] = None  # (R, 2), with adaptation
 
 
@@ -209,7 +218,8 @@ class PoseCNN(nn.Module):
                  max_pose_rois: int = 0, gt_pose_rois: bool = False,
                  pose_pool_size: int = 7, norm_features: bool = True,
                  quat_activation: str = "linear", adaptation: bool = False,
-                 input_format: str = "COLOR", compute_dtype: torch.dtype = torch.float32):
+                 input_format: str = "COLOR", vertex_reg: bool = True, pose_reg: bool = True,
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         if input_format not in ("COLOR", "RGBD"):
             raise ValueError(f"input_format {input_format!r}: COLOR (one tower, also for the "
@@ -232,14 +242,19 @@ class PoseCNN(nn.Module):
         self.trunk = VGG16Trunk(compute_dtype=compute_dtype)
         self.seg_head = SkipHead(feat, num_units, num_classes, relu_scores=True,
                                  name_prefix="score", compute_dtype=compute_dtype)
-        self.vertex_head = SkipHead(feat, 128, 3 * num_classes, relu_scores=False,
-                                    name_prefix="vertex", return_lowres=True,
-                                    compute_dtype=compute_dtype)
-        self.pose_head = PoseHead(num_classes, pooled_features, fc_dim,
-                                  norm_features=norm_features, quat_activation=quat_activation,
-                                  compute_dtype=compute_dtype)
-        self.domain_head = (DomainHead(pooled_features, compute_dtype=compute_dtype)
-                            if adaptation else None)
+        # the heads the switches build (posecnn.py:284-360); None otherwise
+        self.vertex_head = self.pose_head = self.domain_head = None
+        if vertex_reg:
+            self.vertex_head = SkipHead(feat, 128, 3 * num_classes, relu_scores=False,
+                                        name_prefix="vertex", return_lowres=True,
+                                        compute_dtype=compute_dtype)
+        if vertex_reg and pose_reg:
+            self.pose_head = PoseHead(num_classes, pooled_features, fc_dim,
+                                      norm_features=norm_features,
+                                      quat_activation=quat_activation,
+                                      compute_dtype=compute_dtype)
+            if adaptation:
+                self.domain_head = DomainHead(pooled_features, compute_dtype=compute_dtype)
 
     def features(self, data: torch.Tensor, data_p: Optional[torch.Tensor] = None):
         """(conv4_3, conv5_3) NHWC of the input, or for RGBD of the colour
@@ -270,15 +285,18 @@ class PoseCNN(nn.Module):
         prob = F.softmax(score, dim=-1)
         label_2d = torch.argmax(score, dim=-1)
 
-        vertex_lr = self.vertex_head(conv4_3, conv5_3).float()
-        vertex_pred = bilinear_upsample(vertex_lr, 8) if full_vertex else None
-        hough = hough_voting(label_2d, vertex_lr, extents, meta_data, **self.hough_kw)
-
-        pooled = roi_pool_fused(conv4_3, conv5_3, hough.rois, pooled_size=self.pose_pool_size)
-        poses_pred, poses_tanh = self.pose_head(
-            pooled, _eval_pose_weight(hough, self.num_classes)
-        )
-        domain = self.domain_head(pooled) if self.domain_head is not None else None
+        vertex_pred = hough = poses_pred = poses_tanh = domain = None
+        if self.vertex_head is not None:
+            vertex_lr = self.vertex_head(conv4_3, conv5_3).float()
+            vertex_pred = bilinear_upsample(vertex_lr, 8) if full_vertex else None
+            hough = hough_voting(label_2d, vertex_lr, extents, meta_data, **self.hough_kw)
+        if self.pose_head is not None:
+            pooled = roi_pool_fused(conv4_3, conv5_3, hough.rois,
+                                    pooled_size=self.pose_pool_size)
+            poses_pred, poses_tanh = self.pose_head(
+                pooled, _eval_pose_weight(hough, self.num_classes)
+            )
+            domain = self.domain_head(pooled) if self.domain_head is not None else None
         return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
                               poses_tanh, domain)
 
@@ -290,8 +308,9 @@ class PoseCNN(nn.Module):
         """The training forward (`model.apply(..., train=True)`), with
         autograd. gt_poses (G, 13), gt_valid (G,) bool; `generators` are
         the dropout streams of the seg head, the vertex head, fc6, fc7 and
-        fc9. The vertex map comes back at full resolution; Hough runs with
-        no gradient on the detached labels and 1/8 vertex map."""
+        fc9. The vertex map comes back at full resolution; Hough runs, for
+        the pose head only, with no gradient on the detached labels and 1/8
+        vertex map."""
         conv4_3, conv5_3 = self.features(data, data_p)
         score = self.seg_head(conv4_3, conv5_3, keep_prob=keep_prob,
                               generator=generators[0]).float()
@@ -299,9 +318,14 @@ class PoseCNN(nn.Module):
         prob = F.softmax(score, dim=-1)
         label_2d = torch.argmax(score, dim=-1)
 
-        vertex_lr = self.vertex_head(conv4_3, conv5_3, keep_prob=keep_prob,
-                                     generator=generators[1]).float()
-        vertex_pred = bilinear_upsample(vertex_lr, 8)
+        vertex_pred = hough = poses_pred = poses_tanh = domain = None
+        if self.vertex_head is not None:
+            vertex_lr = self.vertex_head(conv4_3, conv5_3, keep_prob=keep_prob,
+                                         generator=generators[1]).float()
+            vertex_pred = bilinear_upsample(vertex_lr, 8)
+        if self.pose_head is None:
+            return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
+                                  poses_tanh, domain)
         hough = hough_voting(label_2d, vertex_lr, extents, meta_data, gt_poses, gt_valid,
                              is_train=True, **self.hough_kw)
         if self.gt_pose_rois:
@@ -316,7 +340,6 @@ class PoseCNN(nn.Module):
         pooled = roi_pool_fused(conv4_3, conv5_3, hough.rois, pooled_size=self.pose_pool_size)
         poses_pred, poses_tanh = self.pose_head(pooled, hough.poses_weight, keep_prob=keep_prob,
                                                 generators=generators[2:4])
-        domain = None
         if self.domain_head is not None:
             domain = self.domain_head(pooled, keep_prob=keep_prob, generator=generators[4])
         return PoseCNNOutputs(log_prob, prob, label_2d, vertex_pred, hough, poses_pred,
