@@ -8,7 +8,8 @@ nvcc. It drives the port's serving path and stops at the first phase
 that fails, with a non-zero exit:
 
   1. the card's name and power limit; build the CUDA vote kernels and
-     print `ptxas -v`'s registers, shared memory and spills per kernel;
+     print `ptxas -v`'s registers, shared memory and spills per kernel,
+     with the data-path library (`data/native.py`, g++) built beside them;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      serve shapes, on samples packed from a planted 480×640 scene
      (K = 8 slots, S = 1024 samples), and all three at the edge cases
@@ -134,6 +135,26 @@ that fails, with a non-zero exit:
      and bit for bit equal to plain on each forward's inputs;
      `render_poses` on its results; `check_data` and `test_synthesis`
      (scenes/s on the host) on the flagship yaml.
+ 14. the data-path library and what this slice added, at full width: one
+     480×640 textured 22-class scene (the flagship yaml's depth range, YCB's
+     camera, orientation paint) rendered through the C++ loops and through
+     the numpy path, 8 each after a warm-up, splats bit for bit and vertex
+     targets within 1e-6, ms a scene on the host; `write_shards` of 16
+     such scenes and `ShardReader` drawing 64 samples with chromatic jitter
+     and a background pool (scenes/s, samples/s); `train_net` on the
+     flagship yaml (c2f) with `train.max_host_rss_gb` under the process's
+     RSS, which must snapshot at iteration 1 and return, then `--resume`
+     to iteration 3 with the handoff off; `train_net --pretrained` from a
+     Caffe-layout vgg16.npy at VGG16's shapes (seeded): 15 kernels loaded,
+     fc8 skipped, conv1_1 and fc6 equal to the file before 2 steps; in both
+     runs flat and window launched once a step and bit for bit equal to
+     plain on each step's inputs; the overfit guard (`probe_overfit --iters
+     400 --sweep adam:0.0003 --assert_below 15` on a fabricated YCB-Video
+     tree: min and final rotation error, ms a step); `export_coco` of 8
+     rendered scenes and of the tree's frames.
+
+Every scene the script renders goes through the C++ loops of
+`data/native.py`.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -152,6 +173,7 @@ import sys
 import threading
 import time
 import urllib.request
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 import numpy as np
@@ -192,6 +214,14 @@ FUSE_GRID, FUSE_CLASSES = 512, 10
 # test_synthesis renders
 GAN_CFG = "shapenet_single_single_color_gan"
 GAN_STEPS, SWITCH_STEPS, SWITCH_FRAMES, SYNTHESIS_SAMPLES = 4, 3, (4, 2), 8
+# phase 14: renders timed a path; shard scenes written and samples read;
+# the handoff run's and the --pretrained run's steps; the overfit guard
+# at the r6 recipe's settings (finish_round_r6.sh:85-89; JAX's own probe
+# clears 15° on the same fabricated geometry, PERF.md); export_coco's
+# rendered images and the fabricated tree's frames
+RENDERS, SHARD_SCENES, SHARD_READS = 8, 16, 64
+HANDOFF_ITERS, PRETRAINED_STEPS, GUARD_ITERS, GUARD_DEG = 3, 2, 400, 15.0
+COCO_IMAGES, COCO_FRAMES = 8, 4
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -2520,6 +2550,308 @@ def phase_switches_gan(device, card):
     return launches
 
 
+def textured_generator(cfg, seed, native=True):
+    """A 480×640 generator of the 22-class procedural library painted by
+    `colorize_model_library(orient_detail=True)`, through YCB's camera, at
+    the cfg's depth range; the C++ loops or (`native=False`) numpy."""
+    from posecnn_torch.cli.common import YCB_K
+    from posecnn_torch.data.procedural import colorize_model_library, make_procedural_objects
+    from posecnn_torch.data.synthetic import SyntheticSceneGenerator
+
+    proc = make_procedural_objects(NUM_CLASSES, 2620, seed=0)
+    colors, normals = colorize_model_library(proc.points, orient_detail=True)
+    return SyntheticSceneGenerator(proc.points, proc.extents, YCB_K, width=WIDTH, height=HEIGHT,
+                                   t_near=cfg.train.syn_tnear, t_far=cfg.train.syn_tfar,
+                                   pixel_means=cfg.pixel_means, seed=seed, point_colors=colors,
+                                   point_normals=normals, native=native)
+
+
+def render_library_vs_numpy(cfg, seed):
+    """One `textured_generator` scene rendered through the C++ loops and
+    through the numpy path, 1 warm-up and RENDERS timed each; the splats
+    held bit for bit, the dense vertex targets within 1e-6. Returns
+    (library ms, numpy ms a scene, the targets' largest difference)."""
+    gens = [textured_generator(cfg, seed, native) for native in (True, False)]
+    secs, target_err = [0.0, 0.0], 0.0
+    for i in range(RENDERS + 1):
+        scenes = []
+        for j, gen in enumerate(gens):
+            t0 = time.perf_counter()
+            scenes.append(gen.render())
+            if i > 0:  # after the warm-up
+                secs[j] += time.perf_counter() - t0
+        got, want = scenes
+        for name in ("image", "label", "depth", "vertex_weights", "poses", "meta"):
+            if not np.array_equal(getattr(got, name), getattr(want, name)):
+                raise AssertionError(f"render {i}: the library's {name} differs from numpy's")
+        err = float(np.abs(got.vertex_targets - want.vertex_targets).max())
+        if not err <= 1e-6:
+            raise AssertionError(f"render {i}: vertex targets differ by {err} (> 1e-6)")
+        target_err = max(target_err, err)
+        if not (got.label > 0).any():
+            raise AssertionError(f"render {i}: nothing rendered")
+    return 1e3 * secs[0] / RENDERS, 1e3 * secs[1] / RENDERS, target_err
+
+
+def counting_hough(recorded):
+    """`recording_hough`'s stand-in that also keeps each call's kernel
+    launches under `recorded.launches`; returns (the stand-in, the original)."""
+    from posecnn_torch.ops import hough_kernels as hk
+
+    record, original = recording_hough(recorded)
+    recorded.launches = []
+
+    def counted(*args, **kw):
+        before = dict(hk.LAUNCHES)
+        out = record(*args, **kw)
+        recorded.launches.append({k: hk.LAUNCHES[k] - before[k] for k in KERNELS})
+        return out
+
+    return counted, original
+
+
+def recorded_vs_plain(recorded, where):
+    """Each recorded Hough call launched flat and window once, and both
+    (and tile) equal their plain versions on its inputs, bit for bit.
+    Returns the largest error of each kernel."""
+    for i, counts in enumerate(recorded.launches):
+        if counts["flat"] != 1 or counts["window"] != 1:
+            raise AssertionError(f"{where}, step {i + 1}: launches {counts}, not 1 flat and "
+                                 "1 window")
+    extents, kw = recorded.call
+    errs = {k: 0.0 for k in KERNELS}
+    for i, (label, vert, meta) in enumerate(recorded):
+        _, err = kernels_vs_plain(kw, extents, meta, {f"step {i + 1}": (label, vert)}, where)
+        errs = {k: max(errs[k], err[k]) for k in KERNELS}
+    return errs
+
+
+def caffe_vgg16_npy(path, seed, fc_dim=4096):
+    """A Caffe-layout vgg16.npy at VGG16's shapes, seeded random values:
+    13 convs (HWIO), fc6 (25088, fc_dim), fc7 (fc_dim, fc_dim) and the
+    1000-way fc8, each with biases (VGG16's own fc_dim is 4096)."""
+    from posecnn_torch.models.vgg16 import VGG16_STAGES
+
+    rng = np.random.default_rng(seed)
+    data, cin = {}, 3
+    for stage, (cout, n) in enumerate(VGG16_STAGES, start=1):
+        for i in range(1, n + 1):
+            data[f"conv{stage}_{i}"] = {
+                "weights": 0.01 * rng.standard_normal((3, 3, cin, cout), np.float32),
+                "biases": 0.01 * rng.standard_normal(cout, np.float32)}
+            cin = cout
+    for name, shape in (("fc6", (25088, fc_dim)), ("fc7", (fc_dim, fc_dim)),
+                        ("fc8", (fc_dim, 1000))):
+        data[name] = {"weights": 0.001 * rng.standard_normal(shape, np.float32),
+                      "biases": 0.01 * rng.standard_normal(shape[1], np.float32)}
+    np.save(path, data, allow_pickle=True)
+    return data
+
+
+def phase_slice11(card, native_build_s):
+    """Phase 14: the C++ data-path library against the numpy path, the
+    shard store, the host-RSS handoff and --resume, --pretrained, the
+    overfit guard and export_coco. Returns the kernels' launches in its
+    train_net runs (the handoff, the resume and the --pretrained steps)."""
+    import contextlib
+    import io
+    import itertools
+    import tempfile
+
+    import torch
+
+    from posecnn_torch.cli import export_coco, probe_overfit, train_net
+    from posecnn_torch.core.config import cfg_from_file
+    from posecnn_torch.data import ShardReader, write_shards
+    from posecnn_torch.data.fabricate import write_ycb_tree
+    from posecnn_torch.engine.train import host_rss_gb, make_train_step
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+
+    wall0 = time.perf_counter()
+    parts = []
+    cfg = cfg_from_file(TRAIN_CFG)
+    # 14.1: the library against the numpy path
+    lib_ms, numpy_ms, target_err = render_library_vs_numpy(cfg, cfg.rng_seed)
+    parts.append(
+        f"data/native built by g++ in {native_build_s:.2f} s (beside nvcc, phase 1); one 480x640 "
+        f"textured 22-class scene (flagship yaml, YCB camera, orient paint) {lib_ms:.1f} ms "
+        f"through the library, {numpy_ms:.1f} ms through numpy ({numpy_ms / lib_ms:.2f}x; "
+        f"{RENDERS} renders each after a warm-up, this machine's host), splats bit for bit, "
+        f"vertex targets within {target_err:.3g}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 14.2: the shard store
+        gen = textured_generator(cfg, 1)
+        t0 = time.perf_counter()
+        paths = write_shards(gen, os.path.join(tmp, "shards"), SHARD_SCENES, samples_per_shard=8)
+        write_s = time.perf_counter() - t0
+        pool = np.random.default_rng(2).integers(0, 256, (4, HEIGHT, WIDTH, 3), np.uint8)
+        reader = ShardReader(os.path.join(tmp, "shards"), NUM_CLASSES, cfg.pixel_means, seed=3,
+                             chromatic=True, backgrounds=pool)
+        t0 = time.perf_counter()
+        samples = [reader.sample() for _ in range(SHARD_READS)]
+        read_s = time.perf_counter() - t0
+        bad = [i for i, sm in enumerate(samples) if sm["image"].shape != (HEIGHT, WIDTH, 3)
+               or not np.isfinite(sm["image"]).all() or sm["label"].max() >= NUM_CLASSES
+               or not (sm["label"] > 0).any() or sm["poses"].shape[1] != 13]
+        if len(paths) != SHARD_SCENES // 8 or bad:
+            raise AssertionError(f"shards: {len(paths)} files, bad samples {bad[:5]}")
+        parts.append(
+            f"write_shards: {SHARD_SCENES} scenes at 480x640 through the library in "
+            f"{write_s:.2f} s ({SHARD_SCENES / write_s:.2f} scenes/s, {len(paths)} files, "
+            f"{sum(os.path.getsize(p) for p in paths) / 1e6:.1f} MB); ShardReader: "
+            f"{SHARD_READS} samples with chromatic jitter and a 4-frame background pool in "
+            f"{read_s:.2f} s ({SHARD_READS / read_s:.1f} samples/s, this machine's host)")
+
+        # 14.3: the host-RSS handoff, then --resume with it off
+        out = os.path.join(tmp, "handoff")
+        limit = host_rss_gb() / 2  # the RSS only grows from here, so step 1 passes it
+        sets = ["train.hough_backend=auto", "train.display=1"]
+
+        def run_train_net(*flags):
+            argv = ["--cfg", TRAIN_CFG, "--output", out, "--iters", str(HANDOFF_ITERS), *flags]
+            args = train_net.make_parser().parse_args(argv)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                state = train_net.main_run(args, train_net.load_config(args), HANDOFF_ITERS)
+            return state, buf.getvalue(), time.perf_counter() - t0
+
+        recorded = Recorded()
+        counted, original = counting_hough(recorded)
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        posecnn_module.hough_voting = counted
+        try:
+            state, handoff_log, handoff_s = run_train_net(
+                "--set", *sets, f"train.max_host_rss_gb={limit:.3f}")
+            snaps = sorted(os.listdir(out))
+            if state.step != 1 or "snapshotting and exiting" not in handoff_log or not any(
+                    f.endswith("_iter_1.npz") for f in snaps):
+                raise AssertionError(f"handoff: ended at step {state.step}, files {snaps}, "
+                                     f"log tail {handoff_log[-400:]!r}")
+            state, resume_log, resume_s = run_train_net("--resume", "--set", *sets)
+        finally:
+            posecnn_module.hough_voting = original
+        launches = {k: hk.LAUNCHES[k] for k in KERNELS}
+        if state.step != HANDOFF_ITERS or "_iter_1.npz" not in resume_log or (
+                "snapshotting" in resume_log) or len(recorded) != HANDOFF_ITERS:
+            raise AssertionError(f"--resume: ended at step {state.step}, {len(recorded)} steps, "
+                                 f"log tail {resume_log[-400:]!r}")
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            losses = [json.loads(line)["loss"] for line in f]
+        if len(losses) != HANDOFF_ITERS or not np.isfinite(losses).all():
+            raise AssertionError(f"handoff and resume logged {losses}")
+        handoff_errs = recorded_vs_plain(recorded, "the handoff and resume steps")
+        parts.append(
+            f"train_net on the flagship yaml (c2f) with train.max_host_rss_gb={limit:.3f} "
+            f"(half the process's RSS before it): snapshotted at iteration 1 and returned in "
+            f"{handoff_s:.1f} s with set-up; --resume from it to iteration {HANDOFF_ITERS} with "
+            f"the handoff off in {resume_s:.1f} s; losses {[round(x, 4) for x in losses]}; "
+            f"launches {launches}, flat and window once a step and == plain bit for bit on "
+            f"each of the {len(recorded)} steps' inputs, max_abs_err {handoff_errs}")
+        del state, recorded
+        torch.cuda.empty_cache()
+
+        # 14.4: --pretrained from a full-shape Caffe-layout vgg16.npy
+        npy = os.path.join(tmp, "vgg16.npy")
+        argv = ["--cfg", TRAIN_CFG, "--output", os.path.join(tmp, "pretrained"), "--pretrained",
+                npy, "--set", "train.hough_backend=auto"]
+        args = train_net.make_parser().parse_args(argv)
+        run_cfg = train_net.load_config(args)
+        t0 = time.perf_counter()
+        data = caffe_vgg16_npy(npy, 4, run_cfg.train.fc_dim)
+        npy_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            tr = train_net.build_trainer(args, run_cfg)
+        line = next((ln for ln in buf.getvalue().splitlines() if "import_vgg16_npy" in ln), "")
+        try:
+            loaded = line.split("(")[-1].rstrip(")").split(", ")
+            conv = tr.model.trunk.conv1_1.weight.detach().cpu().numpy()
+            fc6 = tr.model.pose_head.fc6.weight.detach().cpu().numpy()
+            if "loaded 15 kernels" not in line or "fc8" in loaded or len(loaded) != 15:
+                raise AssertionError(f"--pretrained: {line!r}")
+            if not (np.array_equal(conv, data["conv1_1"]["weights"].transpose(3, 2, 0, 1))
+                    and np.array_equal(fc6, data["fc6"]["weights"].T)):
+                raise AssertionError("--pretrained: conv1_1 or fc6 differs from the npy")
+            del data, conv, fc6
+            step = make_train_step(tr.cfg, tr.model, tr.points, tr.extents, tr.symmetry)
+            recorded = Recorded()
+            counted, original = counting_hough(recorded)
+            posecnn_module.hough_voting = counted
+            try:
+                pre_ms, pre_launches, pre_metrics, _, _ = timed_steps(
+                    step, tr.state, itertools.islice(tr.batches, PRETRAINED_STEPS))
+            finally:
+                posecnn_module.hough_voting = original
+        finally:
+            tr.batches.close()
+        check_train_steps(pre_launches, pre_metrics)
+        launches = {k: launches[k] + sum(c[k] for c in pre_launches) for k in KERNELS}
+        pre_errs = recorded_vs_plain(recorded, "the --pretrained steps")
+        parts.append(
+            f"--pretrained: a Caffe-layout vgg16.npy at VGG16's shapes (13 convs, fc6 "
+            f"25088x{run_cfg.train.fc_dim}, fc7, fc8 1000-way; seeded) written in {npy_s:.1f} s; {line.strip()} "
+            f"(fc8 skipped); conv1_1 and the pose head's fc6 equal the npy (HWIO -> OIHW, "
+            f"(in, out) -> (out, in)) before the first step; {PRETRAINED_STEPS} steps, ms "
+            f"(CUDA events) {', '.join(f'{x:.2f}' for x in pre_ms)}, loss "
+            f"{float(pre_metrics[-1]['loss']):.4f}, launches a step {pre_launches}, == plain "
+            f"bit for bit, max_abs_err {pre_errs}; launches in phase 14's train_net runs "
+            f"{launches}")
+        del tr, step, recorded
+        torch.cuda.empty_cache()
+
+        # 14.5: the overfit guard at the recipe's settings, on a fabricated tree
+        root = os.path.join(tmp, "lov")
+        t0 = time.perf_counter()
+        write_ycb_tree(root, sets=(("train", COCO_FRAMES),))
+        fab_s = time.perf_counter() - t0
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        out_json = os.path.join(tmp, "guard.json")
+        t0 = time.perf_counter()
+        rc = probe_overfit.main(["--data_root", root, "--iters", str(GUARD_ITERS), "--sweep",
+                                 "adam:0.0003", "--assert_below", str(GUARD_DEG), "--out",
+                                 out_json])
+        guard_s = time.perf_counter() - t0
+        with open(out_json) as f:
+            guard = json.load(f)[0]
+        if rc != 0 or not guard["min_rot_err"] < GUARD_DEG:
+            raise AssertionError(f"overfit guard: rc {rc}, {guard['min_rot_err']} deg")
+        parts.append(
+            f"overfit guard (probe_overfit --iters {GUARD_ITERS} --sweep adam:0.0003 "
+            f"--assert_below {GUARD_DEG}, class 1, 160x160, batch 2, dense Hough; the fabricated "
+            f"tree written in {fab_s:.1f} s): min rotation error {guard['min_rot_err']} deg, "
+            f"final {guard['final_rot_err']} deg, {guard['ms_per_step']:.2f} ms a step, phase "
+            f"wall {guard_s:.1f} s, vote kernel launches {dict(hk.LAUNCHES)}")
+
+        # 14.6: export_coco, rendered and from the tree's frames
+        coco = []
+        for name, argv in (
+                ("synthetic", ["--cfg", TRAIN_CFG, "--dataset", "synthetic", "--data_root",
+                               root, "--num_images", str(COCO_IMAGES)]),
+                ("dataset", ["--dataset", "lov", "--data_root", root, "--num_images", "0"])):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                written = export_coco.main([*argv, "--output", os.path.join(tmp, name)])
+            secs = time.perf_counter() - t0
+            want_images = COCO_IMAGES if name == "synthetic" else COCO_FRAMES
+            if len(written["images"]) != want_images or not written["annotations"] or not (
+                    os.path.exists(os.path.join(tmp, name, "annotations.json"))):
+                raise AssertionError(f"export_coco {name}: {len(written['images'])} images, "
+                                     f"{len(written['annotations'])} annotations")
+            coco.append(f"{name}: {len(written['images'])} images, "
+                        f"{len(written['annotations'])} annotations, "
+                        f"{len(written['categories'])} categories in {secs:.2f} s")
+        parts.append("export_coco " + "; ".join(coco))
+    print(f"phase 14 data-path library, shards, host-RSS handoff, --pretrained, overfit guard "
+          f"and export_coco on {card} (phase wall {time.perf_counter() - wall0:.1f} s): "
+          + " | ".join(parts), flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2531,6 +2863,7 @@ def main() -> int:
         return 2
     try:
         from posecnn_torch.cli.common import setup_device
+        from posecnn_torch.data import native
         from posecnn_torch.ops import _cuda
     except ImportError:
         print("chip_smoke: run it from the repository root (posecnn_torch not found)",
@@ -2542,9 +2875,20 @@ def main() -> int:
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
+    # the data-path library builds with g++ while nvcc builds the kernels
+    def build_native():
+        t = time.perf_counter()
+        native.library()
+        return time.perf_counter() - t
+
     t0 = time.perf_counter()
-    _cuda.library()
-    print(f"phase 1 card {card}; kernels built and loaded in {time.perf_counter() - t0:.1f} s; "
+    with ThreadPoolExecutor(1) as pool:
+        native_future = pool.submit(build_native)
+        _cuda.library()
+        cuda_s = time.perf_counter() - t0
+        native_s = native_future.result()  # raises what the build raised
+    print(f"phase 1 card {card}; kernels built and loaded in {cuda_s:.1f} s, the data-path "
+          f"library (g++) beside them in {native_s:.2f} s; "
           f"ptxas: {json.dumps(ptxas_lines(_cuda.build_report()))}", flush=True)
 
     errs, times, bounds = phase_kernels(device)
@@ -2559,6 +2903,7 @@ def main() -> int:
     demo_launches = phase_det_demo(card)
     seg_launches = phase_seg_video(device, card)
     switch_launches = phase_switches_gan(device, card)
+    slice11_launches = phase_slice11(card, native_s)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -2576,7 +2921,8 @@ def main() -> int:
          "test_net_launches": eval_launches[k], "real_train_launches": real_launches[k],
          "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k],
          "seg_video_launches": seg_launches[k],
-         "switched_test_net_launches": switch_launches[k]}
+         "switched_test_net_launches": switch_launches[k],
+         "slice11_launches": slice11_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

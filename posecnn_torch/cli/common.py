@@ -25,6 +25,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--cfg", dest="cfg_file", default=None, help="config YAML (ref --cfg)")
     p.add_argument("--device", default="cuda",
                    help="torch device; the default 'cuda' fails when no card is present")
+    p.add_argument("--rand", action="store_true",
+                   help="do not fix the rng seed (accepted and not read, as in the JAX CLIs)")
     p.add_argument(
         "--set",
         dest="set_cfgs",

@@ -80,8 +80,14 @@ parameters, as JAX's do. A GAN yaml without a vertex head
 `--profile DIR` writes a `torch.profiler` Chrome trace of the whole run
 into DIR (`utils/debug.profile_trace`); use it with a small `--iters`.
 
-Not ported: `--pretrained` (an ImageNet `vgg16.npy`) and data parallelism
-(`--num_data`).
+`--pretrained NPY` starts the posecnn model from a Caffe-layout ImageNet
+`vgg16.npy` (`core/checkpoint.import_vgg16_npy`: the 13 convs, fc6 and
+fc7; fc8 skipped) before `--ckpt` applies; the GAN, detection,
+segmentation and video trainers ignore it, as JAX's do. With `train.max_host_rss_gb` set (the flagship recipe's 100),
+the posecnn loop snapshots and exits cleanly once the host's RSS passes
+it, for `--resume` to continue.
+
+Not ported: data parallelism (`--num_data`).
 """
 
 from __future__ import annotations
@@ -107,6 +113,7 @@ from posecnn_torch.cli.common import (
     setup_device,
 )
 from posecnn_torch.core.checkpoint import (
+    import_vgg16_npy,
     prune_snapshots,
     restore_params,
     save_params,
@@ -221,10 +228,13 @@ def _restore(args, model, modules: dict) -> int:
     return step0
 
 
-def _initialised(args, cfg: Config, model, modules: dict, device):
-    """`model` with seeded weights, `--ckpt` / `--reinit` applied, on
-    `device`, and its optimizer state at the restored step."""
+def _initialised(args, cfg: Config, model, modules: dict, device, pretrained=None):
+    """`model` with seeded weights, the `pretrained` vgg16.npy and then
+    `--ckpt` / `--reinit` applied, on `device`, and its optimizer state at
+    the restored step."""
     init_weights(model, cfg.rng_seed)
+    if pretrained:
+        import_vgg16_npy(pretrained, model)
     step0 = _restore(args, model, modules)
     model = model.to(device)
     state = create_train_state(cfg, model)
@@ -244,6 +254,11 @@ def build_trainer(args, cfg: Config) -> Trainer:
     check_supported(cfg)
     device = setup_device(args.device)
     t = cfg.train
+    # --pretrained reaches the posecnn trainer only, as in JAX
+    pretrained = args.pretrained if cfg.network == "posecnn" and not t.gan else None
+    if args.pretrained and pretrained is None:
+        print(f"--pretrained: the {cfg.network}{' GAN' if t.gan else ''} trainer loads no "
+              "ImageNet weights, as in the JAX trainer")
     if getattr(args, "resume", False) and not args.ckpt:
         args.ckpt = newest_snapshot(args.output)
         print(f"--resume: using {args.ckpt}" if args.ckpt
@@ -307,7 +322,8 @@ def build_trainer(args, cfg: Config) -> Trainer:
             adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
             vertex_reg=vertex_reg(cfg), pose_reg=t.pose_reg, compute_dtype=compute_dtype,
         )
-    model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device)
+    model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device,
+                                pretrained)
     disc = None
     if t.gan:
         # the discriminator scores [255·vertex map ‖ image], in fp32 as the
@@ -490,6 +506,10 @@ def make_parser():
     parser.add_argument("--resume", action="store_true",
                         help="resume from the newest snapshot under --output (fresh start "
                         "when there is none)")
+    parser.add_argument("--pretrained", default=None, metavar="NPY",
+                        help="Caffe-layout ImageNet vgg16.npy to start the posecnn trunk and "
+                        "the pose head's fc6/fc7 from (fc8 is skipped); the real ImageNet "
+                        "weights are not in this repository")
     parser.add_argument("--reinit", default=None, metavar="MODULES",
                         help="comma-separated top-level modules (e.g. 'pose_head') to "
                         "re-randomize after the --ckpt / --resume restore")

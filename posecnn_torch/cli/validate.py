@@ -311,10 +311,14 @@ def run_checks(device, height=480, width=640, cfg=None):
     return result
 
 
-def main(argv=None) -> int:
+def make_parser():
     p = base_parser("Validate the port's Hough vote kernels and training step on the card")
     p.add_argument("--out", default="output/validate_gpu.json", help="where the JSON line goes")
-    args = p.parse_args(argv)
+    return p
+
+
+def main(argv=None) -> int:
+    args = make_parser().parse_args(argv)
     device = setup_device(args.device)
     try:
         result = {"metric": "gpu_kernel_validation", "value": 1,

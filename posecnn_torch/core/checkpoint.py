@@ -20,6 +20,10 @@ parameter of one of `HEAD_GROUPS`, that group keeps the model's seeded
 initial values, as the JAX restore keeps its template, and a line names
 the groups kept. Any other missing key, an extra key or a reshaped one
 raises.
+
+`import_vgg16_npy` loads a Caffe-exported ImageNet `vgg16.npy` (the
+reference's `Network.load` layout) into a model, as `train_net
+--pretrained` does (`posecnn_tpu/core/checkpoint.py:120-160`).
 """
 
 from __future__ import annotations
@@ -84,6 +88,45 @@ def restore_for_eval(path: str, model: torch.nn.Module) -> int:
     if kept:
         print(f"restore: {path} has no {', '.join(kept)}; kept the model's initial values")
     return _step(path)
+
+
+def import_vgg16_npy(npy_path: str, model: torch.nn.Module) -> int:
+    """Load `vgg16.npy` weights into `model` in place; returns the number
+    of kernels loaded.
+
+    The file is a pickled dict {layer: {'weights': array, 'biases': (O,)}}
+    with conv kernels in HWIO and fc kernels as (in, out): the flax
+    layout. So the match runs as the JAX package's does, on the model's
+    flat flax-layout dict (`params_to_jax`): every entry whose key ends in
+    `<layer>/kernel` (or `/bias`) with the file's shape takes its values,
+    and the dict maps back through `params_from_jax` (HWIO → OIHW,
+    (in, out) → (out, in)). The 13 convs load into the trunk, fc6
+    (25088 × 4096: the 7 × 7 × 512 pool, flattened in the same order) and
+    fc7 into the pose head; fc8, ImageNet's 1000-way classifier, fails
+    the shape check and is skipped. Prints the JAX line "loaded N kernels
+    (names)"."""
+    data = np.load(npy_path, allow_pickle=True, encoding="latin1").item()
+    flat = params_to_jax(model.state_dict(), getattr(model, "JAX_TRUNK", FLAGSHIP_TRUNK))
+    updated = dict(flat)
+    n_kernels, loaded = 0, []
+    for name, entry in data.items():
+        if "weights" not in entry:
+            continue
+        w = np.asarray(entry["weights"], np.float32)
+        b = np.asarray(entry.get("biases", np.zeros(0)), np.float32).reshape(-1)
+        hit = False
+        for key in flat:
+            if key.endswith(f"{name}/kernel") and flat[key].shape == w.shape:
+                updated[key] = w
+                n_kernels += 1
+                hit = True
+            if key.endswith(f"{name}/bias") and flat[key].shape == b.shape:
+                updated[key] = b
+        if hit:
+            loaded.append(name)
+    print(f"import_vgg16_npy: loaded {n_kernels} kernels ({', '.join(sorted(loaded))})")
+    model.load_state_dict(params_from_jax(updated), strict=True)
+    return n_kernels
 
 
 def snapshot_path(output_dir: str, prefix: str, infix: str, iteration: int) -> str:

@@ -20,6 +20,8 @@ YAMLs translate mechanically.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from dataclasses import dataclass, field, fields, replace
 from typing import Any, Optional, Tuple
 
@@ -350,3 +352,15 @@ def cfg_from_dict(overrides: dict, base: Optional[Config] = None) -> Config:
 
 def cfg_to_dict(cfg: Config) -> dict:
     return dataclasses.asdict(cfg)
+
+
+def cfg_to_json(cfg: Config) -> str:
+    return json.dumps(cfg_to_dict(cfg), indent=2, default=str)
+
+
+def get_output_dir(cfg: Config, imdb_name: str, root: str = "output") -> str:
+    """Output directory layout <root>/<exp_dir>/<imdb>, created if absent
+    (ref: get_output_dir lib/fcn/config.py:259-269)."""
+    path = os.path.join(root, cfg.exp_dir, imdb_name)
+    os.makedirs(path, exist_ok=True)
+    return path

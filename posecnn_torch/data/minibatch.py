@@ -5,10 +5,10 @@ The port's numpy copy of `posecnn_tpu/data/minibatch.py` (carried because
 
   generate_vertex_targets — per labelled pixel of class c, channels
     [3c, 3c+1] = unit direction (centre − pixel), 3c+2 = log z; weights
-    `vertex_w_inside` on the 3 channels of labelled pixels. The original's
-    numpy path; the JAX package may run a C++ loop there
-    (`native/blobops.cpp`), which `tests/test_torch_real_minibatch.py`
-    holds equal
+    `vertex_w_inside` on the 3 channels of labelled pixels. Written by the
+    C++ loop of `data/native.py`, as the JAX package's are; `native=False`
+    runs the original's numpy path (fp64 directions rounded once to fp32,
+    within 1e-6 of the loop's fp32 ones)
   build_meta_blob — 48 floats [K(9), K⁻¹(9), pose_world2live(12),
     pose_live2world(12), voxel step(3), voxel min(3)]
   build_pose_blob — (N, 13) rows [batch, cls, centre(2:4), …, quat(6:10), t(10:13)]
@@ -36,17 +36,31 @@ from typing import Optional
 import numpy as np
 
 from posecnn_torch.data.augment import add_noise, chromatic_transform
+from posecnn_torch.data.native import vertex_targets_native
 
 
 def generate_vertex_targets(im_label, cls_indexes, centers, zs, num_classes: int,
-                            vertex_w_inside: float = 10.0):
+                            vertex_w_inside: float = 10.0, native: bool = True):
     """Vertex targets and weights of one image, (H, W, 3C) each. The
-    first instance of a class claims the pixels labelled with it."""
+    first instance of a class claims the pixels labelled with it. `native`
+    picks the C++ loop (per class: the first instance's centre, NaN for an
+    absent class, and its log depth), else the numpy path."""
     h, w = im_label.shape
     targets = np.zeros((h, w, 3 * num_classes), np.float32)
     weights = np.zeros((h, w, 3 * num_classes), np.float32)
     ys, xs = np.nonzero(im_label > 0)
     if len(ys) == 0:
+        return targets, weights
+    if native:
+        cls_centers = np.full((num_classes, 2), np.nan, np.float32)
+        cls_logz = np.zeros((num_classes,), np.float32)
+        for i, cc in enumerate(cls_indexes):
+            ci = int(cc)
+            if 0 < ci < num_classes and np.isnan(cls_centers[ci, 0]):
+                cls_centers[ci] = centers[i]
+                cls_logz[ci] = np.log(max(float(zs[i]), 1e-12))
+        vertex_targets_native(im_label, cls_centers, cls_logz, float(vertex_w_inside),
+                              num_classes, targets, weights)
         return targets, weights
     labels_at = im_label[ys, xs]
     # class id -> instance row (first instance of that class)

@@ -11,9 +11,11 @@ Pose sampling: uniform (random unit quaternion, translation uniform in
 the frustum between `t_near` and `t_far`) or from a per-class pose bank
 with ±0.2 quaternion / ±0.1 m jitter; both with the minimum centre
 separation by rejection. Same seed, same arrays as the original
-(`tests/test_torch_synthetic.py`). The splats are the original's numpy
-paths; the JAX package may run them in C++ (`native/blobops.cpp`),
-which picks the same nearest point per pixel.
+(`tests/test_torch_synthetic.py`). The splats and the dense vertex
+targets run in the C++ loops of `data/native.py`, as the JAX package's
+do; `native=False` runs the original's numpy paths instead (the plain
+version: the same splats bit for bit, the vertex targets within fp32
+rounding).
 
 `pooled_minibatch` is the training feed's replay pool (`:405-445`):
 `fresh` new renders per call, the batch drawn from a rolling pool of
@@ -33,6 +35,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 
 from posecnn_torch.data.minibatch import build_meta_blob, build_pose_blob, generate_vertex_targets
+from posecnn_torch.data.native import splat_points_native, splat_points_rgb_native
 from posecnn_torch.utils.quaternion import axis_angle_to_quat_np, quat_mul_np, quat_to_mat_np
 
 
@@ -77,6 +80,7 @@ class SyntheticSceneGenerator:
         point_normals: Optional[np.ndarray] = None,  # (C, P, 3) unit
         backgrounds: Optional[np.ndarray] = None,  # (N, H, W, 3) BGR 0-255
         background_prob: float = 0.8,
+        native: bool = True,  # the C++ loops of data/native.py; False: numpy
     ):
         self.points = points.astype(np.float32)
         self.extents = extents.astype(np.float32)
@@ -115,6 +119,7 @@ class SyntheticSceneGenerator:
         )
         self.backgrounds = backgrounds
         self.background_prob = background_prob
+        self.native = native
 
     @staticmethod
     def make_class_colors(num_classes: int) -> np.ndarray:
@@ -166,7 +171,6 @@ class SyntheticSceneGenerator:
         shade of the rotated normals; among the points within 1 cm of a
         pixel's nearest depth, the nearest one colours it. Otherwise the
         class colour × a depth shade, nearest point wins."""
-        h, w = depth.shape
         fx, fy = self.k[0, 0], self.k[1, 1]
         px, py = self.k[0, 2], self.k[1, 2]
         r = self.splat_radius
@@ -184,38 +188,61 @@ class SyntheticSceneGenerator:
         u = np.round(fx * pts[ok, 0] / z[ok] + px).astype(np.int64)
         v = np.round(fy * pts[ok, 1] / z[ok] + py).astype(np.int64)
         zok = z[ok].astype(np.float32)
-        offsets = [(du, dv) for dv in range(-r, r + 1) for du in range(-r, r + 1)]
-
-        def splat_points(du, dv, *extra):
-            """Splat pixels of offset (du, dv), in bounds, far to near."""
-            uu, vv = u + du, v + dv
-            inb = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
-            srt = np.argsort(-zok[inb])
-            return tuple(a[inb][srt] for a in (uu, vv, zok, *extra))
-
         if self.point_colors is not None:
             n_cam = (self.point_normals[c] @ rot.T)[ok]
             shade = 0.55 + 0.45 * np.clip(n_cam @ light, 0.0, 1.0)
             rgb = np.clip(self.point_colors[c][ok] * shade[:, None], 0.0, 255.0).astype(np.float32)
-            # pass 1: nearest depth per pixel
-            for du, dv in offsets:
-                ui, vi, zi = splat_points(du, dv)
-                closer = zi < depth[vi, ui]
-                depth[vi[closer], ui[closer]] = zi[closer]
-            # pass 2: the nearest point within the visible band colours
-            eps = 0.01
-            color_z = np.full_like(depth, 1e30)
-            for du, dv in offsets:
-                ui, vi, zi, ci = splat_points(du, dv, rgb)
-                ok2 = (zi <= depth[vi, ui] + eps) & (zi < color_z[vi, ui])
-                ui, vi, zi, ci = ui[ok2], vi[ok2], zi[ok2], ci[ok2]
-                color_z[vi, ui] = zi
-                label[vi, ui] = c
-                image[vi, ui] = ci
-            return
-        for du, dv in offsets:
-            # z-buffer by sorted last-write-wins: far → near
-            ui, vi, zi = splat_points(du, dv)
+            if self.native:
+                splat_points_rgb_native(u, v, zok, rgb, c, r, depth, label, image)
+            else:
+                self._splat_rgb_numpy(c, u, v, zok, rgb, r, depth, label, image)
+        elif self.native:
+            splat_points_native(u, v, zok, c, r, self.class_colors[c], self.t_far, depth, label,
+                                image)
+        else:
+            self._splat_numpy(c, u, v, zok, r, depth, label, image)
+
+    @staticmethod
+    def _offsets(u, v, zok, r, h, w, *extra):
+        """Per splat offset (du, dv): the in-bounds pixels of the points, far
+        to near, and among points at one depth the later point first, so
+        that a last write leaves the nearest point, first in point order."""
+        index = np.arange(len(zok))
+        for dv in range(-r, r + 1):
+            for du in range(-r, r + 1):
+                uu, vv = u + du, v + dv
+                inb = (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+                srt = np.lexsort((-index[inb], -zok[inb]))
+                yield tuple(a[inb][srt] for a in (uu, vv, zok, *extra))
+
+    def _splat_rgb_numpy(self, c, u, v, zok, rgb, r, depth, label, image):
+        """The numpy two-pass visibility splat (`splat_points_rgb`): pass 1
+        the nearest depth per pixel; pass 2 colours each pixel with the
+        nearest point within 1 cm of it and, among points at that depth,
+        the first in point order, as the C++ loop does. (The JAX package's
+        numpy fallback breaks such ties by offset order instead, so its two
+        paths can differ on a pixel where two points meet at one depth.)"""
+        h, w = depth.shape
+        for ui, vi, zi in self._offsets(u, v, zok, r, h, w):
+            closer = zi < depth[vi, ui]
+            depth[vi[closer], ui[closer]] = zi[closer]
+        eps = 0.01
+        color_z = np.full_like(depth, 1e30)
+        color_i = np.full(depth.shape, len(zok), np.int64)
+        for ui, vi, zi, ci, ii in self._offsets(u, v, zok, r, h, w, rgb, np.arange(len(zok))):
+            cz = color_z[vi, ui]
+            ok2 = (zi <= depth[vi, ui] + eps) & ((zi < cz) | ((zi == cz) & (ii < color_i[vi, ui])))
+            ui, vi, zi, ci, ii = ui[ok2], vi[ok2], zi[ok2], ci[ok2], ii[ok2]
+            color_z[vi, ui] = zi
+            color_i[vi, ui] = ii
+            label[vi, ui] = c
+            image[vi, ui] = ci
+
+    def _splat_numpy(self, c, u, v, zok, r, depth, label, image):
+        """The numpy class-colour splat (`splat_points`): z-buffer by
+        sorted last-write-wins, far to near."""
+        h, w = depth.shape
+        for ui, vi, zi in self._offsets(u, v, zok, r, h, w):
             closer = zi < depth[vi, ui]
             ui, vi, zi = ui[closer], vi[closer], zi[closer]
             depth[vi, ui] = zi
@@ -280,7 +307,8 @@ class SyntheticSceneGenerator:
         centers = np.asarray(centers, np.float32)
         zs = np.asarray(zs, np.float32)
         if dense_vertex_targets:
-            targets, weights = generate_vertex_targets(label, used, centers, zs, self.num_classes)
+            targets, weights = generate_vertex_targets(label, used, centers, zs, self.num_classes,
+                                                       native=self.native)
         else:
             targets = weights = None
         v_centers = np.zeros((self.num_classes, 2), np.float32)

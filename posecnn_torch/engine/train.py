@@ -52,7 +52,13 @@ and the detached fake maps under a constant-rate Adam (optax.adam: no
 decay, no clip), both scored by the discriminator as it was before the
 step.
 
-Not ported: the host-RSS handoff and multi-device data parallelism.
+The posecnn loop hands off when the host's resident memory passes
+`train.max_host_rss_gb`: at a display iteration it snapshots and returns,
+so a `--resume` run continues with no iteration lost
+(`engine/train.py:446-458`). As in JAX, the GAN, detection, segmentation
+and video loops do not check it.
+
+Not ported: multi-device data parallelism.
 """
 
 from __future__ import annotations
@@ -105,7 +111,6 @@ def check_supported(cfg: Config) -> None:
             ("COLOR",) if cfg.network == "posecnn_det" else INPUTS),
         "train.gan without a vertex head (train.vertex_reg_2d and vertex_reg_3d off; the "
         "JAX GAN step fails on it too)": posecnn and t.gan and not vertex_reg(cfg),
-        "train.max_host_rss_gb (the host-RSS handoff)": t.max_host_rss_gb > 0,
     }
     bad = [name for name, hit in unsupported.items() if hit]
     if bad:
@@ -356,6 +361,9 @@ class TrainStep:
     calling it runs the three and returns the metrics (tensors on the
     device, plus `lr`)."""
 
+    # train_loop's host-RSS handoff: the posecnn step's alone, as in JAX
+    host_rss_handoff = True
+
     def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5):
         self.cfg = cfg
         self.model = model
@@ -436,6 +444,8 @@ class GanTrainStep(TrainStep):
     the discriminator as it was before the step. Metrics: the task terms,
     `loss_g_adv`, `loss_d`, `lr`."""
 
+    host_rss_handoff = False
+
     def __init__(self, cfg: Config, model, disc, points, extents, symmetry, *,
                  keep_prob: float = 0.5):
         super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
@@ -503,6 +513,8 @@ class DetTrainStep(TrainStep):
     backward and update. batch keys: data (1, H, W, 3), gt_boxes (G, 5),
     gt_poses (G, 13), gt_valid (G,)."""
 
+    host_rss_handoff = False
+
     def __init__(self, cfg: Config, model, points=None, symmetry=None):
         super().__init__(cfg, model, points, None, symmetry)
 
@@ -531,7 +543,10 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
     """Host loop (`engine/train.py:403-462`): one step per batch, the
     metrics every `display` iterations, a snapshot every
     `snapshot_iters`. A restored state continues its numbering. `step`
-    defaults to the posecnn family's."""
+    defaults to the posecnn family's. With `train.max_host_rss_gb` > 0
+    the posecnn step's loop checks the host's RSS at each display
+    iteration and, past the limit, snapshots at that iteration and
+    returns."""
     max_iters = max_iters or cfg.train.max_iters
     step = step or make_train_step(cfg, model, points, extents, symmetry)
     start = state.step
@@ -549,9 +564,29 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
             else:
                 line = ", ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
                 print(f"iter {it + 1}/{max_iters} " + line, flush=True)
+            limit = cfg.train.max_host_rss_gb
+            if limit > 0 and step.host_rss_handoff and (rss := host_rss_gb()) > limit:
+                print(f"host RSS {rss:.1f} GB > {limit} GB — snapshotting and exiting for a "
+                      "clean resume", flush=True)
+                if snapshot_fn is not None:
+                    snapshot_fn(it + 1, state)
+                return state
         if snapshot_fn is not None and (it + 1) % cfg.train.snapshot_iters == 0:
             snapshot_fn(it + 1, state)
     return state
+
+
+def host_rss_gb() -> float:
+    """This process's resident set size in GB (`VmRSS` of
+    /proc/self/status; 0 where there is none)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS"):
+                    return int(line.split()[1]) / 1e6
+    except OSError:
+        pass
+    return 0.0
 
 
 def seg_cross_entropy(log_prob: torch.Tensor, label: torch.Tensor) -> torch.Tensor:
@@ -570,6 +605,8 @@ class SegTrainStep(TrainStep):
     """One segmentation step (`engine/train.py:686-725`): the model's
     log-probs on `data` (B, H, W, 3), the normalised cross-entropy against
     `label` (B, H, W). No dropout: the JAX step passes no keep rate."""
+
+    host_rss_handoff = False
 
     def __init__(self, cfg: Config, model):
         super().__init__(cfg, model, None, None, None)
@@ -599,6 +636,8 @@ def compute_video_losses(model, frames, depths, metas, gt_labels):
 class VideoTrainStep(TrainStep):
     """One video step (`engine/train.py:728-757`): `compute_video_losses`
     on a batch of sequences {image, depth, meta, label}, time-major."""
+
+    host_rss_handoff = False
 
     def __init__(self, cfg: Config, model):
         super().__init__(cfg, model, None, None, None)

@@ -68,6 +68,22 @@ class VGG16Trunk(nn.Module):
         return nhwc(conv4_3), nhwc(x)
 
 
+def bilinear_upsample_kernel(factor: int, channels: int) -> torch.Tensor:
+    """The frozen bilinear deconvolution filter (OIHW, one filter per
+    channel on the diagonal), kernel size 2·factor for stride `factor`
+    (ref: vgg16_convs.py:122,138); the JAX package's is its HWIO form
+    (`posecnn_tpu/models/vgg16.py:57`)."""
+    size = 2 * factor
+    og = torch.arange(size, dtype=torch.float32)
+    center = factor - 0.5 if size % 2 == 0 else factor - 1.0
+    filt_1d = 1.0 - torch.abs(og - center) / factor
+    filt = filt_1d[:, None] * filt_1d[None, :]
+    kernel = torch.zeros((channels, channels, size, size), dtype=torch.float32)
+    idx = torch.arange(channels)
+    kernel[idx, idx] = filt
+    return kernel
+
+
 def bilinear_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Frozen bilinear ×factor upsampling of an NHWC tensor.
 

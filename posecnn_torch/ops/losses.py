@@ -7,10 +7,11 @@
   build_vertex_targets            — dense vertex targets from per-class
                                     centres, on the device
   softmax_cross_entropy_with_logits — sparse CE
+  loss_quaternion                 — weighted 1 − (q·q̂)² (`:67`; no training
+                                    step of the JAX package calls it)
 
 Plain tensor code: elementwise work and reductions, with no product a
-kernel would do better. `loss_quaternion` is not ported: no training step
-of the JAX package calls it.
+kernel would do better.
 """
 
 from __future__ import annotations
@@ -24,6 +25,15 @@ def loss_cross_entropy_single_frame(log_prob: torch.Tensor, labels: torch.Tensor
     one-hot weights from hard_label."""
     ce = -torch.sum(labels * log_prob, dim=-1)
     return torch.sum(ce) / (torch.sum(labels) + 1e-10)
+
+
+def loss_quaternion(pose_pred: torch.Tensor, pose_targets: torch.Tensor,
+                    pose_weights: torch.Tensor) -> torch.Tensor:
+    """1 − (q·q̂)² quaternion distance of (R, 4C) rows, weighted by the
+    rows' mean weight (ref: train.py:468-475)."""
+    distances = 1.0 - torch.square(torch.sum(pose_pred * pose_targets, dim=1))
+    weights = torch.mean(pose_weights, dim=1)
+    return torch.sum(weights * distances) / (torch.sum(weights) + 1e-10)
 
 
 def smooth_l1_loss(bbox_pred, bbox_targets, bbox_inside_weights, bbox_outside_weights,

@@ -9,12 +9,16 @@ Everything is held bit for bit: the image blobs of each input mode
 (COLOR, DEPTH, RGBD, NORMAL), plain, augmented (chromatic and noise from
 one `RandomState` seed) and flipped; the batches of each mode, flipped,
 rescaled, dense and sparse, and the `RandomState` left behind; the
-helpers. The JAX package's dense vertex targets come from its C++ loop
-(`native/blobops.cpp`) where that is built, else from the numpy path the
-port carries: against the numpy path they are equal bit for bit, against
-the C++ loop within 1e-6 (its compiler contracts dx·dx + dy·dy into an
-FMA), as tests/test_torch_synthetic.py holds the renders.
+helpers. The dense vertex targets come from C++ loops in both packages
+(the port's `data/native.py` over its carried `csrc/blobops.cpp`, JAX's
+`native/blobops.cpp`), equal bit for bit; with JAX's library off, the
+port's numpy path (`native=False`) equals JAX's bit for bit. The two
+paths differ by fp32 rounding (1e-6: the C++ loop's compiler contracts
+dx·dx + dy·dy into an FMA), as tests/test_torch_synthetic.py holds the
+renders.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
@@ -70,7 +74,10 @@ def test_image_blobs_match_jax(ycb, mode, flip):
 
 @pytest.mark.parametrize("mode", MODES)
 def test_real_minibatch_matches_jax(ycb, mode, monkeypatch):
+    # the numpy paths on both sides
     monkeypatch.setattr(jnative, "get_lib", lambda: None)
+    monkeypatch.setattr(tmb, "generate_vertex_targets",
+                        partial(tmb.generate_vertex_targets, native=False))
     kw = dict(num_classes=C, height=H, width=W, pixel_means=MEANS, input_mode=mode,
               chromatic=True, noise=True, use_flipped=True, max_gt=12)
     # indices ≥ the frame count select the mirrored copies
@@ -107,18 +114,18 @@ def test_sparse_vertex_targets_build_the_dense_maps(ycb):
 @pytest.mark.parametrize("native", [False, True])
 def test_vertex_targets_equal_the_jax_package(ycb, native, monkeypatch):
     """The port's numpy path against the JAX package's numpy path, and
-    against its C++ loop where that is built."""
-    if not native:
+    the port's C++ loop against JAX's, bit for bit."""
+    if native:
+        assert jnative.get_lib() is not None, "the JAX package's library did not build"
+    else:
         monkeypatch.setattr(jnative, "get_lib", lambda: None)
-    elif jnative.get_lib() is None:
-        pytest.skip("the JAX package's C++ data-path library is not built here")
     for index in ycb.image_index:
         f = ycb.load_frame(index)
         poses = np.transpose(f["poses"], (2, 0, 1))
         args = (f["label"], f["cls_indexes"], f["center"], poses[:, 2, 3].astype(np.float32), C)
-        for got, want in zip(tmb.generate_vertex_targets(*args),
+        for got, want in zip(tmb.generate_vertex_targets(*args, native=native),
                              jmb.generate_vertex_targets(*args)):
-            np.testing.assert_allclose(got, want, rtol=0, atol=1e-6 if native else 0)
+            np.testing.assert_array_equal(got, want)
         assert (want != 0).any()
 
 

@@ -3,11 +3,11 @@
 The port's `data/synthetic.py`, `data/minibatch.py` and the numpy
 quaternion helpers are numpy copies of the JAX package's (which cannot
 be imported by the port: `posecnn_tpu.data` imports jax). With the same
-seed, class library and camera they must give the same arrays. The JAX
-package may run its splat and vertex-target loops in C++
-(`native/blobops.cpp`); with that library switched off the two agree to
-the bit, and with it on the vertex targets differ by fp32 vs fp64
-rounding only (1e-6).
+seed, class library and camera they must give the same arrays. Both run
+their splat and vertex-target loops in C++ by default (the port its
+carried `csrc/blobops.cpp` through `data/native.py`, JAX
+`native/blobops.cpp`), and agree to the bit; with JAX's library switched
+off, the port's numpy path (`native=False`) agrees with JAX's to the bit.
 """
 
 import numpy as np
@@ -26,29 +26,31 @@ C, H, W = 4, 96, 128
 K = np.array([[75.0, 0, W / 2], [0, 75.0, H / 2], [0, 0, 1]], np.float32)
 
 
-def generators(textured, **kw):
+def generators(textured, native=False, **kw):
+    """The port's generator on its C++ loops or its numpy path, and JAX's."""
     lib = synthetic_class_library(C, 512)
     kw = dict(width=W, height=H, seed=11, min_objects=3, max_objects=3, **kw)
     if textured:
         kw.update(point_colors=lib.colors, point_normals=lib.normals)
-    return (SyntheticSceneGenerator(lib.points, lib.extents, K, **kw),
+    return (SyntheticSceneGenerator(lib.points, lib.extents, K, native=native, **kw),
             JaxGenerator(lib.points, lib.extents, K, **kw))
 
 
 @pytest.mark.parametrize("native", [False, True])
 @pytest.mark.parametrize("textured", [True, False])
 def test_minibatch_matches_jax(monkeypatch, textured, native):
-    if not native:
+    """The port's library against JAX's, and the numpy path against JAX
+    with its library off: every array bit for bit."""
+    if native:
+        assert jnative.get_lib() is not None, "the JAX package's library did not build"
+    else:
         monkeypatch.setattr(jnative, "get_lib", lambda: None)
-    gen_t, gen_j = generators(textured)
+    gen_t, gen_j = generators(textured, native)
     got, want = gen_t.minibatch(2), gen_j.minibatch(2)
     assert set(got) == set(want)
     assert got["label"].any()
     for key in got:
-        if key == "vertex_targets" and native:
-            np.testing.assert_allclose(got[key], want[key], rtol=0, atol=1e-6, err_msg=key)
-        else:
-            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+        np.testing.assert_array_equal(got[key], want[key], err_msg=key)
 
 
 def test_sparse_targets_and_pose_bank_match_jax(monkeypatch):
@@ -78,7 +80,7 @@ def test_blob_helpers_match_jax(monkeypatch):
     cls = np.array([2, 1, 2], np.int64)
     centers = (rng.rand(3, 2) * [W, H]).astype(np.float32)
     zs = (rng.rand(3) + 0.5).astype(np.float32)
-    for got, want in zip(tmb.generate_vertex_targets(label, cls, centers, zs, C),
+    for got, want in zip(tmb.generate_vertex_targets(label, cls, centers, zs, C, native=False),
                          jmb.generate_vertex_targets(label, cls, centers, zs, C)):
         np.testing.assert_array_equal(got, want)
     w2l = rng.randn(3, 4).astype(np.float32)

@@ -4,10 +4,8 @@
 The JAX side is called through its `main` with its own flags (these CLIs
 take no `--backgrounds`, so the F1 default does not reach them).
 
-- `check_data`: every image equal, but `NNN-vertex.png`, within one grey
-  level: the JAX generator computes the centre directions in its C++
-  `data/native.py` loop, the port in numpy, and they differ in the last
-  ulp (1.2e-7), which can move a value across a rounding boundary;
+- `check_data`: every image equal, `NNN-vertex.png` too: both generators
+  compute the centre directions in their C++ loops (`data/native.py`);
 - `test_synthesis`: the report equal but for `scenes_per_sec` (a host
   rate), and the saved images equal;
 - `render_poses`: on the port's own artifacts, `test_net --save_results`'s
@@ -48,8 +46,7 @@ def test_check_data_writes_what_jax_writes(tmp_path):
     want, got = images(tmp_path / "jax"), images(tmp_path / "port")
     assert sorted(got) == sorted(want) and len(want) == 10
     for name, w in want.items():
-        diff = np.abs(got[name].astype(int) - w.astype(int)).max()
-        assert diff <= (1 if name.endswith("-vertex.png") else 0), name
+        np.testing.assert_array_equal(got[name], w, err_msg=name)
 
 
 def test_test_synthesis_reports_what_jax_reports(tmp_path):

@@ -154,7 +154,8 @@ def generators():
     k = np.array([[75.0, 0, 48], [0, 75.0, 32], [0, 0, 1]], np.float32)
     kw = dict(width=96, height=64, seed=11, min_objects=2, max_objects=3,
               point_colors=lib.colors, point_normals=lib.normals)
-    return (SyntheticSceneGenerator(lib.points, lib.extents, k, **kw),
+    # the port's numpy path, for JAX's with its library off
+    return (SyntheticSceneGenerator(lib.points, lib.extents, k, native=False, **kw),
             JaxGenerator(lib.points, lib.extents, k, **kw))
 
 

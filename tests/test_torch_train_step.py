@@ -217,16 +217,17 @@ def test_train_step_moves_the_parameters_and_counts_steps():
 
 @pytest.mark.parametrize("override", [
     {"pose_reg": False}, {"vertex_reg_3d": True}, {"vertex_reg_2d": False, "pose_reg": False},
-    {"gan": True}], ids=["seg_vertex", "vertex_3d", "seg_only", "gan"])
+    {"gan": True}, {"max_host_rss_gb": 4.0}],
+    ids=["seg_vertex", "vertex_3d", "seg_only", "gan", "host_rss_handoff"])
 def test_switched_configurations_are_supported(override):
-    """The head switches and the GAN step train (tests/test_torch_head_switches.py,
-    tests/test_torch_gan.py hold them to JAX)."""
+    """The head switches, the GAN step and the host-RSS handoff train
+    (tests/test_torch_head_switches.py, tests/test_torch_gan.py and
+    tests/test_torch_host_rss.py hold them to JAX)."""
     ttrain.check_supported(cfg_from_dict({"train": dict(TRAIN, **override)}))
 
 
 def test_unsupported_configurations_raise():
-    for override in ({"max_host_rss_gb": 4.0},
-                     {"gan": True, "vertex_reg_2d": False, "vertex_reg_3d": False}):
+    for override in ({"gan": True, "vertex_reg_2d": False, "vertex_reg_3d": False},):
         cfg = cfg_from_dict({"train": dict(TRAIN, **override)})
         with pytest.raises(NotImplementedError):
             ttrain.check_supported(cfg)
