@@ -152,6 +152,31 @@ that fails, with a non-zero exit:
      400 --sweep adam:0.0003 --assert_below 15` on a fabricated YCB-Video
      tree: min and final rotation error, ms a step); `export_coco` of 8
      rendered scenes and of the tree's frames.
+ 15. data parallelism on the one card: its ranks are processes on
+     `cuda:0` joined over gloo with CUDA tensors (staged through host
+     memory), an exercise of the data-parallel code on the device, not a
+     scaling figure. (a) fp32, TF32 off, keep_prob 1: one step of the
+     dry run's config (`parallel/dryrun.py`) at 2 ranks × batch 2 against
+     one process at batch 4, then `dryrun_multichip(4)` (DP2×TP2, 4
+     processes), |Δloss| and max|Δparam| held to the CPU tests' 1e-5 and
+     1e-6; (b) the flagship yaml at 2 ranks × 4 images (global batch 8,
+     bf16, adam, GT RoIs prepended) through `cli/train_net.build_trainer`
+     and `parallel/mesh.spawn_ranks`, as `train_net --num_data` runs them,
+     the device map given (both ranks on `cuda:0`, gloo): 3 steps, each
+     with finite losses identical on both ranks, the parameters identical
+     across ranks after it (per-parameter fp64 sums gathered from both,
+     bit for bit), flat and window launched once in each rank and equal
+     to plain bit for bit on that rank's inputs; per rank ms a step split
+     into forward / backward / all-reduce / optimizer (CUDA events) and
+     peak memory; then the same 3 steps through
+     `train_net.launch_data_parallel` with that device map (the CLI's rank
+     path: `train_loop` with the mesh, the recipe's host-RSS limit judged
+     on both ranks every iteration), rank 0's log of 3 iterations with
+     finite losses and its one snapshot; (c) `train_net --num_data 2
+     --device cpu --iters 2` on a tiny cfg in a subprocess: one
+     `metrics.jsonl`, one final snapshot, exit 0; (d) with two cards or more, `train_net --num_data -1` over
+     NCCL on the flagship yaml (images/s beside phase 8's one-card step);
+     with one card a line says it did not run.
 
 Every scene the script renders goes through the C++ loops of
 `data/native.py`.
@@ -222,6 +247,14 @@ GAN_STEPS, SWITCH_STEPS, SWITCH_FRAMES, SYNTHESIS_SAMPLES = 4, 3, (4, 2), 8
 RENDERS, SHARD_SCENES, SHARD_READS = 8, 16, 64
 HANDOFF_ITERS, PRETRAINED_STEPS, GUARD_ITERS, GUARD_DEG = 3, 2, 400, 15.0
 COCO_IMAGES, COCO_FRAMES = 8, 4
+# phase 15: the flagship's global batch 8 over 2 ranks on the one card;
+# the steps each rank takes; the parity bars of tests/test_torch_parallel.py
+DP_RANKS, DP_STEPS, DP_DLOSS, DP_DPARAM = 2, 3, 1e-5, 1e-6
+DP_RSS_GB = 100  # the flagship recipe's host-RSS limit (experiments/run_r6c.sh)
+DP_TOY = ["--set", "train.syn_height=48", "train.syn_width=64", "train.num_classes=4",
+          "train.fc_dim=32", "train.num_units=8", "train.ims_per_batch=2",
+          "train.vertex_reg_2d=True", "train.pose_reg=True", "train.display=1",
+          "train.hough_num_samples=64"]
 # card vs CPU in ICP: tests/test_torch_icp.py's scene rule, by which it
 # holds the port to JAX
 ICP_ATOL_STEP, ICP_ATOL, ICP_SHARE = 1e-4, 2e-3, 0.8
@@ -2852,6 +2885,214 @@ def phase_slice11(card, native_build_s):
     return launches
 
 
+def _dp_flagship_rank(rank, device, out_dir):
+    """One rank of phase 15 (b): the flagship trainer on this rank's share,
+    DP_STEPS steps timed by parts, the checks after each; its results go
+    to `out_dir/<rank>.json`."""
+    import torch
+    import torch.distributed as dist
+
+    from posecnn_torch.cli import train_net
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.parallel.mesh import all_gather, create_mesh
+
+    args = train_net.make_parser().parse_args(
+        ["--cfg", TRAIN_CFG, "--set", "train.hough_backend=auto"])
+    mesh = create_mesh(num_data=DP_RANKS)
+    tr = train_net.build_trainer(args, train_net.load_config(args), mesh=mesh, device=device)
+    step, state = tr.step, tr.state
+    recorded = Recorded()
+    counted, original = counting_hough(recorded)
+    events = {}
+
+    def timed_sync(sync=step.sync_gradients):
+        events["backward_end"].record()
+        sync()
+        events["sync_end"].record()
+
+    step.sync_gradients = timed_sync
+    posecnn_module.hough_voting = counted
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    try:
+        for i in range(DP_STEPS):
+            batch = next(tr.batches)
+            events.update({k: torch.cuda.Event(enable_timing=True)
+                           for k in ("start", "forward_end", "backward_end", "sync_end", "end")})
+            events["start"].record()
+            total, metrics = step.forward(state, batch)
+            events["forward_end"].record()
+            step.backward(total)
+            step.update(state)
+            events["end"].record()
+            torch.cuda.synchronize()
+            names = list(metrics)
+            values = torch.stack([metrics[k].float() for k in names])
+            every = all_gather(values, mesh.world_group)
+            sums = torch.stack([p.detach().double().sum() for p in tr.model.parameters()])
+            every_sum = all_gather(sums, mesh.world_group)
+            ms = [events[a].elapsed_time(events[b]) for a, b in
+                  (("start", "forward_end"), ("forward_end", "backward_end"),
+                   ("backward_end", "sync_end"), ("sync_end", "end"))]
+            rows.append({"metrics": dict(zip(names, values.tolist())),
+                         "same_metrics": bool((every == every[0]).all()),
+                         "same_params": bool((every_sum == every_sum[0]).all()),
+                         "finite": bool(torch.isfinite(values).all()),
+                         "ms": ms, "launches": recorded.launches[-1]})
+    finally:
+        posecnn_module.hough_voting = original
+        tr.batches.close()
+    errs = recorded_vs_plain(recorded, f"phase 15 rank {rank}")
+    bucket = sum(p.numel() for p in tr.model.parameters())
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump({"rows": rows, "errs": errs, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "bucket_mb": bucket * 4 / 1e6, "local_batch": int(batch["data"].shape[0])}, f)
+    dist.barrier()
+
+
+def phase_data_parallel(card):
+    """Phase 15: data parallelism on the card (see the module docstring).
+    Returns each kernel's launches in the flagship ranks' steps, both
+    ranks together."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from posecnn_torch.cli import train_net
+    from posecnn_torch.parallel.dryrun import (
+        dryrun_case,
+        dryrun_multichip,
+        parity,
+        run_ranks,
+        step_once,
+    )
+    from posecnn_torch.parallel.mesh import spawn_ranks
+
+    wall0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    print(f"phase 15 data parallelism on {card}: ranks are processes on the one card over gloo "
+          "with CUDA tensors (staged through host memory), an exercise of the data-parallel "
+          "code on the device, not a scaling figure", flush=True)
+    parts = []
+    # (a) parity, fp32 with TF32 off (setup_device), keep_prob 1
+    case = dryrun_case(4)
+    one = step_once(case, "cuda")
+    many = run_ranks([([case], 2, 1)], devices=["cuda:0"] * 2, backend="gloo")[0][0]
+    dloss, dparam = parity(one, many)
+    tp = dryrun_multichip(4, device="cuda", backend="gloo")
+    for what, dl, dp in (("DP2", dloss, dparam), ("DP2xTP2", tp["dloss"], tp["dparam"])):
+        if not (dl <= DP_DLOSS and dp <= DP_DPARAM):
+            raise AssertionError(f"phase 15 {what} parity: |dloss| {dl}, max|dparam| {dp} over "
+                                 f"{DP_DLOSS} / {DP_DPARAM}")
+    parts.append(
+        f"(a) dry-run config fp32, 2 ranks x batch 2 vs one process at batch 4: |dloss| "
+        f"{dloss:.3g}, max|dparam| {dparam:.3g}; dryrun_multichip(4) DP2xTP2: |dloss| "
+        f"{tp['dloss']:.3g}, max|dparam| {tp['dparam']:.3g} (bars {DP_DLOSS} / {DP_DPARAM}; "
+        "MULTICHIP_r05 at DP4xTP2 on 8 virtual CPU devices: 3.81e-06 / 7.41e-08)")
+    # (b) the flagship step, 2 ranks x 4 on cuda:0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn_ranks(_dp_flagship_rank, DP_RANKS, (tmp,), devices=["cuda:0"] * DP_RANKS,
+                    backend="gloo", rendezvous_dir=tmp)
+        flagship_s = time.perf_counter() - t0
+        ranks = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(tmp, f"{r}.json")) as f:
+                ranks.append(json.load(f))
+    launches = {k: 0 for k in KERNELS}
+    for r, res in enumerate(ranks):
+        for i, row in enumerate(res["rows"]):
+            if not (row["finite"] and row["same_metrics"] and row["same_params"]):
+                raise AssertionError(f"phase 15 rank {r} step {i + 1}: finite {row['finite']}, "
+                                     f"metrics equal across ranks {row['same_metrics']}, "
+                                     f"parameters equal {row['same_params']}")
+            for k in KERNELS:
+                launches[k] += row["launches"][k]
+    per_rank = []
+    for r, res in enumerate(ranks):
+        split = np.array([row["ms"] for row in res["rows"]])
+        per_rank.append(
+            f"rank {r}: forward / backward / all-reduce / optimizer ms "
+            + "; ".join(" / ".join(f"{v:.2f}" for v in step_ms) for step_ms in split)
+            + f", peak {res['peak_gb']:.2f} GB, flat / window max_abs_err "
+            f"{res['errs']['flat']} / {res['errs']['window']}")
+    m = ranks[0]["rows"][-1]["metrics"]
+    parts.append(
+        f"(b) flagship yaml, {DP_RANKS} ranks x {ranks[0]['local_batch']} images (global 8, "
+        f"bf16, adam, GT RoIs), {DP_STEPS} steps in {flagship_s:.1f} s with set-up: losses "
+        f"finite and equal on both ranks, parameters equal across ranks after every step (fp64 "
+        f"sums, bit for bit), flat / window {launches['flat']} / {launches['window']} launches "
+        f"(once a step a rank), bit for bit equal to plain; all-reduce bucket "
+        f"{ranks[0]['bucket_mb']:.1f} MB fp32; last step loss {m['loss']:.4f}, num_pose_rois "
+        f"{m['num_pose_rois']:.0f}; " + " | ".join(per_rank))
+    # (b) then the CLI's own rank path on the same yaml and device map:
+    # train_loop(mesh=) with the recipe's RSS limit judged on both ranks at
+    # every iteration, rank 0 alone logging and snapshotting
+    with tempfile.TemporaryDirectory() as tmp:
+        args = train_net.make_parser().parse_args(
+            ["--cfg", TRAIN_CFG, "--iters", str(DP_STEPS), "--output", tmp, "--set",
+             "train.hough_backend=auto", "train.display=1",
+             f"train.max_host_rss_gb={DP_RSS_GB}"])
+        t0 = time.perf_counter()
+        train_net.launch_data_parallel(args, train_net.load_config(args), DP_STEPS, DP_RANKS,
+                                       devices=["cuda:0"] * DP_RANKS, backend="gloo")
+        launch_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        snaps = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+    iters = [row["iter"] for row in logged]
+    if iters != list(range(1, DP_STEPS + 1)) or len(snaps) != 1 or not snaps[0].endswith(
+            f"_iter_{DP_STEPS}.npz") or not all(np.isfinite(row["loss"]) for row in logged):
+        raise AssertionError(f"phase 15 (b) launch_data_parallel: logged iterations {iters}, "
+                             f"losses {[row['loss'] for row in logged]}, snapshots {snaps}")
+    parts.append(
+        f"(b) the same yaml through train_net.launch_data_parallel ({DP_RANKS} ranks on cuda:0 "
+        f"over gloo, train_loop with the mesh, train.max_host_rss_gb={DP_RSS_GB} judged on both "
+        f"ranks every iteration): {DP_STEPS} steps in {launch_s:.1f} s with set-up, rank 0's "
+        f"log of iterations {iters}, losses "
+        + ", ".join(f"{row['loss']:.4f}" for row in logged)
+        + f", one snapshot ({snaps[0]})")
+    # (c) the CLI on the CPU, 2 gloo processes
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli = subprocess.run([sys.executable, "-m", "posecnn_torch.cli.train_net", "--device",
+                              "cpu", "--num_data", "2", "--iters", "2", "--output", tmp,
+                              *DP_TOY], capture_output=True, text=True, timeout=600,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        cli_s = time.perf_counter() - t0
+        snaps = sorted(f for f in os.listdir(tmp) if f.endswith(".npz"))
+        logged = open(os.path.join(tmp, "metrics.jsonl")).read().splitlines() if os.path.exists(
+            os.path.join(tmp, "metrics.jsonl")) else []
+        if cli.returncode != 0 or snaps != ["posecnn_iter_2.npz"] or len(logged) != 2:
+            raise AssertionError(f"phase 15 (c): rc {cli.returncode}, snapshots {snaps}, "
+                                 f"{len(logged)} log lines; {cli.stderr[-2000:]}")
+    parts.append(f"(c) train_net --num_data 2 --device cpu --iters 2 (48x64 toy): exit 0 in "
+                 f"{cli_s:.1f} s, 2 log lines, one snapshot ({snaps[0]})")
+    # (d) NCCL across cards, where the machine has them
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        parts.append("phase 15 (d) not run: 1 card")
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable, "-m", "posecnn_torch.cli.train_net", "--cfg",
+                            TRAIN_CFG, "--num_data", "-1", "--iters", "6", "--output", tmp,
+                            "--set", "train.hough_backend=auto", "train.display=1"],
+                           check=True, timeout=900, cwd=os.path.dirname(os.path.abspath(__file__)))
+            with open(os.path.join(tmp, "metrics.jsonl")) as f:
+                s_per_iter = [json.loads(line)["s_per_iter"] for line in f][-1]
+        batch = max(8, cards) // cards * cards  # the flagship's batch 8, rounded to the ranks
+        parts.append(f"(d) train_net --num_data -1 over NCCL on {cards} cards, flagship yaml: "
+                     f"{batch / s_per_iter:.1f} images/s over 6 steps (phase 8: one card), "
+                     f"{time.perf_counter() - t0:.1f} s")
+    print(f"phase 15 data parallelism on {card} (phase wall {time.perf_counter() - wall0:.1f} "
+          "s): " + " | ".join(parts), flush=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2904,6 +3145,7 @@ def main() -> int:
     seg_launches = phase_seg_video(device, card)
     switch_launches = phase_switches_gan(device, card)
     slice11_launches = phase_slice11(card, native_s)
+    dp_launches = phase_data_parallel(card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -2922,7 +3164,7 @@ def main() -> int:
          "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k],
          "seg_video_launches": seg_launches[k],
          "switched_test_net_launches": switch_launches[k],
-         "slice11_launches": slice11_launches[k]}
+         "slice11_launches": slice11_launches[k], "dp_launches": dp_launches[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

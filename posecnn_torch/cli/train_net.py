@@ -87,7 +87,34 @@ segmentation and video trainers ignore it, as JAX's do. With `train.max_host_rss
 the posecnn loop snapshots and exits cleanly once the host's RSS passes
 it, for `--resume` to continue.
 
-Not ported: data parallelism (`--num_data`).
+`--num_data N` trains the posecnn family (and its GAN step) data-parallel
+over N ranks (`posecnn_tpu/cli/train_net.py:358,540-550`); the default -1
+takes every card, so a machine with one card, or `--device cpu` without
+the flag, runs one process as before:
+
+    # every card of the machine, one rank per card over NCCL
+    python -m posecnn_torch.cli.train_net --cfg experiments/cfgs/lov_color_2d_pool_full.yaml \
+        --num_data -1 --iters 200 --output output/train_dp
+
+    # N processes on the CPU over gloo (any N)
+    python -m posecnn_torch.cli.train_net --device cpu --num_data 2 --iters 2 \
+        --output output/toy_dp --set train.syn_height=96 train.syn_width=128 ...
+
+The CLI spawns the ranks itself (`parallel/mesh.spawn_ranks`): rank r on
+`cuda:r` with NCCL, or on the CPU with gloo, joined through a file
+rendezvous under `--output`. More ranks than cards raise JAX's `needs …
+devices` error before any CUDA call. The global batch
+`train.ims_per_batch` is rounded down to a multiple of N (at least N) and
+sizes `max_objects`; each rank renders B/N images (8 GT rows each), its
+synthetic workers seeded `rng_seed + 1000·(r·W + w + 1)` for worker w of
+W (rank 0 keeps the one-process seeds), its real frames split by
+`ShuffledIndexer(process_index=r, process_count=N)` as JAX's hosts split
+them, and its synthetic stream beside them seeded `rng_seed + 1000·r`
+past rank 0. The ranks compute JAX's global-batch step
+(`engine/train.py`); rank 0 alone writes `metrics.jsonl` and the
+snapshots, and under `--resume` every rank restores the same newest
+snapshot (each looks before its first step, when none can be written). The detection, segmentation and video trainers dispatch before the
+mesh in JAX and run one process here too (a line says so).
 """
 
 from __future__ import annotations
@@ -98,7 +125,7 @@ import json
 import os
 import re
 import sys
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -150,7 +177,10 @@ from posecnn_torch.engine.train import (
 from posecnn_torch.models import PoseCNN, PoseCNNDet
 from posecnn_torch.models.gan import FeatureDiscriminator
 from posecnn_torch.models.posecnn import init_weights
+from posecnn_torch.parallel.mesh import Mesh, create_mesh, spawn_ranks
 from posecnn_torch.utils.debug import profile_trace
+
+FEED_WORKERS = 2  # prefetch threads rendering synthetic batches
 
 # the JAX package's top-level parameter modules → the port's (for --reinit)
 _MODULES = {"VGG16Trunk_0": "trunk", "seg_head": "seg_head", "vertex_head": "vertex_head",
@@ -228,16 +258,16 @@ def _restore(args, model, modules: dict) -> int:
     return step0
 
 
-def _initialised(args, cfg: Config, model, modules: dict, device, pretrained=None):
+def _initialised(args, cfg: Config, model, modules: dict, device, pretrained=None, mesh=None):
     """`model` with seeded weights, the `pretrained` vgg16.npy and then
     `--ckpt` / `--reinit` applied, on `device`, and its optimizer state at
-    the restored step."""
+    the restored step (every rank of a mesh starts from the same)."""
     init_weights(model, cfg.rng_seed)
     if pretrained:
         import_vgg16_npy(pretrained, model)
     step0 = _restore(args, model, modules)
     model = model.to(device)
-    state = create_train_state(cfg, model)
+    state = create_train_state(cfg, model, mesh)
     state.step = step0
     if args.ckpt:
         # the staircase and Adam's bias correction follow the global step
@@ -245,14 +275,18 @@ def _initialised(args, cfg: Config, model, modules: dict, device, pretrained=Non
     return model, state
 
 
-def build_trainer(args, cfg: Config) -> Trainer:
+def build_trainer(args, cfg: Config, *, mesh: Optional[Mesh] = None,
+                  device: Optional[torch.device] = None) -> Trainer:
     """The model, optimizer state, prefetching feed, loss geometry and
     train step of a training run, with `--ckpt` / `--resume` and
     `--reinit` applied; `network: posecnn_det` gets the detection model
     and step, fcn8 / resnet50_seg the segmentation ones and recurrent_seg
-    the video ones."""
+    the video ones. With a data-parallel `mesh` (the posecnn family), this
+    rank's trainer on `device` (default `--device`): its share of the
+    global batch, its feed seeds, the mesh's step."""
     check_supported(cfg)
-    device = setup_device(args.device)
+    device = setup_device(str(device) if device is not None else args.device)
+    rank = mesh.data_index if mesh is not None else 0
     t = cfg.train
     # --pretrained reaches the posecnn trainer only, as in JAX
     pretrained = args.pretrained if cfg.network == "posecnn" and not t.gan else None
@@ -296,12 +330,18 @@ def build_trainer(args, cfg: Config) -> Trainer:
     def synthetic_factory(produce):
         def make_batch_factory(worker_id):
             g = copy.deepcopy(gen)
-            g.rng = np.random.RandomState(cfg.rng_seed + 1000 * (worker_id + 1))
+            g.rng = np.random.RandomState(
+                cfg.rng_seed + 1000 * (rank * FEED_WORKERS + worker_id + 1))
             return lambda: produce(g)
 
         return make_batch_factory
 
+    # the global batch, rounded to the data axis (JAX's :540-550), sizes
+    # max_objects; each rank renders its share
     batch_size = t.ims_per_batch
+    if mesh is not None:
+        batch_size = max(batch_size, mesh.data_size) // mesh.data_size * mesh.data_size
+    local_batch = batch_size // (mesh.data_size if mesh is not None else 1)
     if cfg.network in SEG_FAMILIES + ("recurrent_seg",):
         if cfg.input != "COLOR":
             print(f"input {cfg.input}: the {cfg.network} trainer feeds colour frames, as the "
@@ -323,7 +363,7 @@ def build_trainer(args, cfg: Config) -> Trainer:
             vertex_reg=vertex_reg(cfg), pose_reg=t.pose_reg, compute_dtype=compute_dtype,
         )
     model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device,
-                                pretrained)
+                                pretrained, mesh)
     disc = None
     if t.gan:
         # the discriminator scores [255·vertex map ‖ image], in fp32 as the
@@ -337,12 +377,12 @@ def build_trainer(args, cfg: Config) -> Trainer:
         # train_net_det: one rendered image a step, GT boxes from its label
         # map, the ADD pose term on the unscaled class points
         factory = synthetic_factory(lambda g: det_targets(g.render(dense_vertex_targets=False)))
-        batches = Prefetcher(make_batch_factory=factory, queue_size=8, num_workers=2,
-                             device_put=lambda b: to_device(b, device))
+        batches = Prefetcher(make_batch_factory=factory, queue_size=8,
+                             num_workers=FEED_WORKERS, device_put=lambda b: to_device(b, device))
         return Trainer(cfg, device, model, state, batches, points, extents, symmetry, {},
                        factory, make_det_train_step(cfg, model, points, symmetry))
 
-    max_gt = 8 * batch_size
+    max_gt = 8 * local_batch
     pixel_means = np.asarray(cfg.pixel_means, np.float32)
     # the uint8 feed only where the step never reads depth
     compact = t.compact_feed and cfg.input == "COLOR" and not t.vertex_reg_3d and (
@@ -358,29 +398,34 @@ def build_trainer(args, cfg: Config) -> Trainer:
 
     def syn_batch(g):
         if t.syn_pool_size > 0:
-            return syn_to_mode(g.pooled_minibatch(batch_size, max_gt=max_gt,
+            return syn_to_mode(g.pooled_minibatch(local_batch, max_gt=max_gt,
                                                   dense_vertex_targets=False,
                                                   pool_size=t.syn_pool_size,
                                                   fresh=t.syn_pool_fresh))
-        return syn_to_mode(g.minibatch(batch_size, max_gt=max_gt, dense_vertex_targets=False))
+        return syn_to_mode(g.minibatch(local_batch, max_gt=max_gt, dense_vertex_targets=False))
 
     if has_real_frames(ds):
         # the real and synthetic streams share the sampler, the index and
         # the augmentation draws: one producer, in the JAX feed's order
         indexer = ShuffledIndexer(len(ds.image_index) * (2 if t.use_flipped else 1),
-                                  seed=cfg.rng_seed)
+                                  seed=cfg.rng_seed, process_index=rank,
+                                  process_count=mesh.data_size if mesh is not None else 1)
         streams = ["real"] + (["syn"] if t.synthesize else [])
         sampler = RatioSampler(streams, [1, t.syn_ratio][: len(streams)])
         data_rng = np.random.RandomState(cfg.rng_seed)
+        real_gen = gen
+        if rank:  # the ranks' synthetic scenes must differ
+            real_gen = copy.deepcopy(gen)
+            real_gen.rng = np.random.RandomState(cfg.rng_seed + 1000 * rank)
 
         def make_real_batch():
             if sampler.next_stream() == "real":
                 return get_real_minibatch(
-                    ds, indexer.next_batch(batch_size), num_classes=c, height=train_h,
+                    ds, indexer.next_batch(local_batch), num_classes=c, height=train_h,
                     width=train_w, pixel_means=pixel_means, input_mode=cfg.input, rng=data_rng,
                     chromatic=t.chromatic, noise=t.add_noise, use_flipped=t.use_flipped,
                     max_gt=max_gt, scale=scale_base, dense_vertex_targets=False)
-            return syn_batch(gen)
+            return syn_batch(real_gen)
 
         def make_batch_factory(worker_id):
             if worker_id != 0:
@@ -390,12 +435,12 @@ def build_trainer(args, cfg: Config) -> Trainer:
         num_workers = 1
     else:
         make_batch_factory = synthetic_factory(syn_batch)
-        num_workers = 2
+        num_workers = FEED_WORKERS
     batches = Prefetcher(make_batch_factory=make_batch_factory, queue_size=8,
                          num_workers=num_workers, device_put=lambda b: to_device(b, device))
     if disc is not None:
         # the JAX GAN snapshots record no head metadata
-        step = make_gan_train_step(cfg, model, disc, points, extents, symmetry)
+        step = make_gan_train_step(cfg, model, disc, points, extents, symmetry, mesh=mesh)
         return Trainer(cfg, device, model, state, batches, points, extents, symmetry, {},
                        make_batch_factory, step)
     head_meta = {
@@ -407,7 +452,8 @@ def build_trainer(args, cfg: Config) -> Trainer:
         "train_scale_base": scale_base,
     }
     return Trainer(cfg, device, model, state, batches, points, extents, symmetry, head_meta,
-                   make_batch_factory, make_train_step(cfg, model, points, extents, symmetry))
+                   make_batch_factory,
+                   make_train_step(cfg, model, points, extents, symmetry, mesh=mesh))
 
 
 def _seg_trainer(args, cfg: Config, device, gen, ds, c: int, compute_dtype,
@@ -425,7 +471,7 @@ def _seg_trainer(args, cfg: Config, device, gen, ds, c: int, compute_dtype,
     model, state = _initialised(args, cfg, model,
                                 {name: name for name, _ in model.named_children()}, device)
 
-    num_workers = 2
+    num_workers = FEED_WORKERS
     if cfg.network != "recurrent_seg":
         def seg_batch(g):
             b = g.minibatch(batch_size, dense_vertex_targets=False)
@@ -460,11 +506,15 @@ def _seg_trainer(args, cfg: Config, device, gen, ds, c: int, compute_dtype,
     return Trainer(cfg, device, model, state, batches, *geometry, {}, make_batch_factory, step)
 
 
-def main_run(args, cfg: Config, max_iters: int) -> TrainState:
-    tr = build_trainer(args, cfg)
+def main_run(args, cfg: Config, max_iters: int, *, mesh: Optional[Mesh] = None,
+             device: Optional[torch.device] = None) -> TrainState:
+    """Train and snapshot; with a `mesh`, this rank's part of the run (rank
+    0 alone writes the log and the snapshots)."""
+    tr = build_trainer(args, cfg, mesh=mesh, device=device)
     cfg = tr.cfg
+    chief = mesh is None or mesh.rank == 0
     os.makedirs(args.output, exist_ok=True)
-    log_f = open(os.path.join(args.output, "metrics.jsonl"), "a")
+    log_f = open(os.path.join(args.output, "metrics.jsonl"), "a") if chief else None
 
     def log_fn(it_num, metrics):
         metrics["iter"] = it_num
@@ -484,14 +534,62 @@ def main_run(args, cfg: Config, max_iters: int) -> TrainState:
         state = train_loop(cfg, tr.model, tr.state, tr.batches, tr.points, tr.extents,
                            tr.symmetry, max_iters=max_iters, log_fn=log_fn,
                            snapshot_fn=lambda it, _: print(f"snapshot → {snapshot(it)}"),
-                           step=tr.step)
+                           step=tr.step, mesh=mesh)
     finally:
         tr.batches.close()
-        log_f.close()
+        if log_f is not None:
+            log_f.close()
     # the final snapshot is labelled with the step reached (a resumed run
     # may have started at or beyond max_iters)
-    print(f"done → {snapshot(state.step)}")
+    if chief:
+        print(f"done → {snapshot(state.step)}")
     return state
+
+
+def num_data_ranks(num_data: int, device: str, num_devices: Optional[int] = None) -> int:
+    """The data-parallel ranks `--num_data` asks for: on the cards -1 is
+    every card (`torch.cuda.device_count()` unless `num_devices` is given;
+    no CUDA context is made), and more ranks than cards raise JAX's
+    `create_mesh` error; on the CPU any N is N processes, and -1 one."""
+    if num_data == 0 or num_data < -1:
+        raise ValueError(f"--num_data {num_data}: give a positive count or -1 (every card)")
+    if torch.device(device).type != "cuda":
+        return max(num_data, 1)
+    have = torch.cuda.device_count() if num_devices is None else num_devices
+    n = have if num_data == -1 else num_data
+    if n > have:
+        raise ValueError(f"mesh {n}×1 needs {n} devices, have {have}")
+    return max(n, 1)
+
+
+def _rank_main(rank: int, device: torch.device, args, cfg: Config, max_iters: int,
+               num_ranks: int) -> None:
+    mesh = create_mesh(num_data=num_ranks)
+    if args.profile and rank == 0:
+        with profile_trace(args.profile) as path:
+            main_run(args, cfg, max_iters, mesh=mesh, device=device)
+        print(f"profiler trace of rank 0 → {path}")
+        return
+    main_run(args, cfg, max_iters, mesh=mesh, device=device)
+
+
+def launch_data_parallel(args, cfg: Config, max_iters: int, num_ranks: int, *,
+                         devices=None, backend: Optional[str] = None) -> None:
+    """`main_run` on `num_ranks` spawned ranks (`parallel/mesh.spawn_ranks`):
+    by default rank r on `cuda:r` over NCCL, or on the CPU over gloo with
+    the host's threads shared out; `devices` and `backend` override the
+    map (`chip_smoke.py` puts two ranks on one card over gloo). A rank's
+    failure raises here with its traceback. Each rank resolves `--resume`
+    in `build_trainer`, before its first all-reduce and so before rank 0
+    can write a snapshot: every rank restores the same file."""
+    cuda = torch.device(args.device).type == "cuda"
+    devices = devices or [f"cuda:{r}" if cuda else "cpu" for r in range(num_ranks)]
+    threads = 0 if cuda else max(1, torch.get_num_threads() // num_ranks)
+    print(f"--num_data {num_ranks}: {num_ranks} ranks on {', '.join(map(str, devices))}",
+          flush=True)
+    spawn_ranks(_rank_main, num_ranks, (args, cfg, max_iters, num_ranks), devices=devices,
+                backend=backend or ("nccl" if cuda else "gloo"), rendezvous_dir=args.output,
+                num_threads=threads)
 
 
 def make_parser():
@@ -518,13 +616,28 @@ def make_parser():
                         "none, uniform noise backgrounds)")
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler Chrome trace of the whole run into DIR "
-                        "(use with a small --iters)")
+                        "(use with a small --iters; rank 0's with --num_data)")
+    parser.add_argument("--num_data", type=int, default=-1,
+                        help="data-parallel ranks of the posecnn trainer: -1 = every card "
+                        "(one process on the CPU), N = N ranks (N processes over gloo "
+                        "with --device cpu)")
     return parser
 
 
 def main(argv=None) -> int:
     args = make_parser().parse_args(argv)
     cfg = load_config(args)
+    if cfg.network != "posecnn":
+        num_ranks = 1
+        if args.num_data not in (-1, 1):
+            print(f"--num_data: the {cfg.network} trainer runs in one process (JAX's "
+                  "dispatches before its mesh)")
+    else:
+        num_ranks = num_data_ranks(args.num_data, args.device)
+    if num_ranks > 1:
+        os.makedirs(args.output, exist_ok=True)
+        launch_data_parallel(args, cfg, args.iters or cfg.train.max_iters, num_ranks)
+        return 0
     if args.profile:
         with profile_trace(args.profile) as path:
             main_run(args, cfg, args.iters or cfg.train.max_iters)

@@ -2,8 +2,9 @@
 
 `RatioSampler` interleaves the real and synthetic streams at integer
 ratios; `ShuffledIndexer` gives each epoch's frames in a seeded shuffled
-order, sharded across processes (process 0 of 1 until data parallel).
-Both are the original's, draw for draw.
+order, sharded across processes (a data-parallel rank's `process_index`
+of `process_count`, as JAX's hosts split them). Both are the original's,
+draw for draw.
 
 `Prefetcher`: worker threads produce minibatches into a bounded queue
 while the device runs the step; each worker has its own producer (own
@@ -13,7 +14,8 @@ host feed sets the pace of training. A worker's exception is raised to
 the consumer.
 
 `compact_feed`: the uint8 image and label that `engine/train.decompress_feed`
-undoes on the device, with depth dropped.
+undoes on the device, with depth dropped. `make_sharded_device_put`: a
+data-parallel rank's share of a global batch on its device.
 """
 
 from __future__ import annotations
@@ -160,3 +162,41 @@ def compact_feed(batch: dict, pixel_means) -> dict:
 def to_device(batch: dict, device) -> dict:
     """A host batch of numpy arrays as tensors on `device`."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+def make_sharded_device_put(mesh=None, replicated_keys=("gt_poses", "gt_valid"), *,
+                            device="cuda") -> Callable[[dict], dict]:
+    """The device_put hook of a data-parallel rank (`posecnn_tpu/data/
+    pipeline.py:162-185`): `to_device` without a mesh; with one, this
+    rank's share of a GLOBAL host batch of B images: rows [d·B/N,
+    (d+1)·B/N) of every key with a leading batch axis, for data rank d of
+    N. The GT rows (`replicated_keys`, replicated in JAX) are not handed
+    over whole: the port's Hough clamps their image index (column 0) to
+    the local batch, so the rank keeps the rows whose image falls in its
+    range, in their order, renumbered from 0, and pads back to the global
+    G rows with `gt_valid` False, so shapes stay those of the global
+    batch. Every feed of the repository emits GT rows image by image,
+    which keeps the ranks' rows in the global order."""
+    if mesh is None:
+        return lambda batch: to_device(batch, device)
+    gt_key, valid_key = replicated_keys
+
+    def put(batch: dict) -> dict:
+        b, n = batch["data"].shape[0], mesh.data_size
+        if b % n:
+            raise ValueError(f"global batch {b} not divisible by the data axis {n}")
+        lo, hi = mesh.data_index * b // n, (mesh.data_index + 1) * b // n
+        out = {k: v[lo:hi] if v.shape[:1] == (b,) else v for k, v in batch.items()
+               if k not in replicated_keys}
+        gt = np.asarray(batch[gt_key], np.float32)
+        valid = np.asarray(batch.get(valid_key, np.ones(gt.shape[0], bool)))
+        mine = (gt[:, 0] >= lo) & (gt[:, 0] < hi)
+        local = np.zeros_like(gt)
+        local[: mine.sum()] = gt[mine]
+        local[: mine.sum(), 0] -= lo
+        local_valid = np.zeros_like(valid)
+        local_valid[: mine.sum()] = valid[mine]
+        out[gt_key], out[valid_key] = local, local_valid
+        return to_device(out, device)
+
+    return put

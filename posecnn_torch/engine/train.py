@@ -58,7 +58,23 @@ so a `--resume` run continues with no iteration lost
 (`engine/train.py:446-458`). As in JAX, the GAN, detection, segmentation
 and video loops do not check it.
 
-Not ported: multi-device data parallelism.
+Data parallelism (`parallel/mesh.py`; the JAX step with `mesh=`,
+`:349-399`): with a `Mesh` of N data ranks, each rank steps on its share
+of the global batch and the ranks together compute JAX's global-batch
+step. Every loss term divides its local numerator by its normaliser
+summed over the data group (the clamp and epsilon on the global count),
+so the local totals sum to the global loss; the reported metrics are the
+global values on every rank. After `backward`, before the optimizer adds
+the weight decay, the gradients are summed (not averaged) over the data
+group in one flat bucket, which gives the global-batch gradient. Data rank
+d ≥ 1 draws its dropout from `SeedSequence([seed, step, d])` (rank 0 keeps
+the one-card streams); the ranks of one model group share theirs. The GAN
+step's softplus means are over equal local batches: each is scaled by
+1/N, so the summed gradients are those of the global mean. Under tensor
+parallelism (`param_sharding`) the clip's norm counts each fc6/fc7 shard
+once. The loop decides the host-RSS handoff on all ranks together and
+logs and snapshots on rank 0. With no mesh, or a world of one, nothing
+of this runs: no collective, local normalisers, the same streams.
 """
 
 from __future__ import annotations
@@ -84,6 +100,15 @@ from posecnn_torch.ops.losses import (
 )
 from posecnn_torch.ops.matching_loss import roi_matching_loss
 from posecnn_torch.ops.rpn import target_noise
+from posecnn_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    any_rank,
+    loss_reduce,
+    reduce_gradients,
+    tp_partial_params,
+    tp_sharded_params,
+)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -151,11 +176,16 @@ class Optimizer:
     their `.grad` (`posecnn_tpu/engine/train.py:108-125`). The decay and
     the clip rewrite the gradients in place; `torch.optim.SGD` (dampening
     0, the same trace as optax's) or `torch.optim.Adam` (the same
-    bias-corrected moments; fused on the card) takes the last step."""
+    bias-corrected moments; fused on the card) takes the last step.
+    `sharded` are tensor-parallel shards whose squares the clip's norm sums
+    over `shard_group` (each shard counted once)."""
 
     def __init__(self, params: Sequence[torch.Tensor], *, kind: str, schedule: Callable,
-                 weight_decay: float = 0.0, grad_clip: float = 0.0, momentum: float = 0.9):
+                 weight_decay: float = 0.0, grad_clip: float = 0.0, momentum: float = 0.9,
+                 sharded: Sequence[torch.Tensor] = (), shard_group=None):
         self.params = list(params)
+        self.sharded = {id(p) for p in sharded}
+        self.shard_group = shard_group
         self.schedule = schedule
         self.weight_decay = weight_decay
         self.decayed = [p for p, m in zip(self.params, _weight_mask(self.params)) if m]
@@ -183,7 +213,10 @@ class Optimizer:
         if self.grad_clip > 0:
             # clip_by_global_norm: where(norm < max, g, g / norm · max)
             g = [p.grad for p in self.params]
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
+            if self.sharded:
+                norm = self._sharded_norm()
+            else:
+                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(g)))
             keep = norm < self.grad_clip
             torch._foreach_div_(g, torch.where(keep, torch.ones_like(norm), norm))
             torch._foreach_mul_(g, torch.where(keep, 1.0, self.grad_clip).to(norm))
@@ -192,6 +225,15 @@ class Optimizer:
         self.opt.step()
         self.count += 1
         return lr
+
+    def _sharded_norm(self) -> torch.Tensor:
+        """The global norm with the shards' squares summed over their group."""
+        def sq(grads):
+            return torch.stack(torch._foreach_norm(grads)).square().sum()
+
+        whole = sq([p.grad for p in self.params if id(p) not in self.sharded])
+        shards = sq([p.grad for p in self.params if id(p) in self.sharded])
+        return torch.sqrt(whole + all_reduce_sum(shards, self.shard_group))
 
 
 def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
@@ -215,10 +257,12 @@ def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
     return opt
 
 
-def create_optimizer(cfg: Config, params: Sequence[torch.Tensor]) -> Optimizer:
+def create_optimizer(cfg: Config, params: Sequence[torch.Tensor], *,
+                     sharded: Sequence[torch.Tensor] = (), shard_group=None) -> Optimizer:
     t = cfg.train
     return Optimizer(params, kind=t.optimizer.lower(), schedule=lr_schedule(cfg),
-                     weight_decay=t.weight_reg, grad_clip=t.grad_clip, momentum=t.momentum)
+                     weight_decay=t.weight_reg, grad_clip=t.grad_clip, momentum=t.momentum,
+                     sharded=sharded, shard_group=shard_group)
 
 
 @dataclass
@@ -229,8 +273,13 @@ class TrainState:
     step: int = 0
 
 
-def create_train_state(cfg: Config, model: torch.nn.Module) -> TrainState:
-    return TrainState(create_optimizer(cfg, list(model.parameters())))
+def create_train_state(cfg: Config, model: torch.nn.Module,
+                       mesh: Optional[Mesh] = None) -> TrainState:
+    """The optimizer over `model`'s parameters (after `param_sharding`
+    with a tensor-parallel mesh) at step 0."""
+    shard_group = mesh.model_group if mesh is not None else None
+    return TrainState(create_optimizer(cfg, list(model.parameters()),
+                                       sharded=tp_sharded_params(model), shard_group=shard_group))
 
 
 def decompress_feed(batch: dict, cfg: Config) -> dict:
@@ -246,30 +295,35 @@ def decompress_feed(batch: dict, cfg: Config) -> dict:
     return b
 
 
-def dropout_generators(seed: int, step: int, device) -> list[torch.Generator]:
+def dropout_generators(seed: int, step: int, device, data_rank: int = 0) -> list[torch.Generator]:
     """The five dropout streams of one step (seg head, vertex head, fc6,
-    fc7, fc9), seeded from (seed, step). `generate_state` gives a prefix
-    of the same words for fewer streams, so the first four are those of
-    a model without the domain head."""
-    states = np.random.SeedSequence([seed, step]).generate_state(5)
+    fc7, fc9), seeded from (seed, step), and from (seed, step, data_rank)
+    on a data-parallel rank past the first, whose images must not repeat
+    rank 0's masks. `generate_state` gives a prefix of the same words for
+    fewer streams, so the first four are those of a model without the
+    domain head."""
+    entropy = [seed, step] if data_rank == 0 else [seed, step, data_rank]
+    states = np.random.SeedSequence(entropy).generate_state(5)
     return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
 
 
 def compute_losses(model, batch: dict, cfg: Config, points, extents, symmetry,
                    generators: Sequence[Optional[torch.Generator]] = (None,) * 5,
-                   keep_prob: float = 0.5):
+                   keep_prob: float = 0.5, mesh: Optional[Mesh] = None):
     """Training forward + loss composition. batch keys: data (B, H, W, 3),
     label (B, H, W), meta (B, 48), gt_poses (G, 13), gt_valid (G,), and
     either vertex_targets / vertex_weights (B, H, W, 3C) or the sparse
     vertex_centers / vertex_logz / vertex_valid; data_p (B, H, W, 3) for
     RGBD; data and label may be uint8 (`compact_feed`). `keep_prob` is
     the dropout keep rate (the JAX step fixes 0.5; 1 switches dropout
-    off)."""
+    off). With a data-parallel `mesh`, `batch` is this rank's share and
+    the losses and metrics are its share of the global batch's."""
     batch = decompress_feed(batch, cfg)
     out = model.train_forward(batch["data"], extents, batch["meta"], batch["gt_poses"],
                               batch.get("gt_valid"), data_p=batch.get("data_p"),
-                              keep_prob=keep_prob, generators=generators)
-    return _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry)
+                              keep_prob=keep_prob, generators=generators, mesh=mesh)
+    return _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry,
+                                        loss_reduce(mesh))
 
 
 def vertex_targets(batch: dict, cfg: Config):
@@ -281,33 +335,45 @@ def vertex_targets(batch: dict, cfg: Config):
                                 batch["vertex_valid"], weight_inside=cfg.train.vertex_w_inside)
 
 
-def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry):
+def _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry,
+                                 reduce: Optional[Callable] = None):
     """Total loss and the metrics dict (`engine/train.py:177-309`): the
-    vertex term with a vertex head, the pose terms with `pose_reg` too."""
+    vertex term with a vertex head, the pose terms with `pose_reg` too.
+    `reduce` (`parallel/mesh.loss_reduce`) sums each term's normaliser and
+    then the metrics over a data-parallel group: the total is this rank's
+    share of the global loss, the metrics the global values."""
     t = cfg.train
     labels_w = hard_label(out.prob, batch["label"], t.threshold_label)
-    loss_cls = loss_cross_entropy_single_frame(out.log_prob, labels_w)
+    loss_cls = loss_cross_entropy_single_frame(out.log_prob, labels_w, reduce)
     total = loss_cls
     metrics = {"loss_cls": loss_cls}
     if vertex_reg(cfg):
         v_targets, v_weights = vertex_targets(batch, cfg)
-        loss_vertex = t.vertex_w * smooth_l1_loss_vertex(out.vertex_pred, v_targets, v_weights)
+        loss_vertex = t.vertex_w * smooth_l1_loss_vertex(out.vertex_pred, v_targets, v_weights,
+                                                         reduce=reduce)
         total = total + loss_vertex
         metrics["loss_vertex"] = loss_vertex
         if t.pose_reg:
-            total = _pose_terms(out, batch, t, points, symmetry, total, metrics)
+            total = _pose_terms(out, batch, t, points, symmetry, total, metrics, reduce)
     metrics["loss"] = total
-    return total, {k: v.detach() for k, v in metrics.items()}
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if reduce is not None:
+        # one all-reduce for every metric: shares and counts sum to the global values
+        summed = reduce(torch.stack([v.float() for v in metrics.values()]))
+        metrics = dict(zip(metrics, summed.unbind()))
+    return total, metrics
 
 
-def _pose_terms(out, batch, t, points, symmetry, total, metrics: dict) -> torch.Tensor:
+def _pose_terms(out, batch, t, points, symmetry, total, metrics: dict,
+                reduce: Optional[Callable] = None) -> torch.Tensor:
     """`total` plus the pose head's terms (`engine/train.py:209-306`),
     added in JAX's order: ADD(-S), the quaternion magnitude, matching and
-    domain; each also goes into `metrics`."""
+    domain; each also goes into `metrics` (the counts this rank's)."""
     hough = out.hough
     # normalise by the weight-carrying valid rows (engine/train.py:211-227)
     weighted_rows = (hough.poses_weight.amax(dim=1) > 0) & hough.valid
-    num_weighted = weighted_rows.float().sum()
+    local_weighted = weighted_rows.float().sum()
+    num_weighted = local_weighted if reduce is None else reduce(local_weighted)
     loss_pose = t.pose_w * average_distance_loss(
         out.poses_pred, hough.poses_target, hough.poses_weight, points, symmetry,
         margin=0.01, num_valid=num_weighted,
@@ -315,7 +381,7 @@ def _pose_terms(out, batch, t, points, symmetry, total, metrics: dict) -> torch.
     total = total + loss_pose
     metrics["loss_pose"] = loss_pose
     metrics["num_rois"] = hough.valid.float().sum()
-    metrics["num_pose_rois"] = num_weighted
+    metrics["num_pose_rois"] = local_weighted
 
     if t.qmag_w > 0:
         masked = out.poses_tanh * hough.poses_weight
@@ -330,14 +396,15 @@ def _pose_terms(out, batch, t, points, symmetry, total, metrics: dict) -> torch.
         # against the GT label mask at 1/8 (engine/train.py:264-291)
         loss_match, _ = roi_matching_loss(hough.rois, out.poses_pred, hough.poses_init,
                                           hough.poses_weight, hough.valid, batch["label"],
-                                          batch["meta"], points)
+                                          batch["meta"], points, reduce=reduce)
         total = total + loss_match
         metrics["loss_match"] = loss_match
 
     if t.adapt and out.domain_logits is not None:
         dom_ce = softmax_cross_entropy_with_logits(out.domain_logits, hough.domains.long())
         mask = hough.valid.float()
-        loss_domain = t.adapt_weight * (dom_ce * mask).sum() / (mask.sum() + 1e-10)
+        num_valid = mask.sum() if reduce is None else reduce(mask.sum())
+        loss_domain = t.adapt_weight * (dom_ce * mask).sum() / (num_valid + 1e-10)
         total = total + loss_domain
         metrics["loss_domain"] = loss_domain
     return total
@@ -359,31 +426,47 @@ def loss_point_scale(points: torch.Tensor, extents: torch.Tensor, symmetry: torc
 class TrainStep:
     """One training step: `forward` (losses), `backward`, `update`;
     calling it runs the three and returns the metrics (tensors on the
-    device, plus `lr`)."""
+    device, plus `lr`). With a `mesh` it is one rank's part of the
+    data-parallel step: `backward` also sums the gradients over the data
+    group (`parallel/mesh.reduce_gradients`)."""
 
     # train_loop's host-RSS handoff: the posecnn step's alone, as in JAX
     host_rss_handoff = True
 
-    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5):
+    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model = model
         self.points = points
         self.extents = extents
         self.symmetry = symmetry
         self.keep_prob = keep_prob
+        self.mesh = mesh
+
+    @property
+    def data_rank(self) -> int:
+        return self.mesh.data_index if self.mesh is not None else 0
 
     def forward(self, state: TrainState, batch: dict):
         """(total loss, metrics) of `batch` at the state's step."""
         cfg = self.cfg
-        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device)
+        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device, self.data_rank)
         pts, sym = loss_point_scale(self.points, self.extents, self.symmetry,
                                     state.step >= cfg.train.symsize)
         return compute_losses(self.model, batch, cfg, pts, self.extents, sym, gens,
-                              keep_prob=self.keep_prob)
+                              keep_prob=self.keep_prob, mesh=self.mesh)
 
     def backward(self, total: torch.Tensor) -> None:
         self.model.zero_grad(set_to_none=True)
         total.backward()
+        self.sync_gradients()
+
+    def sync_gradients(self) -> None:
+        """With a mesh, sum the gradients over the data group (and the
+        column-parallel biases over the model group)."""
+        if self.mesh is not None:
+            reduce_gradients(list(self.model.parameters()), self.mesh,
+                             tp_partial_params(self.model))
 
     def update(self, state: TrainState) -> float:
         """The optimizer update; returns the learning rate it used."""
@@ -399,9 +482,9 @@ class TrainStep:
 
 
 def make_train_step(cfg: Config, model, points, extents, symmetry, *,
-                    keep_prob: float = 0.5) -> TrainStep:
+                    keep_prob: float = 0.5, mesh: Optional[Mesh] = None) -> TrainStep:
     check_supported(cfg)
-    return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+    return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob, mesh=mesh)
 
 
 @dataclass
@@ -447,43 +530,56 @@ class GanTrainStep(TrainStep):
     host_rss_handoff = False
 
     def __init__(self, cfg: Config, model, disc, points, extents, symmetry, *,
-                 keep_prob: float = 0.5):
-        super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+                 keep_prob: float = 0.5, mesh: Optional[Mesh] = None):
+        super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob, mesh=mesh)
         self.disc = disc
         self.fake = None  # the last forward's vertex map, for the discriminator
+
+    def _global_mean(self, local_mean: torch.Tensor) -> torch.Tensor:
+        """A mean over this rank's images as its share of the mean over the
+        global batch: the ranks' batches are equal, so 1/N of it."""
+        return local_mean if loss_reduce(self.mesh) is None else local_mean / self.mesh.data_size
+
+    def _metric(self, value: torch.Tensor) -> torch.Tensor:
+        reduce = loss_reduce(self.mesh)
+        return value.detach() if reduce is None else reduce(value.detach())
 
     def forward(self, state: GanTrainState, batch: dict):
         cfg = self.cfg
         batch = decompress_feed(batch, cfg)
-        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device)
+        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device, self.data_rank)
         out = self.model.train_forward(batch["data"], self.extents, batch["meta"],
                                        batch["gt_poses"], batch.get("gt_valid"),
                                        data_p=batch.get("data_p"), keep_prob=self.keep_prob,
-                                       generators=gens)
+                                       generators=gens, mesh=self.mesh)
         total, metrics = _compose_losses_from_outputs(out, batch, cfg, self.points,
-                                                      self.extents, self.symmetry)
+                                                      self.extents, self.symmetry,
+                                                      loss_reduce(self.mesh))
         # the generator's gradient only: no discriminator weight gradient
         self.disc.requires_grad_(False)
         fake_logits = self.disc(discriminator_input(out.vertex_pred, batch["data"]))
         self.disc.requires_grad_(True)
-        g_adv = torch.nn.functional.softplus(-fake_logits).mean()
-        metrics["loss_g_adv"] = g_adv.detach()
+        g_adv = self._global_mean(torch.nn.functional.softplus(-fake_logits).mean())
+        metrics["loss_g_adv"] = self._metric(g_adv)
         self.fake = out.vertex_pred.detach()
         return total + cfg.train.gan_weight * g_adv, metrics
 
     def discriminator(self, state: GanTrainState, batch: dict) -> torch.Tensor:
         """The discriminator's update on `batch` and the last forward's
-        vertex map; returns its loss."""
+        vertex map; returns its loss (over the global batch with a mesh,
+        whose data group sums the gradients)."""
         batch = decompress_feed(batch, self.cfg)
         real, _ = vertex_targets(batch, self.cfg)
         real_logits = self.disc(discriminator_input(real, batch["data"]))
         fake_logits = self.disc(discriminator_input(self.fake, batch["data"]))
-        d_loss, _ = gan_losses(real_logits, fake_logits)
+        d_loss = self._global_mean(gan_losses(real_logits, fake_logits)[0])
         state.d_opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        if self.mesh is not None:
+            reduce_gradients(list(self.disc.parameters()), self.mesh)
         state.d_opt.step()
         self.fake = None
-        return d_loss.detach()
+        return self._metric(d_loss)
 
     def __call__(self, state: GanTrainState, batch: dict) -> dict:
         total, metrics = self.forward(state, batch)
@@ -495,9 +591,10 @@ class GanTrainStep(TrainStep):
 
 
 def make_gan_train_step(cfg: Config, model, disc, points, extents, symmetry, *,
-                        keep_prob: float = 0.5) -> GanTrainStep:
+                        keep_prob: float = 0.5, mesh: Optional[Mesh] = None) -> GanTrainStep:
     check_supported(cfg)
-    return GanTrainStep(cfg, model, disc, points, extents, symmetry, keep_prob=keep_prob)
+    return GanTrainStep(cfg, model, disc, points, extents, symmetry, keep_prob=keep_prob,
+                        mesh=mesh)
 
 
 def det_noise_generator(seed: int, step: int, device) -> torch.Generator:
@@ -539,18 +636,24 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
                max_iters: Optional[int] = None,
                log_fn: Optional[Callable[[int, dict], None]] = None,
                snapshot_fn: Optional[Callable[[int, TrainState], None]] = None,
-               step: Optional[TrainStep] = None) -> TrainState:
+               step: Optional[TrainStep] = None, mesh: Optional[Mesh] = None) -> TrainState:
     """Host loop (`engine/train.py:403-462`): one step per batch, the
     metrics every `display` iterations, a snapshot every
     `snapshot_iters`. A restored state continues its numbering. `step`
-    defaults to the posecnn family's. With `train.max_host_rss_gb` > 0
+    defaults to the posecnn family's (with `mesh`). With `train.max_host_rss_gb` > 0
     the posecnn step's loop checks the host's RSS at each display
     iteration and, past the limit, snapshots at that iteration and
-    returns."""
+    returns. With a `mesh` of several ranks the limit is judged on all of
+    them together (one rank past it stops every rank at that iteration,
+    where the next step's all-reduce would otherwise wait for it), and
+    only rank 0 logs and snapshots."""
     max_iters = max_iters or cfg.train.max_iters
-    step = step or make_train_step(cfg, model, points, extents, symmetry)
+    step = step or make_train_step(cfg, model, points, extents, symmetry, mesh=mesh)
+    chief = mesh is None or mesh.rank == 0
+    if not chief:
+        log_fn, snapshot_fn = (lambda it_num, metrics: None), None
     start = state.step
-    if start >= max_iters:
+    if start >= max_iters and chief:
         print(f"train_loop: restored step {start} >= max_iters {max_iters}; nothing to do "
               "(raise --iters to continue training)", flush=True)
     t_start = time.time()
@@ -565,9 +668,14 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
                 line = ", ".join(f"{k}: {v:.4f}" for k, v in metrics.items())
                 print(f"iter {it + 1}/{max_iters} " + line, flush=True)
             limit = cfg.train.max_host_rss_gb
-            if limit > 0 and step.host_rss_handoff and (rss := host_rss_gb()) > limit:
-                print(f"host RSS {rss:.1f} GB > {limit} GB — snapshotting and exiting for a "
-                      "clean resume", flush=True)
+            over = limit > 0 and step.host_rss_handoff and (rss := host_rss_gb()) > limit
+            if limit > 0 and step.host_rss_handoff and mesh is not None:
+                over = any_rank(over, mesh.world_group, extents.device)
+            if over:
+                if chief:
+                    where = "" if mesh is None else " on a rank"
+                    print(f"host RSS past {limit} GB{where} (this process {rss:.1f} GB) — "
+                          "snapshotting and exiting for a clean resume", flush=True)
                 if snapshot_fn is not None:
                     snapshot_fn(it + 1, state)
                 return state

@@ -52,6 +52,7 @@ from posecnn_torch.models.vgg16 import VGG16Trunk, bilinear_upsample, conv, nchw
 from posecnn_torch.ops.gradient_reversal import gradient_reversal
 from posecnn_torch.ops.hough_voting import BACKENDS, HoughOutputs, append_gt_rois, hough_voting
 from posecnn_torch.ops.roi_align import roi_pool_fused
+from posecnn_torch.parallel.mesh import ColumnParallelLinear, Mesh, all_gather, all_reduce_sum
 
 
 class PoseCNNOutputs(NamedTuple):
@@ -105,8 +106,19 @@ class SkipHead(nn.Module):
         return out if self.return_lowres else bilinear_upsample(out, 8)
 
 
+def _dense(layer, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A dense layer with its input and weights in `dtype`; a
+    column-parallel one (`parallel/mesh.param_sharding`) returns its
+    gathered output."""
+    if isinstance(layer, ColumnParallelLinear):
+        return layer(x, dtype)
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype))
+
+
 class PoseHead(nn.Module):
-    """RoI → quaternion regression head (`posecnn.py:97-164`), eval."""
+    """RoI → quaternion regression head (`posecnn.py:97-164`), eval. Under
+    tensor parallelism fc6 and fc7 run column-parallel; the dropouts act
+    on the gathered activations, with one mask on every model rank."""
 
     def __init__(self, num_classes: int, in_features: int, fc_dim: int = 4096, *,
                  norm_features: bool = True, quat_activation: str = "linear",
@@ -128,9 +140,9 @@ class PoseHead(nn.Module):
         x = pooled.reshape(pooled.shape[0], -1).float()
         if self.norm_features:
             x = x * torch.rsqrt(torch.mean(x * x, dim=1, keepdim=True) + 1e-6)
-        x = F.relu(F.linear(x.to(dt), self.fc6.weight.to(dt), self.fc6.bias.to(dt)))
+        x = F.relu(_dense(self.fc6, x, dt))
         x = dropout(x, keep_prob, generators[0])
-        x = F.relu(F.linear(x, self.fc7.weight.to(dt), self.fc7.bias.to(dt)))
+        x = F.relu(_dense(self.fc7, x, dt))
         x = dropout(x, keep_prob, generators[1])
         x = self.fc8(x.float())
         poses_tanh = torch.tanh(x) if self.quat_activation == "tanh" else x
@@ -199,6 +211,32 @@ def resolve_hough_backend(name: str) -> str:
         return _JAX_BACKENDS[name]
     raise ValueError(f"unknown hough backend {name!r}; expected one of "
                      f"{BACKENDS + tuple(_JAX_BACKENDS)}")
+
+
+def global_pose_row_cap(hough: HoughOutputs, cap: int, num_gt: int, mesh: Mesh) -> HoughOutputs:
+    """This data rank's rows of the global batch's `max_pose_rois` cap.
+    JAX keeps the first `cap` valid rows of the global emission, which is
+    every image's prepended GT rows (`num_gt` of this rank's leading rows),
+    then every image's Hough rows, the images in rank order (the GT rows
+    too: `make_sharded_device_put` keeps them in the global order). So
+    the quota is per block: rank d keeps clamp(cap − the valid GT rows of
+    ranks before it, 0, its own) of its valid GT rows, then of its valid
+    Hough rows what is left after every rank's GT rows and the earlier
+    ranks' Hough rows. The invalid rows the global cap may keep carry no
+    weight in any term, so a rank keeps its quota's valid rows alone, in
+    emission order; the valid rows kept over all ranks are exactly JAX's."""
+    valid = hough.valid
+    is_gt = torch.arange(valid.shape[0], device=valid.device) < num_gt
+    counts = torch.stack([(valid & is_gt).sum(), (valid & ~is_gt).sum()])
+    every = all_gather(counts, mesh.data_group)  # (N, 2)
+    before = every[: mesh.data_index].sum(0)
+    keep_gt = torch.minimum((cap - before[0]).clamp(min=0), counts[0])
+    keep_hough = torch.minimum((cap - every[:, 0].sum() - before[1]).clamp(min=0), counts[1])
+    rank_gt = torch.cumsum(valid & is_gt, 0) - 1
+    rank_hough = torch.cumsum(valid & ~is_gt, 0) - 1
+    keep = valid & torch.where(is_gt, rank_gt < keep_gt, rank_hough < keep_hough)
+    rows = torch.nonzero(keep)[:, 0]
+    return HoughOutputs(*(a[rows] for a in hough))
 
 
 def _eval_pose_weight(hough: HoughOutputs, num_classes: int) -> torch.Tensor:
@@ -303,14 +341,18 @@ class PoseCNN(nn.Module):
     def train_forward(self, data: torch.Tensor, extents: torch.Tensor, meta_data: torch.Tensor,
                       gt_poses: torch.Tensor, gt_valid: Optional[torch.Tensor] = None, *,
                       data_p: Optional[torch.Tensor] = None, keep_prob: float = 1.0,
-                      generators: Sequence[Optional[torch.Generator]] = (None,) * 5
-                      ) -> PoseCNNOutputs:
+                      generators: Sequence[Optional[torch.Generator]] = (None,) * 5,
+                      mesh: Optional[Mesh] = None) -> PoseCNNOutputs:
         """The training forward (`model.apply(..., train=True)`), with
         autograd. gt_poses (G, 13), gt_valid (G,) bool; `generators` are
         the dropout streams of the seg head, the vertex head, fc6, fc7 and
         fc9. The vertex map comes back at full resolution; Hough runs, for
         the pose head only, with no gradient on the detached labels and 1/8
-        vertex map."""
+        vertex map. With a `mesh` of several data ranks the inputs are
+        this rank's share of the global batch (GT rows renumbered, as
+        `data/pipeline.make_sharded_device_put` gives them): the Hough
+        rows' domain is the global batch's, and the `max_pose_rois` cap
+        keeps this rank's rows of the global cap (`global_pose_row_cap`)."""
         conv4_3, conv5_3 = self.features(data, data_p)
         score = self.seg_head(conv4_3, conv5_3, keep_prob=keep_prob,
                               generator=generators[0]).float()
@@ -328,10 +370,19 @@ class PoseCNN(nn.Module):
                                   poses_tanh, domain)
         hough = hough_voting(label_2d, vertex_lr, extents, meta_data, gt_poses, gt_valid,
                              is_train=True, **self.hough_kw)
+        data_parallel = mesh is not None and mesh.data_size > 1
+        if data_parallel and gt_valid is not None:
+            # domain 1 marks a batch without GT: the global batch's
+            any_gt = all_reduce_sum(gt_valid.any().float(), mesh.data_group) > 0
+            hough = hough._replace(domains=torch.where(any_gt, 0, 1).to(torch.int32).expand(
+                hough.domains.shape[0]).contiguous())
         if self.gt_pose_rois:
             hough = append_gt_rois(hough, gt_poses, gt_valid, extents, meta_data,
                                    self.num_classes)
-        if 0 < self.max_pose_rois < hough.rois.shape[0]:
+        if data_parallel and self.max_pose_rois > 0:
+            num_gt = gt_poses.shape[0] if self.gt_pose_rois else 0
+            hough = global_pose_row_cap(hough, self.max_pose_rois, num_gt, mesh)
+        elif 0 < self.max_pose_rois < hough.rois.shape[0]:
             # valid rows first; a stable sort keeps the emission order
             # within each group (posecnn.py:328-340)
             order = torch.argsort((~hough.valid).to(torch.uint8), stable=True)

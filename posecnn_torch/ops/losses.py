@@ -11,20 +11,32 @@
                                     step of the JAX package calls it)
 
 Plain tensor code: elementwise work and reductions, with no product a
-kernel would do better.
+kernel would do better. The two count-normalised terms take `reduce`,
+the sum of their normaliser over a data-parallel group
+(`parallel/mesh.loss_reduce`): a rank's term is then its share of the
+global batch's.
 """
 
 from __future__ import annotations
+
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
 
 
-def loss_cross_entropy_single_frame(log_prob: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def _reduced(norm: torch.Tensor, reduce: Optional[Callable]) -> torch.Tensor:
+    """A loss normaliser, or its sum over a data-parallel group."""
+    return norm if reduce is None else reduce(norm)
+
+
+def loss_cross_entropy_single_frame(log_prob: torch.Tensor, labels: torch.Tensor,
+                                    reduce: Optional[Callable] = None) -> torch.Tensor:
     """log_prob: (B, H, W, C) log-softmax scores; labels: (B, H, W, C)
-    one-hot weights from hard_label."""
+    one-hot weights from hard_label. `reduce` sums the normaliser over a
+    data-parallel group (the global batch's Σ labels; None: local)."""
     ce = -torch.sum(labels * log_prob, dim=-1)
-    return torch.sum(ce) / (torch.sum(labels) + 1e-10)
+    return torch.sum(ce) / (_reduced(torch.sum(labels), reduce) + 1e-10)
 
 
 def loss_quaternion(pose_pred: torch.Tensor, pose_targets: torch.Tensor,
@@ -49,16 +61,18 @@ def smooth_l1_loss(bbox_pred, bbox_targets, bbox_inside_weights, bbox_outside_we
 
 
 def smooth_l1_loss_vertex(vertex_pred: torch.Tensor, vertex_targets: torch.Tensor,
-                          vertex_weights: torch.Tensor, sigma: float = 1.0) -> torch.Tensor:
+                          vertex_weights: torch.Tensor, sigma: float = 1.0,
+                          reduce: Optional[Callable] = None) -> torch.Tensor:
     """Weighted smooth-L1 over the vertex map. As in the reference, the
     weight multiplies inside the huber (diff = w·(pred − target)), and
-    the sum is normalised by sum(w)."""
+    the sum is normalised by sum(w) (summed over a data-parallel group by
+    `reduce`)."""
     sigma_2 = sigma**2
     diff = vertex_weights * (vertex_pred - vertex_targets)
     abs_diff = diff.abs()
     sign = (abs_diff < 1.0 / sigma_2).to(diff.dtype).detach()
     in_loss = diff * diff * (sigma_2 / 2.0) * sign + (abs_diff - 0.5 / sigma_2) * (1.0 - sign)
-    return torch.sum(in_loss) / (torch.sum(vertex_weights) + 1e-10)
+    return torch.sum(in_loss) / (_reduced(torch.sum(vertex_weights), reduce) + 1e-10)
 
 
 @torch.no_grad()

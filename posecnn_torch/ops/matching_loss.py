@@ -16,6 +16,8 @@ the JAX package has no Pallas kernel here.
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from posecnn_torch.utils.quaternion import quat_to_mat
@@ -52,14 +54,16 @@ def matching_loss(quat: torch.Tensor, trans: torch.Tensor, target_mask: torch.Te
 
 def roi_matching_loss(rois: torch.Tensor, poses_pred: torch.Tensor, poses_init: torch.Tensor,
                       poses_weight: torch.Tensor, valid: torch.Tensor, label: torch.Tensor,
-                      meta: torch.Tensor, points: torch.Tensor, stride: int = 8):
+                      meta: torch.Tensor, points: torch.Tensor, stride: int = 8,
+                      reduce: Optional[Callable] = None):
     """The training step's matching term (`posecnn_tpu/engine/train.py:264-291`):
     for each RoI with a weighted class row, its class's quaternion of
     `poses_pred` (R, 4C) and the translation of `poses_init` (R, 7)
     against the GT label mask of its class at 1/`stride` resolution,
     with the intrinsics of its image divided by `stride` and every
     `P // 64`-th point of `points` (C, P, 3). Returns (the mean over the
-    matched RoIs, the number matched)."""
+    matched RoIs, the number matched); `reduce` sums that number over a
+    data-parallel group (the global batch's count; None: local)."""
     lab_small = label[:, ::stride, ::stride]
     k_small = meta[:, :9].reshape(-1, 3, 3) / stride
     n_cls = points.shape[0]
@@ -73,4 +77,6 @@ def roi_matching_loss(rois: torch.Tensor, poses_pred: torch.Tensor, poses_init: 
     losses = matching_loss(q, poses_init[:, 4:7], mask, p_sub[cls], k_small[b])
     matched = valid & has
     num = matched.float().sum()
+    if reduce is not None:
+        num = reduce(num)
     return torch.where(matched, losses, 0.0).sum() / torch.clamp(num, min=1.0), num
