@@ -177,6 +177,22 @@ that fails, with a non-zero exit:
      `metrics.jsonl`, one final snapshot, exit 0; (d) with two cards or more, `train_net --num_data -1` over
      NCCL on the flagship yaml (images/s beside phase 8's one-card step);
      with one card a line says it did not run.
+ 16. the JAX repository's measurement entry points (`posecnn_torch/entry.py`,
+     `bench.py`, `utils/graph.py`, `cli/eval_rotation_oracle.py`): (a)
+     `entry()`'s forward (stride 4) and `bench infer`'s (stride 1), bf16 at
+     full width, each eager and as a CUDA graph of 2 data-dependent bodies
+     (`capture_loop`), label_2d, rois and poses_pred of the replay equal to
+     the eager forward's bit for bit; (b) on the Hough inputs of each
+     forward (8 slots, S = 128), of `bench phases`' batch-4 forward (32
+     slots) and of one `bench train` step of each feed (the training
+     Hough, 16 slots), flat, window and tile against their plain versions
+     bit for bit, with flat and window launched once in each of these
+     eager runs (counts set to 0 just before each) and once per captured
+     forward; (c) `bench infer`, `phases` and `train` in process, each
+     JSON line printed, every captured forward but phase A's launching
+     flat and window once; (d) the rotation oracle on
+     a fabricated YCB-Video tree with a seeded checkpoint of the
+     `lov_color_2d` yaml's model, 4 images at 480×640.
 
 Every scene the script renders goes through the C++ loops of
 `data/native.py`.
@@ -3093,6 +3109,166 @@ def phase_data_parallel(card):
     return launches
 
 
+ORACLE_IMAGES = 4  # phase 16 (d): held-out scenes the rotation oracle scores
+
+
+def counted_run(call, where):
+    """call() with the model's Hough recorded and the kernels' counts set
+    to 0 just before it and read just after; then each recorded Hough call
+    held to its plain versions (`recorded_vs_plain`). Returns (call's
+    result, its launches, the recorded calls)."""
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+
+    recorded = Recorded()
+    stand_in, original = counting_hough(recorded)
+    for key in hk.LAUNCHES:
+        hk.LAUNCHES[key] = 0
+    posecnn_module.hough_voting = stand_in
+    try:
+        out = call()
+    finally:
+        posecnn_module.hough_voting = original
+    launches = {k: hk.LAUNCHES[k] for k in KERNELS}
+    recorded_vs_plain(recorded, where)
+    return out, launches, recorded
+
+
+def hough_shape(recorded):
+    """'K slots, S = n' of a recorded Hough call: B images of up to
+    `max_classes` (8) present foreground classes each."""
+    label, _, _ = recorded[0]
+    extents, kw = recorded.call
+    slots = label.shape[0] * min(kw.get("max_classes", 8), extents.shape[0] - 1)
+    return f"{slots} slots, S = {kw['num_samples']}"
+
+
+def phase_entry_bench(card):
+    """Phase 16: the JAX repository's measurement entry points on the card
+    (see the module docstring). Returns each kernel's launches in each
+    eager run of the phase's paths (counted from 0) and per captured
+    forward of each graph."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from posecnn_torch import bench
+    from posecnn_torch.cli import eval_rotation_oracle
+    from posecnn_torch.core.checkpoint import save_params
+    from posecnn_torch.core.config import cfg_from_file
+    from posecnn_torch.data.fabricate import write_ycb_tree
+    from posecnn_torch.entry import entry, flagship_model, forward_fn, make_inputs
+    from posecnn_torch.models.posecnn import PoseCNN, init_weights
+    from posecnn_torch.utils.graph import capture_loop
+
+    wall0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    fn_entry, args = entry()
+    device = args[0].device
+    fn_infer = forward_fn(flagship_model(1, device=device))
+    forwards = (("entry (stride 4)", fn_entry), ("bench infer (stride 1)", fn_infer))
+    parts, launches, per_body = [], {}, {}
+    for name, fn in forwards:
+        # (a) eager, with (b) each kernel against plain on its Hough inputs
+        eager, launches[name], recorded = counted_run(lambda: fn(*args), f"phase 16 {name}")
+        # (a) the same forward as a CUDA graph of 2 data-dependent bodies
+        replay, static, body = capture_loop(fn, args, 2)
+        replay()
+        torch.cuda.synchronize()
+        per_body[name] = body
+        if body["flat"] != 1 or body["window"] != 1:
+            raise AssertionError(f"phase 16 {name}: a captured forward launches {body}, not "
+                                 "1 flat and 1 window")
+        for field, got, want in zip(("label_2d", "rois", "poses_pred"), static, eager):
+            diff, same = exact(got, want)
+            if not same:
+                raise AssertionError(f"phase 16 {name}: graph replay's {field} differs from "
+                                     f"the eager forward's (max_abs_err {diff})")
+        valid = int((static[1][:, 6] > 0).sum())
+        parts.append(f"(a, b) {name}: replay == eager bit for bit (label_2d, rois, "
+                     f"poses_pred; {valid} RoIs with votes); flat / window / tile vs plain on "
+                     f"its Hough inputs ({hough_shape(recorded)}) bit for bit; launches eager "
+                     f"{launches[name]}, per captured forward {body}")
+        del replay, static, eager
+
+    # (b) the shapes of the benches' other paths: `bench phases`' batch-4
+    # forward and one `bench train` step of each feed
+    inp4 = make_inputs(4, HEIGHT, WIDTH, NUM_CLASSES, device=device)
+    _, launches["batch 4"], recorded = counted_run(
+        lambda: fn_infer(inp4["data"], inp4["extents"], inp4["meta"]), "phase 16 batch 4")
+    parts.append(f"(b) bench phases' batch-4 forward: flat / window / tile vs plain "
+                 f"({hough_shape(recorded)}) bit for bit; launches {launches['batch 4']}")
+    del inp4, fn_infer
+    for feed in ("sparse", "dense"):
+        name = f"bench train {feed}"
+        step, state, batch = bench.train_setup(device, dense=feed == "dense")
+        loss, launches[name], recorded = counted_run(
+            lambda: bench.train_steps(step, state, batch, 1), f"phase 16 {name}")
+        if not torch.isfinite(loss):
+            raise AssertionError(f"phase 16 {name}: loss {float(loss)}")
+        parts.append(f"(b) {name} step (the training Hough): flat / window / tile vs plain "
+                     f"({hough_shape(recorded)}) bit for bit; launches {launches[name]}")
+        del step, state, batch, loss
+    for name, counts in launches.items():
+        if counts["flat"] != 1 or counts["window"] != 1:
+            raise AssertionError(f"phase 16 {name}: launches {counts}, not 1 flat and 1 window")
+    print(f"phase 16 (a, b) on {card}: " + " | ".join(parts), flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) the three benches, in process, at full width
+    for command in ("infer", "phases", "train"):
+        t0 = time.perf_counter()
+        lines = bench.COMMANDS[command](device)
+        for line in lines:
+            numbers = [v for v in line.values() if isinstance(v, float)]
+            if not all(np.isfinite(numbers)) or not all(v > 0 for v in numbers):
+                raise AssertionError(f"phase 16 bench {command}: {line}")
+            if "launches_per_forward" in line:
+                # each captured forward but A's (no vertex head, no Hough)
+                body = line["launches_per_forward"]
+                want = 0 if line.get("phase") == "A_trunk_seg" else 1
+                if body["flat"] != want or body["window"] != want:
+                    raise AssertionError(f"phase 16 bench {command}: a captured forward "
+                                         f"launches {body}, not {want} flat and {want} window")
+                per_body[f"bench {command} {line.get('phase', line.get('timing'))}"] = body
+            print(f"phase 16 (c) bench {command}: {json.dumps(line)}", flush=True)
+        print(f"phase 16 (c) bench {command}: {time.perf_counter() - t0:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (d) the rotation oracle on a fabricated tree with a seeded checkpoint
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "ycb")
+        write_ycb_tree(root, sets=(("train", 1),))
+        cfg = cfg_from_file(eval_rotation_oracle.DEFAULT_CFG)
+        model = PoseCNN(NUM_CLASSES, num_units=cfg.train.num_units, fc_dim=cfg.train.fc_dim,
+                        hough_num_samples=cfg.train.hough_num_samples,
+                        max_objects=eval_rotation_oracle.MAX_OBJECTS, gt_pose_rois=True)
+        init_weights(model, 16)
+        ckpt = os.path.join(tmp, "seeded.npz")
+        save_params(ckpt, model, step=16)
+        out = os.path.join(tmp, "oracle.json")
+        summary = eval_rotation_oracle.main(["--ckpt", ckpt, "--data_root", root, "--num_images",
+                                             str(ORACLE_IMAGES), "--out", out])
+        with open(out) as f:
+            written = json.load(f)
+    rows = summary["per_class"]
+    degrees = [r[k] for r in rows.values() for k in ("mean_deg", "median_deg")]
+    if (not rows or not all(np.isfinite(degrees)) or summary["ckpt_step"] != 16
+            or summary["num_images"] != ORACLE_IMAGES or set(written) != set(summary)):
+        raise AssertionError(f"phase 16 (d) rotation oracle: {summary}")
+    print(f"phase 16 (d) rotation oracle ({ORACLE_IMAGES} images, 480x640, the lov_color_2d "
+          f"yaml, seeded weights, bf16): {sum(r['n'] for r in rows.values())} GT rows in "
+          f"{len(rows)} classes, {time.perf_counter() - t0:.1f} s; "
+          f"{json.dumps({k: v for k, v in summary.items() if k != 'per_class'})}", flush=True)
+    print(f"phase 16 wall {time.perf_counter() - wall0:.1f} s", flush=True)
+    return launches, per_body
+
+
 def main() -> int:
     try:
         import torch
@@ -3146,6 +3322,7 @@ def main() -> int:
     switch_launches = phase_switches_gan(device, card)
     slice11_launches = phase_slice11(card, native_s)
     dp_launches = phase_data_parallel(card)
+    entry_launches, entry_per_body = phase_entry_bench(card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -3164,7 +3341,9 @@ def main() -> int:
          "real_test_net_launches": real_eval_launches[k], "demo_launches": demo_launches[k],
          "seg_video_launches": seg_launches[k],
          "switched_test_net_launches": switch_launches[k],
-         "slice11_launches": slice11_launches[k], "dp_launches": dp_launches[k]}
+         "slice11_launches": slice11_launches[k], "dp_launches": dp_launches[k],
+         "phase16_launches": {name: counts[k] for name, counts in entry_launches.items()},
+         "per_captured_forward": {name: body[k] for name, body in entry_per_body.items()}}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -243,7 +243,9 @@ def test_cuda_device_without_a_card_raises(monkeypatch):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, posecnn_torch, posecnn_torch.cli.serve, chip_smoke; "
+    code = ("import sys, posecnn_torch, posecnn_torch.cli.serve, posecnn_torch.entry, "
+            "posecnn_torch.utils.graph, posecnn_torch.bench, "
+            "posecnn_torch.cli.eval_rotation_oracle, chip_smoke; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'posecnn_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
