@@ -188,11 +188,32 @@ that fails, with a non-zero exit:
      Hough, 16 slots), flat, window and tile against their plain versions
      bit for bit, with flat and window launched once in each of these
      eager runs (counts set to 0 just before each) and once per captured
-     forward; (c) `bench infer`, `phases` and `train` in process, each
-     JSON line printed, every captured forward but phase A's launching
-     flat and window once; (d) the rotation oracle on
+     forward; (c) `bench infer` and `train` in process, each JSON line
+     printed, every captured forward launching flat and window once
+     (`bench phases` runs in phase 17, as the first lines of `bench c2f`);
+     (d) the rotation oracle on
      a fabricated YCB-Video tree with a seeded checkpoint of the
      `lov_color_2d` yaml's model, 4 images at 480×640.
+ 17. the c2f tuning knobs and the rest of the JAX repository's benches
+     (`bench.py` `c2f`, `components`, `hough`, `train_components`,
+     `train_mfu`, `profile`; `cli/summarize_run.py`): (a) on `bench c2f`'s
+     planted samples (8 slots, S = 128, 480×640) the exhaustive vote
+     (tile) and, at each tuning (coarse factor, windows a slot) (4, 4),
+     (8, 4), (4, 2), (8, 2), the flat pass, the c2f windows and the c2f
+     maximum against their plain versions bit for bit, flat and window
+     launched once a tuning (counts set to 0 just before each call), with
+     each kernel's time (a CUDA graph) and bound at each tuning; (b) one
+     eager training step at each shape the benches add (the three
+     `train_mfu` points, `train_components`' res_240x320 and batch1), its
+     Hough held to plain bit for bit and flat and window launched once;
+     then the six benches in process at full width, each JSON line
+     printed, every number finite and positive (the derived differences
+     of `train_components` finite), every captured body launching the
+     kernels it should, each bench's launches counted from 0; (c) a
+     3-step `train_net` run and `test_net` on its snapshot (the 48×64
+     toy, on the card, each Hough call held to plain), then
+     `python -m posecnn_torch.cli.summarize_run` on them: one loss-curve
+     row a step and the evaluation's row, finite.
 
 Every scene the script renders goes through the C++ loops of
 `data/native.py`.
@@ -3218,8 +3239,9 @@ def phase_entry_bench(card):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # (c) the three benches, in process, at full width
-    for command in ("infer", "phases", "train"):
+    # (c) the benches, in process, at full width (`phases` runs in phase
+    # 17 inside `bench c2f`, with the same checks)
+    for command in ("infer", "train"):
         t0 = time.perf_counter()
         lines = bench.COMMANDS[command](device)
         for line in lines:
@@ -3227,13 +3249,11 @@ def phase_entry_bench(card):
             if not all(np.isfinite(numbers)) or not all(v > 0 for v in numbers):
                 raise AssertionError(f"phase 16 bench {command}: {line}")
             if "launches_per_forward" in line:
-                # each captured forward but A's (no vertex head, no Hough)
                 body = line["launches_per_forward"]
-                want = 0 if line.get("phase") == "A_trunk_seg" else 1
-                if body["flat"] != want or body["window"] != want:
+                if body["flat"] != 1 or body["window"] != 1:
                     raise AssertionError(f"phase 16 bench {command}: a captured forward "
-                                         f"launches {body}, not {want} flat and {want} window")
-                per_body[f"bench {command} {line.get('phase', line.get('timing'))}"] = body
+                                         f"launches {body}, not 1 flat and 1 window")
+                per_body[f"bench {command} {line['timing']}"] = body
             print(f"phase 16 (c) bench {command}: {json.dumps(line)}", flush=True)
         print(f"phase 16 (c) bench {command}: {time.perf_counter() - t0:.1f} s", flush=True)
         gc.collect()
@@ -3267,6 +3287,239 @@ def phase_entry_bench(card):
           f"{json.dumps({k: v for k, v in summary.items() if k != 'per_class'})}", flush=True)
     print(f"phase 16 wall {time.perf_counter() - wall0:.1f} s", flush=True)
     return launches, per_body
+
+
+# phase 17 (c): the train_net run summarize_run reads (the 48×64 toy of
+# phase 15 (c), on the card) and the test_net images of its evaluation
+SUMMARY_ITERS, SUMMARY_EVAL_IMAGES = 3, 2
+SUMMARY_EVAL_SET = ["--set", "train.syn_height=48", "train.syn_width=64", "train.num_classes=4",
+                    "train.fc_dim=32", "train.num_units=8", "test.hough_num_samples=64",
+                    "train.add_num_points=32"]
+# the breakdown benches phase 17 runs, and what each captured body of
+# theirs launches: (tile, flat, window) by the line's phase or component
+BREAKDOWNS = ("c2f", "components", "hough", "train_components", "train_mfu", "profile")
+NO_VOTE, C2F_PAIR, TILE_ONLY = (0, 0, 0), (0, 1, 1), (1, 0, 0)
+BODY_LAUNCHES = {"A_trunk_seg": NO_VOTE, "B_plus_vertex_hough": C2F_PAIR, "C_full": C2F_PAIR,
+                 "full_batch4": C2F_PAIR, "c2f_default_f4_t4": C2F_PAIR, "c2f_f8_t4": C2F_PAIR,
+                 "c2f_f4_t2": C2F_PAIR, "c2f_f8_t2": C2F_PAIR, "trunk": NO_VOTE,
+                 "seg_only": NO_VOTE, "seg_vertex_hough": C2F_PAIR, "full": C2F_PAIR,
+                 "hough_alone": C2F_PAIR, "roi_posehead_alone": NO_VOTE,
+                 "prepare_slots": NO_VOTE, "vote_kernel_realistic": TILE_ONLY,
+                 "full_batch1": C2F_PAIR}
+
+
+def check_bench_line(command, line, signed=()):
+    """Every number of a bench line finite and positive (the keys in
+    `signed`, differences of two timings, finite), one level of nested
+    numbers included; each captured body's launches as BODY_LAUNCHES says.
+    Returns (name, launches per body) or None."""
+    values = {}
+    for key, v in line.items():
+        if key.startswith("launches"):
+            continue
+        values.update({f"{key}.{k}": x for k, x in v.items()} if isinstance(v, dict)
+                      else {key: v})
+    bad = {k: v for k, v in values.items() if isinstance(v, float)
+           and not (np.isfinite(v) and (v > 0 or k.split(".")[-1] in signed))}
+    if bad:
+        raise AssertionError(f"phase 17 bench {command}: {bad} in {json.dumps(line)}")
+    body = line.get("launches_per_body", line.get("launches_per_forward"))
+    if body is None:
+        return None
+    name = line.get("phase", line.get("component"))
+    if tuple(body[k] for k in KERNELS) != BODY_LAUNCHES[name]:
+        raise AssertionError(f"phase 17 bench {command} {name}: a captured body launches "
+                             f"{body}, not {BODY_LAUNCHES[name]} (tile, flat, window)")
+    return name, body
+
+
+def phase_breakdowns(device, card):
+    """Phase 17: the c2f tuning knobs and the breakdown benches (see the
+    module docstring). Returns each kernel's largest error against its
+    plain version, its launches in each eager run (counted from 0) and per
+    captured body, and its times and bounds at the c2f tunings."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    import torch
+
+    from posecnn_torch import bench
+    from posecnn_torch.cli import test_net, train_net
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.ops import hough_kernels as hk
+
+    wall0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    errs = {k: 0.0 for k in KERNELS}
+
+    def launched(call):
+        """call() with the kernels' counts set to 0 just before it and read
+        just after (a direct call of the vote functions: nothing for
+        `counted_run` to record)."""
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        out = call()
+        return out, {kk: hk.LAUNCHES[kk] for kk in KERNELS}
+
+    def check(kernel, got, want, where):
+        for a, b in zip(got, want):
+            err, ok = exact(a, b)
+            if not ok:
+                raise AssertionError(f"phase 17: {kernel} disagrees with its plain version "
+                                     f"{where}: max_abs_err {err}")
+            if kernel in errs:
+                errs[kernel] = max(errs[kernel], err)
+
+    # (a) the exhaustive vote and the c2f pair at each tuning on `bench
+    # c2f`'s planted samples (8 slots, 3 live, S = 128), against plain
+    *_, packed, bboxes = bench.planted_slots(device)
+    k = packed.shape[0]
+    in_bytes = (packed.numel() + bboxes.numel()) * 4
+    fine = dict(cell_stride=1, grid_h=HEIGHT, grid_w=WIDTH)
+    got, counts = launched(lambda: hk.hough_votes_exhaustive(packed, bboxes, **fine))
+    check("tile", got, hk.hough_votes_exhaustive_plain(packed, bboxes, **fine), "at stride 1")
+    if tuple(counts[kk] for kk in KERNELS) != TILE_ONLY:
+        raise AssertionError(f"phase 17 exhaustive: launches {counts}")
+    launches = {"exhaustive": counts}
+    # each kernel's graph ms and bound: tile at stride 1, flat and window
+    # at each tuning
+    at_tunings = {"tile": {"ms": graph_ms(lambda: hk.hough_votes_exhaustive(
+        packed, bboxes, **fine), 50), "bound_ms": vote_bound(
+        hk.tile_cells(packed, bboxes, **fine), in_bytes, 2 * 4 * got[0].numel())[0]},
+        "flat": {}, "window": {}}
+    parts = []
+    for name, tuning in bench.C2F_TUNINGS:
+        f, top_t = tuning["coarse_factor"], tuning["top_t"]
+        coarse = dict(cell_stride=f, grid_h=-(-HEIGHT // f), grid_w=-(-WIDTH // f))
+        where = f"at {name}"
+        win, launches[name] = launched(
+            lambda: hk.hough_votes_c2f_windows(packed, bboxes, **fine, **tuning))
+        check("window", win, hk.hough_votes_c2f_windows(packed.cpu(), bboxes.cpu(), **fine,
+                                                          **tuning), where)
+        check("flat", hk.hough_votes_flat(packed, bboxes, **coarse),
+              hk.hough_votes_flat_plain(packed, bboxes, **coarse), where)
+        check("the c2f maximum", hk.hough_votes_c2f(packed, bboxes, **fine, **tuning),
+              hk.hough_votes_c2f(packed.cpu(), bboxes.cpu(), **fine, **tuning), where)
+        if tuple(launches[name][kk] for kk in KERNELS) != C2F_PAIR:
+            raise AssertionError(f"phase 17 {name}: launches {launches[name]}")
+        origins = torch.stack([win[2], win[3], win[4].long()], -1).reshape(-1, 3).int()
+        origins = origins.contiguous()
+        n_cells = coarse["grid_h"] * coarse["grid_w"]
+        flat, window = at_tunings["flat"], at_tunings["window"]
+        flat[name] = {
+            "ms": graph_ms(lambda: hk.hough_votes_flat(packed, bboxes, **coarse), 200),
+            "bound_ms": vote_bound(hk.flat_cells(packed, bboxes, **coarse), in_bytes,
+                                   2 * 4 * k * n_cells)[0]}
+        window[name] = {
+            "ms": graph_ms(lambda: hk.hough_votes_windows(packed, origins, **fine), 200),
+            "bound_ms": vote_bound(
+                hk.window_cells(packed, origins, **fine)[1:],
+                (packed.numel() + origins.numel()) * 4, 2 * 4 * origins.shape[0] * hk.TILE)[0]}
+        glue_ms = device_ms(lambda: hk.hough_votes_c2f(packed, bboxes, **fine, **tuning),
+                            device, 50)
+        parts.append(f"{name}: flat {tuple(coarse.values())[1:]} / windows {k * top_t} "
+                     f"({int(win[4].sum())} live) / maximum vs plain bit for bit; flat "
+                     f"{flat[name]['ms']:.4f} ms (bound {flat[name]['bound_ms']:.4f}), window "
+                     f"{window[name]['ms']:.4f} (bound {window[name]['bound_ms']:.4f}), the c2f "
+                     f"call with its glue {glue_ms:.4f}")
+    print(f"phase 17 (a) on {card}: `bench c2f`'s planted samples (K={k}, S={packed.shape[2]}): "
+          f"exhaustive vs plain bit for bit, tile {at_tunings['tile']['ms']:.4f} ms (bound "
+          f"{at_tunings['tile']['bound_ms']:.4f}); " + " | ".join(parts)
+          + f"; launches {json.dumps(launches)}", flush=True)
+    del packed, bboxes
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) one eager step, its Hough recorded and held to plain, at each
+    # training shape the benches add to phase 16 (b)'s: each `train_mfu`
+    # point and the `train_components` variants of another frame or batch
+    train_shapes = [(f"train_mfu ({b}, {scale})", bench.mfu_setup(b, scale))
+                    for b, scale in bench.MFU_POINTS]
+    train_shapes += [(f"train_components {name}", variant) for name, variant
+                     in bench.TRAIN_VARIANTS if name in ("res_240x320", "batch1")]
+    for name, setup in train_shapes:
+        t0 = time.perf_counter()
+        step, state, batch = bench.train_setup(device, **setup)
+        loss, launches[name], recorded = counted_run(
+            lambda: bench.train_steps(step, state, batch, 1), f"phase 17 {name}")
+        if not torch.isfinite(loss) or tuple(launches[name][kk] for kk in KERNELS) != C2F_PAIR:
+            raise AssertionError(f"phase 17 {name}: loss {float(loss)}, launches "
+                                 f"{launches[name]}")
+        print(f"phase 17 (b) {name} step (the training Hough): flat / window / tile vs plain "
+              f"({hough_shape(recorded)}, {tuple(batch['data'].shape[1:3])}) bit for bit; "
+              f"launches {launches[name]}; {time.perf_counter() - t0:.1f} s", flush=True)
+        del step, state, batch, loss, recorded
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (b) the breakdown benches in process, at full width, each counted
+    # from 0 (their Hough calls at the shapes above, at phase 16 (b)'s and
+    # at (a)'s planted samples); every number finite and positive, every
+    # captured body launching what it should
+    per_body = {}
+    signed = set(bench.train_differences({name: 0.0 for name, _ in bench.TRAIN_VARIANTS}))
+    for command in BREAKDOWNS:
+        t0 = time.perf_counter()
+        for key in hk.LAUNCHES:
+            hk.LAUNCHES[key] = 0
+        lines = bench.COMMANDS[command](device)
+        launches[f"bench {command}"] = {kk: hk.LAUNCHES[kk] for kk in KERNELS}
+        for line in lines:
+            body = check_bench_line(command, line, signed)
+            if body is not None:
+                per_body[f"bench {command} {body[0]}"] = body[1]
+            print(f"phase 17 (b) bench {command}: {json.dumps(line)}", flush=True)
+        if command == "profile" and not lines[-1]["kernels"]:
+            raise AssertionError(f"phase 17 bench profile: no device kernel traced: {lines[-1]}")
+        counts = launches[f"bench {command}"]
+        if counts["flat"] < 1 or counts["window"] != counts["flat"] or (
+                counts["tile"] < 1) != (command != "hough"):
+            raise AssertionError(f"phase 17 bench {command}: launches {counts}")
+        print(f"phase 17 (b) bench {command}: {time.perf_counter() - t0:.1f} s, launches "
+              f"{counts}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (c) summarize_run on a train_net run and a test_net evaluation of
+    # its snapshot, as the JAX repo's runbooks lay them out
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "output", "run")
+        eval_dir = os.path.join(tmp, "output", f"eval_syn_{SUMMARY_ITERS}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, launches["summary train_net"], _ = counted_run(lambda: train_net.main(
+                ["--output", run_dir, "--iters", str(SUMMARY_ITERS), *DP_TOY]),
+                "phase 17 train_net")
+            snapshot = os.path.join(run_dir, f"posecnn_iter_{SUMMARY_ITERS}.npz")
+            _, launches["summary test_net"], _ = counted_run(lambda: test_net.main(
+                ["--ckpt", snapshot, "--num_images", str(SUMMARY_EVAL_IMAGES), "--output",
+                 eval_dir, *SUMMARY_EVAL_SET]), "phase 17 test_net")
+        summary = subprocess.run([sys.executable, "-m", "posecnn_torch.cli.summarize_run",
+                                  run_dir], cwd=tmp, capture_output=True, text=True, timeout=120,
+                                 env={**os.environ, "PYTHONPATH": os.path.dirname(
+                                     os.path.abspath(__file__))})
+    if summary.returncode != 0:
+        raise AssertionError(f"phase 17 summarize_run: rc {summary.returncode}; "
+                             f"{summary.stderr[-2000:]}")
+    result = json.loads(summary.stdout.splitlines()[-1])
+    curve, evals = result["loss_curve"], result["evals"]
+    if (result["metric"] != "train_run_summary" or len(curve) != SUMMARY_ITERS
+            or not np.isfinite([c["loss"] for c in curve]).all() or len(evals) != 1
+            or evals[0]["iter"] != SUMMARY_ITERS or not np.isfinite(evals[0]["seg_mean_iou"])):
+        raise AssertionError(f"phase 17 summarize_run: {summary.stdout}")
+    for run in ("summary train_net", "summary test_net"):
+        if launches[run]["flat"] < 1 or launches[run]["window"] != launches[run]["flat"]:
+            raise AssertionError(f"phase 17 {run}: launches {launches[run]}")
+    print(f"phase 17 (c) summarize_run on a {SUMMARY_ITERS}-step train_net run (48x64 toy on the "
+          f"card) and test_net's eval.json of its snapshot ({SUMMARY_EVAL_IMAGES} images): "
+          f"{time.perf_counter() - t0:.1f} s; launches {launches['summary train_net']}, "
+          f"{launches['summary test_net']};\n{summary.stdout}", flush=True)
+    print(f"phase 17 wall {time.perf_counter() - wall0:.1f} s", flush=True)
+    return errs, launches, per_body, at_tunings
 
 
 def main() -> int:
@@ -3323,6 +3576,7 @@ def main() -> int:
     slice11_launches = phase_slice11(card, native_s)
     dp_launches = phase_data_parallel(card)
     entry_launches, entry_per_body = phase_entry_bench(card)
+    p17_errs, p17_launches, p17_per_body, p17_tunings = phase_breakdowns(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
     # the tile kernel, the HTTP serving run for the c2f pair; and those of
     # the test_net run (phase 9) and of phase 10's training steps and
@@ -3343,7 +3597,11 @@ def main() -> int:
          "switched_test_net_launches": switch_launches[k],
          "slice11_launches": slice11_launches[k], "dp_launches": dp_launches[k],
          "phase16_launches": {name: counts[k] for name, counts in entry_launches.items()},
-         "per_captured_forward": {name: body[k] for name, body in entry_per_body.items()}}
+         "per_captured_forward": {name: body[k] for name, body in entry_per_body.items()},
+         "phase17_max_abs_err": p17_errs[k],
+         "phase17_launches": {name: counts[k] for name, counts in p17_launches.items()},
+         "phase17_per_captured_body": {name: body[k] for name, body in p17_per_body.items()},
+         "phase17_at_tunings": p17_tunings[k]}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

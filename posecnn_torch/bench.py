@@ -1,16 +1,24 @@
 """The repository's measurement entry points, on one NVIDIA GPU.
 
-    python -m posecnn_torch.bench [infer|phases|train]
+    python -m posecnn_torch.bench [infer|phases|train|c2f|components|hough|
+                                   train_components|train_mfu|profile]
 
 Counterpart of the JAX repository's `bench.py` (`infer`, the default),
-`experiments/bench_graph_phases.py:86-118` (`phases`) and
-`experiments/bench_train.py` (`train`). Each keeps its script's
-configuration, seeds and loop counts n1 / n2, and its protocol: warm both
-counts, then the median of 3 differenced pairs (t(n2) − t(n1)) / (n2 − n1),
-which removes the loop's fixed cost. Time is CUDA events around the run
-and a synchronise; the host clock is printed beside it. Every line is one
-JSON object and names the card and its power limit; the metric names
-carry `torch` and `h100`, so they never mix with the TPU's.
+`experiments/bench_graph_phases.py` (`phases`, `c2f`),
+`experiments/bench_train.py` (`train`), `experiments/bench_components.py`
+(`components`), `experiments/bench_hough_phases.py` (`hough`),
+`experiments/bench_train_components.py` (`train_components`),
+`experiments/bench_train_mfu.py` (`train_mfu`) and
+`experiments/profile_train.py` (`profile`). Each keeps its script's
+configuration, seeds and loop counts n1 / n2, and the protocol of
+`bench_graph_phases.py`'s `timed`: warm both counts, then the median of 3
+differenced pairs (t(n2) − t(n1)) / (n2 − n1), which removes the loop's
+fixed cost. `bench_components.py` and `bench_hough_phases.py` take one
+differenced pair; here they take the median of 3 as well. Time is CUDA
+events around the run and a synchronise; the host clock is printed beside
+it. Every line is one JSON object and names the card and its power limit;
+the metric names carry `torch` and `h100`, so they never mix with the
+TPU's.
 
   infer   the forward of `bench.py:46-53` (22 classes, 480×640, num_units
           64, 128 Hough samples, 8 objects, cell stride 1, bf16, seeded
@@ -42,6 +50,55 @@ carry `torch` and `h100`, so they never mix with the TPU's.
           Eager: the training forward copies host constants to the device,
           which a CUDA graph cannot capture. A line before the last gives
           torch.profiler's device-busy ms of one step.
+  c2f     `bench_graph_phases.py:120-170`: the samples of a planted label
+          (classes 3 / 9 / 15 in three squares) and a vertex map of
+          RandomState(0) (randn·0.3) through `_prepare_slots` (label
+          threshold 500, skip 10, 128 samples, 8 slots), then
+          `hough_votes_c2f` at (coarse factor, top_t) (4, 4), (8, 4),
+          (4, 2), (8, 2), each body reading packed + acc·1e-20, as CUDA
+          graphs at n 5 / 45. The script's file, phases A / B / C and
+          batch 4 (the `phases` lines, printed first) with the tunings, is
+          written to `output/bench_graph_phases_torch.json`.
+  components  `bench_components.py`: the VGG16 trunk alone; the models
+          seg_only, seg_vertex_hough and full; Hough alone on a label of
+          RandomState(0) in all 22 classes with randn·0.3 vertices; RoI
+          pool and pose head alone on random conv4 / conv5 maps, 8 RoIs
+          and pose weights on the first 4 columns. CUDA graphs at n 5 /
+          25, one line each, then `summary_ms`.
+  hough   `bench_hough_phases.py`: `_prepare_slots` alone and the
+          exhaustive vote (`tile_vote_kernel`, stride 1, 480×640) on the
+          `c2f` samples, then the full forward at batch 1 and 4 (ms a
+          batch, ms an image, frames/s). CUDA graphs at n 5 / 25.
+  train_components  `bench_train_components.py`: `train`'s step in nine
+          variants (full; rows_126 at 7 objects; rows_126_compact64 with
+          64 pose rows; no_pose; seg_only, its batch cut to the keys the
+          seg loss reads; add_p128; fc1024; res_240x320 at half the focal
+          length; batch1), each on a fresh batch of RandomState(0), then
+          the six differences the script derives. Eager, n 3 / 23, every
+          timed run from one restored state, as `train`; each variant's
+          device-busy ms of one profiled step and their six differences
+          beside them (the eager step waits on its host).
+  train_mfu  `bench_train_mfu.py`: the step at (batch, scale) (8, 0.5),
+          (8, 1.0), (16, 1.0) (adam, grad clip 35, GT RoIs prepended,
+          max_rois 16·b, 8·b GT rows, 1 object an image, focal × scale),
+          eager at n 3 / 13. FLOPs of one step from
+          `torch.utils.flop_counter.FlopCounterMode` (the vote kernels add
+          none), MFU over the H100's 989 TFLOP/s of dense bf16. The
+          script's `device_s_per_iter` times a compiled loop with no host
+          work in it; the eager step here waits on its host, so its time
+          is `s_per_iter_eager` (and `samples_per_s`, `mfu_pct` follow
+          it), and the device's own time is `step_busy_ms`, the
+          device-busy ms of one profiled step, with `mfu_pct_busy` from
+          it. The JAX row's `compile_s` is the warm-up step's seconds
+          here. Written to `output/bench_train_mfu_torch.json`.
+  profile `profile_train.py`: `train`'s step (sparse feed), warmed outside
+          the trace; its FLOPs and 20 steps each ended by a host read (the
+          `train_step_mfu` line); 5 such steps under torch.profiler (CPU
+          and CUDA), the chrome trace written under `POSECNN_TRACE_DIR`
+          (default `posecnn_torch_trace` in the temporary directory), and
+          the 40 device kernels of most self time as the script's per-plane
+          table, the plane named after the card. Written to
+          `output/train_profile_torch.json`.
 
 Without a CUDA device the command exits non-zero: it measures the card
 and has no CPU mode.
@@ -52,10 +109,13 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
-from typing import Callable, Sequence
+from functools import partial
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -73,8 +133,12 @@ from posecnn_torch.entry import (
     forward_fn,
     make_inputs,
 )
-from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.utils.graph import capture_loop, eager_loop
+from posecnn_torch.models.posecnn import PoseCNN, PoseHead, init_weights
+from posecnn_torch.models.vgg16 import VGG16Trunk
+from posecnn_torch.ops.hough_kernels import hough_votes_c2f, hough_votes_exhaustive
+from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
+from posecnn_torch.ops.roi_align import roi_pool_fused
+from posecnn_torch.utils.graph import capture_loop, checksum, eager_loop
 
 INFER_N = (5, 45)  # bench.py:82
 PHASES_N, BATCH4_N = (5, 45), (5, 25)  # bench_graph_phases.py:29, :117
@@ -93,6 +157,44 @@ TRAIN_BATCH, TRAIN_POINTS = 2, 512
 TRAIN_MODEL = dict(num_units=64, hough_num_samples=128, max_objects=2, hough_cell_stride=1,
                    vote_threshold=-1.0)
 TRAIN_FOCAL = (1066.778, 1067.487)
+
+C2F_N = (5, 45)  # bench_graph_phases.py:29, `timed`'s defaults
+COMPONENTS_N = HOUGH_N = (5, 25)  # bench_components.py:20, bench_hough_phases.py:20
+TRAIN_COMPONENTS_N = (3, 23)  # bench_train_components.py:133
+MFU_N = (3, 13)  # bench_train_mfu.py:135
+PROFILE_HOST_SYNC_STEPS, PROFILE_TRACED_STEPS, PROFILE_TOP = 20, 5, 40  # profile_train.py
+PEAK_BF16_TFLOPS = 989.0  # one H100 SXM, dense bf16 (NVIDIA's data sheet, 700 W)
+# bench_graph_phases.py:122-137 (= bench_hough_phases.py:42-72): three
+# compact objects (class, centre x, centre y, half side) and the prep
+PLANTED_LABEL = ((3, 200, 240, 60), (9, 450, 300, 45), (15, 320, 120, 50))
+PREP_KW = dict(label_threshold=500, skip_pixels=10, num_samples=128, max_classes=8)
+C2F_TUNINGS = (("c2f_default_f4_t4", dict(coarse_factor=4, top_t=4)),
+               ("c2f_f8_t4", dict(coarse_factor=8, top_t=4)),
+               ("c2f_f4_t2", dict(coarse_factor=4, top_t=2)),
+               ("c2f_f8_t2", dict(coarse_factor=8, top_t=2)))
+C2F_OUT = os.path.join("output", "bench_graph_phases_torch.json")
+# bench_components.py:65-69
+COMPONENT_MODELS = (("seg_only", dict(vertex_reg=False, pose_reg=False)),
+                    ("seg_vertex_hough", dict(vertex_reg=True, pose_reg=False)),
+                    ("full", dict(vertex_reg=True, pose_reg=True)))
+COMPONENT_ROIS = 8  # bench_components.py:113-120
+# bench_train_components.py:147-161: each variant's changes to `train`'s step
+TRAIN_VARIANTS = (
+    ("full", {}),
+    ("rows_126", dict(max_objects=7)),
+    ("rows_126_compact64", dict(max_objects=7, max_pose_rois=64)),
+    ("no_pose", dict(pose_reg=False)),
+    ("seg_only", dict(vertex_reg=False, pose_reg=False)),
+    ("add_p128", dict(n_points=128)),
+    ("fc1024", dict(fc_dim=1024)),
+    ("res_240x320", dict(height=240, width=320, focal_scale=0.5)),
+    ("batch1", dict(batch=1)),
+)
+# bench_train_components.py:101-105: the batch keys the seg-only step keeps
+SEG_ONLY_KEYS = ("data", "label", "meta", "gt_poses", "gt_valid")
+MFU_POINTS = ((8, 0.5), (8, 1.0), (16, 1.0))  # bench_train_mfu.py:57
+MFU_OUT = os.path.join("output", "bench_train_mfu_torch.json")
+PROFILE_OUT = os.path.join("output", "train_profile_torch.json")
 
 
 def differenced_median(run: Callable[[int], Sequence[float]], n1: int, n2: int) -> tuple:
@@ -122,13 +224,13 @@ def timed(fn: Callable[[], object], device) -> tuple:
     return start.elapsed_time(end) / 1e3, time.perf_counter() - t0
 
 
-def graph_seconds(fn, args, n1: int, n2: int):
+def graph_seconds(fn, args, n1: int, n2: int, reduce=checksum):
     """(device s, host s) a body of `fn`'s loop as a CUDA graph, and the
-    vote kernels' launches per body."""
+    vote kernels' launches per body; `reduce` as `capture_loop`'s."""
     device = args[0].device
     replays = {}
     for n in (n1, n2):
-        replays[n], _, launches = capture_loop(fn, args, n)
+        replays[n], _, launches = capture_loop(fn, args, n, reduce)
     dev_s, host_s = differenced_median(lambda n: timed(replays[n], device), n1, n2)
     return dev_s, host_s, launches
 
@@ -192,30 +294,45 @@ def bench_phases(device) -> list:
     return lines
 
 
-def train_setup(device, dense: bool, *, num_classes: int = NUM_CLASSES, height: int = HEIGHT,
-                width: int = WIDTH, fc_dim: int = 4096,
+def train_setup(device, dense: bool = False, *, num_classes: int = NUM_CLASSES,
+                height: int = HEIGHT, width: int = WIDTH, batch: int = TRAIN_BATCH,
+                fc_dim: int = 4096, n_points: int = TRAIN_POINTS, focal_scale: float = 1.0,
+                max_gt: int = 16, train: Optional[dict] = None,
                 compute_dtype: torch.dtype = torch.bfloat16, **model_kw):
     """`bench_train.py`'s step on its fixed batch: (step, state, batch).
-    The sizes default to the bench's; the tests shrink them."""
-    c, b = num_classes, TRAIN_BATCH
-    cfg = cfg_from_dict({"train": {"num_classes": c, "vertex_reg_2d": True, "pose_reg": True,
-                                   "ims_per_batch": b, "hough_num_samples": 128, "max_rois": 36,
-                                   "add_num_points": TRAIN_POINTS}})
+
+    The keywords are what the other train benches change: the frame size
+    and focal length (× `focal_scale`), the batch and its GT rows, fc6/fc7's
+    width, the ADD points the loss reads (`n_points` of the class's 512),
+    `train` the cfg's train keys to add or replace, and `model_kw` PoseCNN's
+    keywords over `TRAIN_MODEL` (the head switches also set the cfg's).
+    The batch is rendered by a fresh generator, whose rng is
+    RandomState(0) as each script resets it. The sizes default to the
+    bench's; the tests shrink them."""
+    c = num_classes
+    vertex_reg, pose_reg = model_kw.get("vertex_reg", True), model_kw.get("pose_reg", True)
+    cfg = cfg_from_dict({"train": {"num_classes": c, "vertex_reg_2d": vertex_reg,
+                                   "pose_reg": pose_reg, "ims_per_batch": batch,
+                                   "hough_num_samples": 128, "max_rois": 36,
+                                   "add_num_points": n_points, "fc_dim": fc_dim,
+                                   **(train or {})}})
     rng = np.random.RandomState(0)
     points = (rng.rand(c, TRAIN_POINTS, 3).astype(np.float32) - 0.5) * 0.12
     points[0] = 0
     extents = np.abs(points).max(1) * 2
     symmetry = np.zeros(c, np.float32)
-    k = np.array([[TRAIN_FOCAL[0], 0, width / 2], [0, TRAIN_FOCAL[1], height / 2], [0, 0, 1]],
-                 np.float32)
+    fx, fy = TRAIN_FOCAL[0] * focal_scale, TRAIN_FOCAL[1] * focal_scale
+    k = np.array([[fx, 0, width / 2], [0, fy, height / 2], [0, 0, 1]], np.float32)
     gen = SyntheticSceneGenerator(points, extents, k, width=width, height=height)
-    batch = to_device(gen.minibatch(b, dense_vertex_targets=dense), device)
+    feed = gen.minibatch(batch, max_gt=max_gt, dense_vertex_targets=dense)
+    if not vertex_reg:
+        feed = {key: feed[key] for key in SEG_ONLY_KEYS}
     model = PoseCNN(c, fc_dim=fc_dim, compute_dtype=compute_dtype, **{**TRAIN_MODEL, **model_kw})
     init_weights(model, 0)
     model = model.to(device)
     step = make_train_step(cfg, model, *(torch.from_numpy(a).to(device)
-                                         for a in (points, extents, symmetry)))
-    return step, create_train_state(cfg, model), batch
+                                         for a in (points[:, :n_points], extents, symmetry)))
+    return step, create_train_state(cfg, model), to_device(feed, device)
 
 
 def train_steps(step, state, batch: dict, n: int) -> torch.Tensor:
@@ -247,10 +364,46 @@ def snapshot(step, state):
     return restore
 
 
+def train_seconds(step, state, batch: dict, n1: int, n2: int) -> tuple:
+    """(device s, host s) a step, each timed run starting from the state
+    as it is now (`snapshot`), as JAX's functional loop starts every call
+    from one state; the state is left restored to it. Warm up first."""
+    restore = snapshot(step, state)
+    device = batch["data"].device
+
+    def run(n):
+        restore()
+        return timed(lambda: train_steps(step, state, batch, n), device)
+
+    seconds = differenced_median(run, n1, n2)
+    restore()
+    return seconds
+
+
+def step_flops(step, state, batch: dict) -> float:
+    """FLOPs of one training step, as `FlopCounterMode` counts the
+    forward's and backward's products and convolutions (the vote kernels
+    add none). The step moves the state: count after timing."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        train_steps(step, state, batch, 1)
+    return float(counter.get_total_flops())
+
+
+def device_kernel_ms(prof) -> dict:
+    """Each device kernel's self time in a torch.profiler run, ms, by name.
+    The device rows of user annotations (`Optimizer.step#SGD.step` spans
+    the optimizer's kernels) are left out: their kernels count already."""
+    from torch.autograd import DeviceType
+
+    return {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation}
+
+
 def step_busy_ms(step, state, batch: dict) -> tuple:
     """(device-busy ms, wall ms) of one training step under torch.profiler:
     the device-side events' self times, and the host clock to a synchronise."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     device = batch["data"].device
@@ -260,9 +413,7 @@ def step_busy_ms(step, state, batch: dict) -> tuple:
         train_steps(step, state, batch, 1)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
-    busy = sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA) / 1e3
-    return busy, wall * 1e3
+    return sum(device_kernel_ms(prof).values()), wall * 1e3
 
 
 def bench_train(device) -> list:
@@ -272,14 +423,7 @@ def bench_train(device) -> list:
     for feed in ("sparse", "dense"):
         step, state, batch = train_setup(device, dense=feed == "dense")
         train_steps(step, state, batch, 1)  # cuDNN's plans, the kernels' library
-        restore = snapshot(step, state)
-
-        def run(n):
-            restore()
-            return timed(lambda: train_steps(step, state, batch, n), device)
-
-        dev_s, host_s = differenced_median(run, *TRAIN_N)
-        restore()
+        dev_s, host_s = train_seconds(step, state, batch, *TRAIN_N)
         busy_ms, wall_ms = step_busy_ms(step, state, batch)
         per_feed[feed] = dev_s
         lines.append({"feed": feed, "s_per_iter": dev_s, "host_s_per_iter": host_s,
@@ -294,7 +438,303 @@ def bench_train(device) -> list:
     return lines
 
 
-COMMANDS = {"infer": bench_infer, "phases": bench_phases, "train": bench_train}
+def scaled_sum(scale: float):
+    """A bench body's fp32 scalar: the sum of its one output × scale, as
+    the JAX scripts' loop bodies return it."""
+    return lambda out: (out.sum(dtype=torch.float32) * scale).float()
+
+
+def planted_slots(device) -> tuple:
+    """The c2f and Hough-phase benches' inputs (`bench_graph_phases.py:
+    122-137`): the planted label (1, H, W), the vertex map of
+    RandomState(0) (1, H, W, 3C), the seeded inputs' extents and meta, and
+    `_prepare_slots`' packed samples (8, 8, 128) and boxes (8, 4)."""
+    inp = make_inputs(1, HEIGHT, WIDTH, NUM_CLASSES, device=device)
+    rng = np.random.RandomState(0)
+    label = np.zeros((HEIGHT, WIDTH), np.int64)
+    ys, xs = np.mgrid[0:HEIGHT, 0:WIDTH]
+    for cls, cx, cy, r in PLANTED_LABEL:
+        label[(np.abs(xs - cx) < r) & (np.abs(ys - cy) < r)] = cls
+    label = torch.from_numpy(label[None]).to(device)
+    vert = torch.from_numpy(
+        rng.randn(1, HEIGHT, WIDTH, 3 * NUM_CLASSES).astype(np.float32) * 0.3).to(device)
+    prep = _prepare_slots(label[0], vert[0], inp["extents"], inp["meta"][0],
+                          num_classes=NUM_CLASSES, **PREP_KW)
+    return label, vert, inp["extents"], inp["meta"], prep["packed"], prep["bboxes"]
+
+
+def c2f_body(samples, bboxes, *, coarse_factor: int, top_t: int):
+    """One body of the c2f sweep: the single-instance c2f maximum at a
+    tuning, stride 1 over 480×640; reduce with `c2f_sum`."""
+    return hough_votes_c2f(samples, bboxes, cell_stride=1, grid_h=HEIGHT, grid_w=WIDTH,
+                           coarse_factor=coarse_factor, top_t=top_t)
+
+
+def c2f_sum(out) -> torch.Tensor:
+    """sum(votes)·1e-6 + sum(cy)·1e-9 (`bench_graph_phases.py:150`)."""
+    votes, _, cy, _ = out
+    return (votes.sum() * 1e-6 + cy.sum() * 1e-9).float()
+
+
+def bench_c2f(device) -> list:
+    """`bench_graph_phases.py`'s file: the `phases` lines, then the c2f
+    tunings from CUDA graphs; writes C2F_OUT."""
+    card = card_line()
+    lines = bench_phases(device)
+    results = {k: v for k, v in lines[-1].items() if k not in ("metric", "unit", "timing")
+               and k not in card}
+    *_, packed, bboxes = planted_slots(device)
+    for name, tuning in C2F_TUNINGS:
+        dev_s, host_s, launches = graph_seconds(partial(c2f_body, **tuning), (packed, bboxes),
+                                                *C2F_N, reduce=c2f_sum)
+        results[name] = dev_s * 1e3
+        lines.append({"phase": name, **tuning, "ms": dev_s * 1e3, "host_ms": host_s * 1e3,
+                      "launches_per_body": launches, **card})
+    os.makedirs(os.path.dirname(C2F_OUT), exist_ok=True)
+    with open(C2F_OUT, "w") as f:
+        json.dump(results, f, indent=2)
+    lines.append({"metric": "posecnn_torch_c2f_tunings_480x640_h100", "unit": "ms",
+                  "timing": "cuda_graph",
+                  **{name: results[name] for name, _ in C2F_TUNINGS}, "wrote": C2F_OUT, **card})
+    return lines
+
+
+def bench_components(device) -> list:
+    """`bench_components.py`: each component alone, from a CUDA graph."""
+    card = card_line()
+    inp = make_inputs(1, HEIGHT, WIDTH, NUM_CLASSES, device=device)
+    data, extents, meta = inp["data"], inp["extents"], inp["meta"]
+    lines, results = [], {}
+
+    def report(name, fn, args, reduce=checksum):
+        dev_s, host_s, launches = graph_seconds(fn, args, *COMPONENTS_N, reduce=reduce)
+        results[name] = dev_s * 1e3
+        lines.append({"component": name, "ms": dev_s * 1e3, "host_ms": host_s * 1e3,
+                      "launches_per_body": launches, **card})
+
+    trunk = VGG16Trunk(compute_dtype=torch.bfloat16)
+    init_weights(trunk, 0)
+    trunk = trunk.to(device).eval()
+
+    @torch.inference_mode()
+    def conv5_3(x):
+        return trunk(x)[1]
+
+    report("trunk", conv5_3, (data,), reduce=scaled_sum(1e-9))
+    del trunk
+    for name, switches in COMPONENT_MODELS:
+        report(name, forward_fn(flagship_model(1, device=device, **switches)),
+               (data, extents, meta))
+
+    # Hough alone on a label in all classes (bench_components.py:92-108)
+    rng = np.random.RandomState(0)
+    label = torch.from_numpy(rng.randint(0, NUM_CLASSES, (1, HEIGHT, WIDTH))).to(device)
+    vert = torch.from_numpy(
+        rng.randn(1, HEIGHT, WIDTH, 3 * NUM_CLASSES).astype(np.float32) * 0.3).to(device)
+
+    def hough_rois(v, lab, ext, m):
+        return hough_voting(lab, v, ext, m, vote_threshold=-1.0, num_samples=128,
+                            max_objects_per_image=8, cell_stride=1).rois
+
+    report("hough_alone", hough_rois, (vert, label, extents, meta), reduce=scaled_sum(1e-6))
+    del label, vert
+
+    # RoI pool and pose head alone (bench_components.py:110-134)
+    c4 = torch.from_numpy(rng.randn(1, HEIGHT // 8, WIDTH // 8, 512).astype(np.float32))
+    c5 = torch.from_numpy(rng.randn(1, HEIGHT // 16, WIDTH // 16, 512).astype(np.float32))
+    n = COMPONENT_ROIS
+    rois = np.stack([np.zeros(n), np.arange(1, n + 1), rng.uniform(0, WIDTH / 2, n),
+                     rng.uniform(0, HEIGHT / 2, n), rng.uniform(WIDTH / 2, WIDTH, n),
+                     rng.uniform(HEIGHT / 2, HEIGHT, n), np.ones(n)], axis=1).astype(np.float32)
+    head = PoseHead(NUM_CLASSES, 7 * 7 * 512, compute_dtype=torch.bfloat16)
+    init_weights(head, 0)
+    head = head.to(device).eval()
+    pose_weight = torch.zeros((n, 4 * NUM_CLASSES), device=device)
+    pose_weight[:, :4] = 1.0
+
+    @torch.inference_mode()
+    def pose_head(conv4, conv5, boxes, pw):
+        return head(roi_pool_fused(conv4, conv5, boxes), pw)[0]
+
+    report("roi_posehead_alone", pose_head,
+           (c4.to(device), c5.to(device), torch.from_numpy(rois).to(device), pose_weight),
+           reduce=scaled_sum(1e-6))
+    lines.append({"metric": "posecnn_torch_components_480x640_22cls_h100", "unit": "ms",
+                  "timing": "cuda_graph", "summary_ms": results, **card})
+    return lines
+
+
+def bench_hough(device) -> list:
+    """`bench_hough_phases.py`: the prep and the exhaustive vote alone on
+    the planted samples, then the full forward at batch 1 and 4."""
+    card = card_line()
+    label, vert, extents, meta, packed, bboxes = planted_slots(device)
+    lines, results = [], {}
+
+    def prep_packed(v, lab, ext, m):
+        return _prepare_slots(lab[0], v[0], ext, m[0], num_classes=NUM_CLASSES,
+                              **PREP_KW)["packed"]
+
+    def exhaustive_votes(samples, boxes):
+        return hough_votes_exhaustive(samples, boxes, cell_stride=1, grid_h=HEIGHT,
+                                      grid_w=WIDTH)[0]
+
+    for name, fn, args in (("prepare_slots", prep_packed, (vert, label, extents, meta)),
+                           ("vote_kernel_realistic", exhaustive_votes, (packed, bboxes))):
+        dev_s, host_s, launches = graph_seconds(fn, args, *HOUGH_N, reduce=scaled_sum(1e-6))
+        results[name] = dev_s * 1e3
+        lines.append({"phase": name, "ms": dev_s * 1e3, "host_ms": host_s * 1e3,
+                      "launches_per_body": launches, **card})
+    del label, vert
+    for b in (1, 4):
+        inp = make_inputs(b, HEIGHT, WIDTH, NUM_CLASSES, device=device)
+        fn = forward_fn(flagship_model(1, device=device))
+        dev_s, host_s, launches = graph_seconds(fn, (inp["data"], inp["extents"], inp["meta"]),
+                                                *HOUGH_N)
+        results[f"full_batch{b}_ms_per_image"] = dev_s * 1e3 / b
+        lines.append({"phase": f"full_batch{b}", "ms_per_batch": dev_s * 1e3,
+                      "ms_per_image": dev_s * 1e3 / b, "fps_per_image": b / dev_s,
+                      "host_ms_per_batch": host_s * 1e3, "launches_per_forward": launches,
+                      **card})
+    lines.append({"metric": "posecnn_torch_hough_phases_480x640_22cls_h100", "unit": "ms",
+                  "timing": "cuda_graph", **results, **card})
+    return lines
+
+
+def train_differences(ms: dict) -> dict:
+    """The differences `bench_train_components.py:162-167` derives from
+    the variants' ms a step."""
+    return {"pose_branch_ms": ms["full"] - ms["no_pose"],
+            "vertex_branch_ms": ms["no_pose"] - ms["seg_only"],
+            "add_points_ms": ms["full"] - ms["add_p128"],
+            "fc_width_ms": ms["full"] - ms["fc1024"],
+            "fixed_cost_est_ms": (4 * ms["res_240x320"] - ms["full"]) / 3,
+            "compaction_saves_ms": ms["rows_126"] - ms["rows_126_compact64"]}
+
+
+def train_variant_seconds(device, **variant) -> tuple:
+    """(device s, host s) a step of `train`'s step with `variant`'s
+    changes (`train_setup`'s keywords), warmed once, n 3 / 23; then the
+    device-busy ms of one profiled step (`step_busy_ms`)."""
+    step, state, batch = train_setup(device, **variant)
+    train_steps(step, state, batch, 1)  # cuDNN's plans, the kernels' library
+    dev_s, host_s = train_seconds(step, state, batch, *TRAIN_COMPONENTS_N)
+    return dev_s, host_s, step_busy_ms(step, state, batch)[0]
+
+
+def bench_train_components(device) -> list:
+    """`bench_train_components.py`: the nine variants, then the derived
+    differences. The eager step waits on its host work, which a variant
+    may change less than its device work, so each variant's device-busy
+    ms and their differences stand beside the script's."""
+    card = card_line()
+    lines, ms, busy = [], {}, {}
+    for name, variant in TRAIN_VARIANTS:
+        dev_s, host_s, busy[name] = train_variant_seconds(device, **variant)
+        ms[name] = dev_s * 1e3
+        lines.append({"variant": name, **variant, "ms_per_iter": dev_s * 1e3,
+                      "host_ms_per_iter": host_s * 1e3,
+                      "profiled_step_device_busy_ms": busy[name], **card})
+        torch.cuda.empty_cache()
+    lines.append({"metric": "posecnn_torch_train_components_480x640_b2_h100", "unit": "ms/iter",
+                  "timing": "eager", **ms, **train_differences(ms), "device_busy_ms": busy,
+                  "device_busy_differences": train_differences(busy), **card})
+    return lines
+
+
+def mfu_setup(batch: int, scale: float) -> dict:
+    """`train_setup`'s keywords at one point of `bench_train_mfu.py`
+    (`:57-91`)."""
+    return dict(batch=batch, height=int(HEIGHT * scale), width=int(WIDTH * scale),
+                focal_scale=scale, max_gt=8 * batch,
+                max_objects=max(1, 16 * batch // max(batch, 1) // 9), gt_pose_rois=True,
+                train={"max_rois": 16 * batch, "gt_pose_rois": True, "optimizer": "adam",
+                       "grad_clip": 35.0})
+
+
+def bench_train_mfu(device) -> list:
+    """`bench_train_mfu.py`: s a step eager and busy on the device, FLOPs
+    and MFU of each at each point; writes MFU_OUT."""
+    card = card_line()
+    lines = []
+    for b, scale in MFU_POINTS:
+        torch.cuda.reset_peak_memory_stats(device)
+        setup = mfu_setup(b, scale)
+        step, state, batch = train_setup(device, **setup)
+        t0 = time.perf_counter()
+        train_steps(step, state, batch, 1)
+        torch.cuda.synchronize(device)
+        warmup_s = time.perf_counter() - t0
+        dev_s, host_s = train_seconds(step, state, batch, *MFU_N)
+        busy_ms = step_busy_ms(step, state, batch)[0]
+        flops = step_flops(step, state, batch)
+        achieved, achieved_busy = flops / dev_s / 1e12, flops / busy_ms / 1e9
+        lines.append({"batch": b, "scale": scale, "hw": [setup["height"], setup["width"]],
+                      "s_per_iter_eager": dev_s, "host_s_per_iter": host_s,
+                      "samples_per_s": b / dev_s, "step_flops": flops,
+                      "achieved_tflops": achieved, "mfu_pct": 100 * achieved / PEAK_BF16_TFLOPS,
+                      "step_busy_ms": busy_ms, "achieved_tflops_busy": achieved_busy,
+                      "mfu_pct_busy": 100 * achieved_busy / PEAK_BF16_TFLOPS,
+                      "peak_tflops": PEAK_BF16_TFLOPS, "warmup_s": warmup_s,
+                      "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9, **card})
+        del step, state, batch
+        torch.cuda.empty_cache()
+    out = {"metric": "posecnn_torch_train_mfu_sweep_h100", "points": lines, **card}
+    os.makedirs(os.path.dirname(MFU_OUT), exist_ok=True)
+    with open(MFU_OUT, "w") as f:
+        json.dump(out, f, indent=2)
+    return lines + [{**out, "points": len(lines), "wrote": MFU_OUT}]
+
+
+def trace_dir() -> str:
+    """Where `profile` writes its chrome trace."""
+    return os.environ.get("POSECNN_TRACE_DIR",
+                          os.path.join(tempfile.gettempdir(), "posecnn_torch_trace"))
+
+
+def bench_profile(device) -> list:
+    """`profile_train.py`: the step's MFU at a host read a step, then a
+    torch.profiler trace of 5 steps and its top device kernels; writes
+    PROFILE_OUT."""
+    from torch.profiler import ProfilerActivity, profile
+
+    card = card_line()
+    step, state, batch = train_setup(device)
+    train_steps(step, state, batch, 1)  # warm, outside the trace
+    torch.cuda.synchronize(device)
+    flops = step_flops(step, state, batch)
+    t0 = time.perf_counter()
+    for _ in range(PROFILE_HOST_SYNC_STEPS):
+        float(train_steps(step, state, batch, 1))
+    dt = (time.perf_counter() - t0) / PROFILE_HOST_SYNC_STEPS
+    mfu_line = {"metric": "posecnn_torch_train_step_mfu_h100", "step_flops": flops,
+                "s_per_iter_host_sync": dt, "achieved_tflops": flops / dt / 1e12,
+                "peak_tflops_assumed": PEAK_BF16_TFLOPS,
+                "mfu": flops / dt / (PEAK_BF16_TFLOPS * 1e12), **card}
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_TRACED_STEPS):
+            float(train_steps(step, state, batch, 1))  # a host read a step, as the script
+    path = trace_dir()
+    os.makedirs(path, exist_ok=True)
+    trace = os.path.join(path, "train_step.trace.json")
+    prof.export_chrome_trace(trace)
+    kernels = device_kernel_ms(prof)
+    plane = f"/device:GPU:0 ({card['device']})"
+    per_plane = {plane: dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:PROFILE_TOP])}
+    os.makedirs(os.path.dirname(PROFILE_OUT), exist_ok=True)
+    with open(PROFILE_OUT, "w") as f:
+        json.dump({"mfu": mfu_line, "per_plane": per_plane, "trace": trace}, f, indent=1)
+    return [mfu_line, {"plane": plane, "top_kernels_ms": per_plane[plane], **card},
+            {"metric": "posecnn_torch_train_profile_h100", "planes": list(per_plane),
+             "steps": PROFILE_TRACED_STEPS, "device_kernel_ms": sum(kernels.values()),
+             "kernels": len(kernels), "trace": trace, "wrote": PROFILE_OUT, **card}]
+
+
+COMMANDS = {"infer": bench_infer, "phases": bench_phases, "train": bench_train, "c2f": bench_c2f,
+            "components": bench_components, "hough": bench_hough,
+            "train_components": bench_train_components, "train_mfu": bench_train_mfu,
+            "profile": bench_profile}
 
 
 def main(argv=None) -> int:

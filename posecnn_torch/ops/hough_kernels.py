@@ -322,16 +322,20 @@ def hough_votes_c2f_windows(samples, bboxes, *, cell_stride: int, grid_h: int, g
     return (votes_w.reshape(k, top_t, TILE), dsum_w.reshape(k, top_t, TILE), oy, ox, enable)
 
 
-def hough_votes_c2f(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int):
+def hough_votes_c2f(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: int,
+                    top_t: int = TOP_T, coarse_factor: int = COARSE):
     """Coarse-to-fine single-instance vote maximum per class slot
-    (`hough_pallas.hough_votes_c2f`). Returns (best_votes, best_dsum,
-    best_cy, best_cx), each (K,); the cell coordinates in fine cells."""
+    (`hough_pallas.hough_votes_c2f`): the coarse pass at stride
+    `coarse_factor`, then `top_t` windows a slot. Returns (best_votes,
+    best_dsum, best_cy, best_cx), each (K,); the cell coordinates in fine
+    cells."""
     k = samples.shape[0]
     vw3, dw3, oy, ox, _ = hough_votes_c2f_windows(
-        samples, bboxes, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w
+        samples, bboxes, cell_stride=cell_stride, grid_h=grid_h, grid_w=grid_w, top_t=top_t,
+        coarse_factor=coarse_factor,
     )
-    vw = vw3.reshape(k, TOP_T * TILE)
-    dw = dw3.reshape(k, TOP_T * TILE)
+    vw = vw3.reshape(k, top_t * TILE)
+    dw = dw3.reshape(k, top_t * TILE)
     best = torch.argmax(vw, dim=1, keepdim=True)  # first maximum, as jnp.argmax
     t_idx = best // TILE
     cell = (best % TILE)[:, 0]

@@ -50,9 +50,13 @@ def eager_loop(fn: Callable, args: Sequence[torch.Tensor], n: int) -> torch.Tens
     return acc
 
 
-def capture_loop(fn: Callable, args: Sequence[torch.Tensor], n: int):
+def capture_loop(fn: Callable, args: Sequence[torch.Tensor], n: int,
+                 reduce: Callable = checksum):
     """Capture n bodies of `fn(data + acc·1e-20, *args[1:])` into one CUDA
-    graph; args[0] is data, and every arg must be a CUDA tensor.
+    graph; args[0] is data, and every arg must be a CUDA tensor. `reduce`
+    turns a body's outputs into its fp32 scalar (the forward's `checksum`
+    by default; a bench of one component passes the sum its JAX loop
+    body returns).
 
     Returns (replay, outputs, launches): replay() runs the graph and
     returns acc (no synchronise); outputs are the last body's outputs,
@@ -74,7 +78,7 @@ def capture_loop(fn: Callable, args: Sequence[torch.Tensor], n: int):
         acc.zero_()
         for _ in range(n):
             outputs = fn(data + acc * 1e-20, *rest)
-            acc.copy_(checksum(outputs))
+            acc.copy_(reduce(outputs))
     launches = {k: (hough_kernels.LAUNCHES[k] - before[k]) / n for k in before}
 
     def replay() -> torch.Tensor:

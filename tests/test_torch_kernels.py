@@ -7,8 +7,10 @@ No JAX here, so the file also runs on the GPU machine, where the
 
 Each kernel is held to its plain version bit for bit (NaN where the
 plain version gives NaN), at small scenes and at `chip_smoke`'s edge
-cases (the exhaustive vote at stride 1, the c2f pair as c2f runs them). Without a card those skip; the CPU tests check the plain c2f path
-against the plain exhaustive vote and the launch bookkeeping.
+cases (the exhaustive vote at stride 1, the c2f pair as c2f runs them)
+and at the four tunings of `bench c2f`. Without a card those skip; the
+CPU tests check the plain c2f path against the plain exhaustive vote and
+the launch bookkeeping.
 """
 
 import pytest
@@ -181,6 +183,26 @@ def test_window_kernel_and_c2f_match_plain(cuda, name):
     bp = hk.hough_votes_c2f(samples.cpu(), bboxes.cpu(), **kw)
     for got, want in zip(bk, bp):
         assert_exact(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("factor, top_t", [(4, 4), (8, 4), (4, 2), (8, 2)])
+@pytest.mark.parametrize("name", ["two", "edge_three", "empty"])
+def test_c2f_pair_matches_plain_at_each_tuning(cuda, name, factor, top_t):
+    """The tunings of `bench c2f` (coarse factor 4 or 8, 4 or 2 windows a
+    slot): the flat pass at stride `factor`, the windows, the maximum."""
+    samples, bboxes = packed(name, cuda)
+    kw = dict(cell_stride=1, grid_h=H, grid_w=W, coarse_factor=factor, top_t=top_t)
+    n0 = dict(hk.LAUNCHES)
+    got = hk.hough_votes_c2f_windows(samples, bboxes, **kw)
+    torch.cuda.synchronize()
+    assert hk.LAUNCHES["flat"] == n0["flat"] + 1 and hk.LAUNCHES["window"] == n0["window"] + 1
+    assert got[0].shape == (samples.shape[0], top_t, hk.TILE)
+    for a, b in zip(got, hk.hough_votes_c2f_windows(samples.cpu(), bboxes.cpu(), **kw)):
+        assert_exact(a, b)
+    for a, b in zip(hk.hough_votes_c2f(samples, bboxes, **kw),
+                    hk.hough_votes_c2f(samples.cpu(), bboxes.cpu(), **kw)):
+        assert_exact(a, b)
 
 
 @pytest.mark.cuda
