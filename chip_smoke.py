@@ -25,9 +25,19 @@ that fails, with a non-zero exit:
      centres and depths are recovered;
   4. the whole model, small and in fp32, on the card against the CPU;
   5. the HTTP server at full width (22 classes, 480×640, num_units 64,
-     fc_dim 4096, 1024 Hough samples, seeded random weights) answering
-     POST /infer requests, with the kernel launch counts of that run
-     and the request and forward times;
+     fc_dim 4096, 1024 Hough samples, seeded random weights), its forward
+     compiled (one CUDA graph per engine, `utils/graph.compile_static`),
+     at engine batch 1 (5 requests) and 4 (8 requests from 4 clients
+     through the MicroBatcher): the captured forward records flat and
+     window once, the requests replay it (no wrapper call) and the
+     kernels count one flat and one window launch a forward on the
+     device; on three frames in a row (random, planted, zeros) the
+     graph's label, RoIs, poses and NMS keep mask equal the eager body's
+     bit for bit; flat, window and tile bit for bit against their plain
+     versions on the planted frame's Hough inputs (8 slots at batch 1, 32
+     at batch 4, S = 1024); the forward's ms as the graph and eager (CUDA
+     events); then 200 more requests: the median and p90
+     request, the server's forward + fetch and the body's decode;
   6. the checks of `python -m posecnn_torch.cli.validate`, in process:
      c2f equals the exhaustive vote on a rendered 480×640 22-class
      scene, and every backend finds both of two same-class instances
@@ -54,14 +64,19 @@ that fails, with a non-zero exit:
      (FlopCounterMode) with MFU;
   9. the evaluation path at full width (the flagship yaml, seeded random
      weights): `python -m posecnn_torch.cli.test_net --refine` in process
-     on 8 held-out frames, with images/s and the seconds of render,
-     forward, NMS + extraction, ICP and the evaluator, each forward's
-     flat and window kernels bit for bit against their plain versions on
-     its own packed samples and window origins; `test_icp`'s drive at
-     480×640 with and without the rotation sweep (TE must fall), its
-     scenes refined on the card and the CPU and held by the ICP tests'
-     scene rule, `icp_refine_batch`'s device time a frame and a profile of
-     one frame (launches, device busy time, the host's costliest ops); RANSAC centres of the
+     on 8 held-out frames, compiled (the forward one graph, ICP one graph
+     per object count), with images/s and the seconds of render,
+     forward, NMS + extraction, ICP and the evaluator (a run without the
+     recording), then again recorded (`compiled_run`): every compiled
+     call (forward and ICP) equal to its eager run bit for bit, each
+     forward's flat and window kernels bit for bit against their plain
+     versions on its own packed samples and window origins; `test_icp`'s
+     drive at 480×640 with and without the rotation sweep (TE must fall),
+     compiled and held to eager, its scenes refined on the card and the
+     CPU and held by the ICP tests' scene rule, `icp_refine_batch`'s
+     device time a frame eager and compiled (equal bit for bit) and a
+     profile of one frame each way (device events, device busy time,
+     wall, the host's costliest ops); RANSAC centres of the
      planted scene within 1 px, card against CPU; the evaluator on the
      card against the CPU on the run's detections;
  10. the real-frame family at full width: a YCB-Video tree written to a
@@ -95,8 +110,9 @@ that fails, with a non-zero exit:
      snapshot of those steps (8 held-out renders; images/s, stage seconds,
      mAP, `eval_det.json`); `python -m posecnn_torch.cli.demo --refine` on 5
      rendered 480×640 frames in the demo's format with the flagship yaml's
-     widths, flat and window launched once a forward and bit for bit equal
-     to plain on each forward's inputs.
+     widths, compiled (its forward and ICP), every compiled call equal to
+     its eager run bit for bit, flat and window launched once a replayed
+     forward and bit for bit equal to plain on each forward's inputs.
 
  12. the segmentation and video families and fusion at full width, with
      seeded random weights: 4 train steps each of
@@ -216,7 +232,16 @@ that fails, with a non-zero exit:
      row a step and the evaluation's row, finite.
 
 Every scene the script renders goes through the C++ loops of
-`data/native.py`.
+`data/native.py`. Every `test_net` and demo run goes through
+`compiled_run`: the CLI's compiled calls keep a copy of each call, which
+is run again eagerly after the CLI returns (recording the forward's
+Hough inputs for the kernel checks) and held to the graph's outputs bit
+for bit. A graph's replays call no wrapper, so the launches of a run
+that replays graphs (the HTTP requests, the compiled CLIs) are the ones
+the kernels count on the device (`device_counted`,
+`hough_kernels.device_launches`), with those counts and the wrappers'
+set to 0 just before the run; its times come from a pass without the
+recording where the phase prints them so.
 
 The line before the last is one JSON object with the kernels' results;
 the last line is {"ok": true, "device": {...}}. Without a CUDA device,
@@ -759,84 +784,191 @@ def phase_small_model(device):
           + (", rois/poses_init/poses_pred within 1e-3" if agree == 1.0 else ""), flush=True)
 
 
-def phase_serve(card):
-    """The HTTP serving path at full width; returns the launch counts of
-    the requests."""
-    import torch
+FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1}  # a captured forward's launches (c2f)
+# phase 5: requests a counted pass sends (batch 1: the five images in turn;
+# batch 4: twice the batch from as many clients), and requests a timed
+# pass sends, its clients as many as the batch
+SERVE_TIMED = 200
 
-    from posecnn_torch.cli.serve import build_engine, make_parser, make_server
-    from posecnn_torch.cli.validate import device_ms
+
+def device_counted(call):
+    """call() with the vote kernels' counts set to 0 just before it: the
+    wrappers' (`hough_kernels.LAUNCHES`) and the kernels' own on the
+    device (`hough_kernels.device_launches`). Returns (call's result, the
+    wrappers' counts after it: the kernels they launched eagerly, and the
+    device's: those and the ones graph replays made, which call no
+    wrapper)."""
     from posecnn_torch.ops import hough_kernels as hk
 
-    args = make_parser().parse_args(["--port", "0"])
-    t0 = time.perf_counter()
-    engine = build_engine(args)
-    cfg_line = (f"{engine.num_classes} classes, {engine.height}x{engine.width}, fc_dim "
-                f"{engine.model.pose_head.fc6.out_features}, samples "
-                f"{engine.model.hough_kw['num_samples']}")
-    setup_s = time.perf_counter() - t0
-    server = make_server(engine, "127.0.0.1", 0)
-    port = server.server_address[1]
-    thread = threading.Thread(target=server.serve_forever, daemon=True)
-    thread.start()
+    for key in hk.LAUNCHES:
+        hk.LAUNCHES[key] = 0
+    hk.reset_device_launches()
+    out = call()
+    counted = hk.device_launches()
+    calls = {k: hk.LAUNCHES[k] for k in KERNELS}
+    return out, calls, {k: counted[k] for k in KERNELS}
+
+
+def phase_serve(card):
+    """The HTTP serving path at full width, compiled, at engine batch 1 and
+    4 (the MicroBatcher behind 4 clients). Returns (each vote kernel's
+    launches counted on the device in the batch-1 HTTP run, each engine's
+    captured body's launches)."""
+    from concurrent.futures import ThreadPoolExecutor as Clients
+
+    import torch
+
+    from posecnn_torch.cli.serve import _decode_image, build_engine, make_parser, make_server
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops import hough_kernels as hk
+    from posecnn_torch.ops.nms import greedy_keep
+
     label, _ = planted_scene(HEIGHT, WIDTH, NUM_CLASSES, PLANTED)
+    planted = (label * 11 % 256).astype(np.uint8)[:, :, None].repeat(3, 2)
     rng = np.random.RandomState(1)
-    images = [rng.randint(0, 255, (HEIGHT, WIDTH, 3), np.uint8) for _ in range(4)]
-    images.append((label * 11 % 256).astype(np.uint8)[:, :, None].repeat(3, 2))
+    images = [rng.randint(0, 255, (HEIGHT, WIDTH, 3), np.uint8) for _ in range(4)] + [planted]
+    bodies_json = [json.dumps({"image_b64": base64.b64encode(img.tobytes()).decode(),
+                               "shape": list(img.shape)}).encode() for img in images]
+    keys = {"detections", "label_shape", "seconds", "batch_seconds", "batch_size"}
+    parts, bodies, http_launches = [], {}, None
+    for batch in (1, 4):
+        args = make_parser().parse_args(["--port", "0", "--batch", str(batch)])
+        t0 = time.perf_counter()
+        engine = build_engine(args)  # builds, warms up and captures the graph
+        setup_s = time.perf_counter() - t0
+        cfg_line = (f"{engine.num_classes} classes, {engine.height}x{engine.width}, fc_dim "
+                    f"{engine.model.pose_head.fc6.out_features}, samples "
+                    f"{engine.model.hough_kw['num_samples']}")
+        (program,) = engine._compiled.programs.values()
+        bodies[f"serve batch {batch}"] = program.launches
+        if program.launches != FORWARD_BODY:
+            raise AssertionError(f"serve batch {batch}: the captured forward records "
+                                 f"{program.launches}, not {FORWARD_BODY}")
+        server = make_server(engine, "127.0.0.1", 0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
 
-    def post(img):
-        body = json.dumps({"image_b64": base64.b64encode(img.tobytes()).decode(),
-                           "shape": list(img.shape)}).encode()
-        req = urllib.request.Request(f"http://127.0.0.1:{port}/infer", data=body,
-                                     headers={"Content-Type": "application/json"})
-        t = time.perf_counter()
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            status, out = resp.status, json.loads(resp.read())
-        return status, out, (time.perf_counter() - t) * 1000
+        def post(i):
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/infer",
+                                         data=bodies_json[i % len(images)],
+                                         headers={"Content-Type": "application/json"})
+            t = time.perf_counter()
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                status, out = resp.status, json.loads(resp.read())
+            return status, out, (time.perf_counter() - t) * 1000
 
-    try:
+        def send(n):
+            if batch == 1:
+                return [post(i) for i in range(n)]
+            with Clients(batch) as clients:
+                return list(clients.map(post, range(n)))
+
+        try:
+            # the counted pass: the replays' launches counted on the device
+            results, calls, counted = device_counted(
+                lambda: send(len(images) if batch == 1 else 2 * batch))
+            # the timed pass
+            timed = send(SERVE_TIMED)
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        n_det = 0
+        for status, out, _ in results + timed:
+            if status != 200 or set(out) != keys:
+                raise AssertionError(f"bad response {status}: {str(out)[:200]}")
+            for det in out["detections"]:
+                vals = det["quat_wxyz"] + det["trans"] + det["roi"] + [det["score"]]
+                if not np.all(np.isfinite(vals)):
+                    raise AssertionError(f"non-finite detection {det}")
+                if abs(np.linalg.norm(det["quat_wxyz"]) - 1.0) > 1e-3:
+                    raise AssertionError(f"quaternion not unit-norm: {det}")
+                n_det += 1
+        # each forward answers batch_size requests: the counted pass's forwards
+        forwards = sum(1.0 / out["batch_size"] for _, out, _ in results)
+        if abs(forwards - round(forwards)) > 1e-6:
+            raise AssertionError(f"serve batch {batch}: batch sizes "
+                                 f"{[o['batch_size'] for _, o, _ in results]}")
+        forwards = round(forwards)
+        if batch == 1:
+            http_launches = counted
+        # the requests replayed the graph: no wrapper call, and the device
+        # counted one flat and one window launch a forward
+        if any(calls.values()) or counted["flat"] != forwards or counted["window"] != forwards:
+            raise AssertionError(f"serve batch {batch}: wrapper calls {calls}, launches counted "
+                                 f"on the device {counted}, {forwards} forwards")
+
+        # graph against the eager body, bit for bit, on three frames in a row
+        # (random, planted, zeros): stale or aliased static buffers show here
+        meta = torch.from_numpy(engine._meta0).to(engine.device)
+
+        def eager(data):
+            *outputs, suppression = engine._compiled.fn(data, meta)
+            return (*outputs, greedy_keep(suppression))
+
+        frames = [rng.randint(0, 255, (batch, HEIGHT, WIDTH, 3), np.uint8),
+                  np.repeat(planted[None, :, :, ::-1], batch, 0),
+                  np.zeros((batch, HEIGHT, WIDTH, 3), np.uint8)]
+        names = ("label_2d", "rois", "poses_init", "poses_pred", "keep")
+        for i, frame in enumerate(frames):
+            data = torch.from_numpy(np.ascontiguousarray(frame)).to(engine.device)
+            got = [t.clone() for t in engine.infer_device(data, meta)]
+            want = eager(data)
+            for name, g, w in zip(names, got, want):
+                if not exact(g, w)[1]:
+                    raise AssertionError(f"serve batch {batch}, frame {i}: the graph's {name} "
+                                         f"differs from the eager body's: {exact(g, w)[0]}")
+        # the planted frame's eager body with its Hough recorded (counts from
+        # 0): flat, window and tile bit for bit to plain at the engine's shapes
+        data = torch.from_numpy(np.ascontiguousarray(frames[1])).to(engine.device)
+        recorded = Recorded()
+        record, original = counting_hough(recorded)
         for key in hk.LAUNCHES:
             hk.LAUNCHES[key] = 0
-        results = [post(img) for img in images]
-        launches = dict(hk.LAUNCHES)
-    finally:
-        server.shutdown()
-        server.server_close()
-        thread.join(timeout=30)
-    n_det = 0
-    for status, out, _ in results:
-        if status != 200 or set(out) != {"detections", "label_shape", "seconds",
-                                          "batch_seconds", "batch_size"}:
-            raise AssertionError(f"bad response {status}: {str(out)[:200]}")
-        for det in out["detections"]:
-            vals = det["quat_wxyz"] + det["trans"] + det["roi"] + [det["score"]]
-            if not np.all(np.isfinite(vals)):
-                raise AssertionError(f"non-finite detection {det}")
-            if abs(np.linalg.norm(det["quat_wxyz"]) - 1.0) > 1e-3:
-                raise AssertionError(f"quaternion not unit-norm: {det}")
-            n_det += 1
-    if min(launches["flat"], launches["window"]) < 1:
-        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
-
-    # the device outputs of one forward: finite, valid quaternions unit-norm
-    frame = images[-1][: engine.height, : engine.width, ::-1]
-    data = torch.from_numpy(frame[None].copy()).to(engine.device)
-    meta = torch.from_numpy(engine._meta0).to(engine.device)
-    label_2d, rois, poses_init, poses_pred, keep = engine.infer_device(data, meta)
-    for name, t in (("rois", rois), ("poses_init", poses_init), ("poses_pred", poses_pred)):
-        if not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"non-finite {name}")
-    cls = rois[:, 1].long()
-    q = poses_pred.reshape(len(rois), -1, 4)[torch.arange(len(rois)), cls]
-    if keep.any() and not bool(((q.norm(dim=1) - 1).abs()[keep] < 1e-3).all()):
-        raise AssertionError("valid rows' quaternions are not unit-norm")
-    fwd_ms = device_ms(lambda: engine.infer_device(data, meta), engine.device, 20)
-    lat = sorted(r[2] for r in results)
-    print(f"phase 5 serve over HTTP ({cfg_line}): {len(results)} requests answered, "
-          f"{n_det} detections, launches {launches}, engine set-up {setup_s:.1f} s; "
-          f"median request {float(np.median(lat)):.2f} ms, forward {fwd_ms:.3f} ms "
-          f"(CUDA events, batch 1, after warm-up) on {card}", flush=True)
-    return launches
+        posecnn_module.hough_voting = record
+        try:
+            label_2d, rois, poses_init, poses_pred, keep = eager(data)
+        finally:
+            posecnn_module.hough_voting = original
+        errs = recorded_vs_plain(recorded, f"serve batch {batch}")
+        for name, t in (("rois", rois), ("poses_init", poses_init), ("poses_pred", poses_pred)):
+            if not bool(torch.isfinite(t).all()):
+                raise AssertionError(f"non-finite {name}")
+        cls = rois[:, 1].long()
+        q = poses_pred.reshape(len(rois), -1, 4)[torch.arange(len(rois)), cls]
+        if keep.any() and not bool(((q.norm(dim=1) - 1).abs()[keep] < 1e-3).all()):
+            raise AssertionError("valid rows' quaternions are not unit-norm")
+        graph_ms = device_ms(lambda: engine._compiled(data, meta), engine.device, 20)
+        eager_ms = device_ms(lambda: engine._compiled.fn(data, meta), engine.device, 20)
+        # the timed pass: request latency, the server's forward + fetch
+        # (batch_seconds), and the request body's decode timed in process
+        lat = np.sort([r[2] for r in timed])
+        fwd = np.array([1e3 * out["batch_seconds"] for _, out, _ in timed])
+        sizes = np.array([out["batch_size"] for _, out, _ in timed])
+        decode = []
+        for body in bodies_json:
+            t = time.perf_counter()
+            _decode_image(json.loads(body))
+            decode.append((time.perf_counter() - t) * 1e3)
+        parts.append(
+            f"batch {batch} ({cfg_line}; engine set-up with the capture {setup_s:.1f} s): "
+            f"counted pass {len(results)} requests in {forwards} forwards, launches counted on "
+            f"the device {counted} (wrapper calls {calls}); {len(frames)} frames in a row graph == "
+            f"eager bit for bit; the planted frame's Hough ({hough_shape(recorded)}) flat / "
+            f"window / tile == plain bit for bit, max_abs_err {errs}; forward with NMS's device "
+            f"part {graph_ms:.4f} ms as the graph, {eager_ms:.4f} ms eager (CUDA events, mean "
+            f"of 20); timed pass {len(timed)} requests ({n_det} detections in all): median "
+            f"{float(np.median(lat)):.2f} ms, p90 {float(lat[int(0.9 * (len(lat) - 1))]):.2f} ms, "
+            f"server forward + fetch (batch_seconds) median {float(np.median(fwd)):.2f} ms, batch "
+            f"size median {float(np.median(sizes)):.1f} (mean {float(sizes.mean()):.2f}), request "
+            f"body JSON + base64 decode {float(np.median(decode)):.2f} ms (in process, median of "
+            f"{len(decode)})")
+        del engine
+        torch.cuda.empty_cache()
+    print(f"phase 5 serve over HTTP, compiled, on {card}: " + " | ".join(parts), flush=True)
+    return http_launches, bodies
 
 
 def phase_validate(device):
@@ -1340,8 +1472,11 @@ def icp_card_vs_cpu(scene, device, rot_perturb, num_iters):
 
 def phase_eval(device, card):
     """Phase 9, the evaluation path at full width: `test_net` with ICP,
-    ICP through `test_icp`'s drive, RANSAC centres, and the evaluator, each
-    on the card against the CPU. Returns the test_net run's launches."""
+    compiled, each forward and each ICP call held to its eager run bit for
+    bit; ICP through `test_icp`'s drive, compiled and eager; RANSAC
+    centres, and the evaluator, each on the card against the CPU. Returns
+    (each vote kernel's launches in the recorded test_net run, its captured
+    forward's launches)."""
     import tempfile
 
     import torch
@@ -1349,20 +1484,20 @@ def phase_eval(device, card):
     from posecnn_torch.cli import test_icp, test_net
     from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.engine.evaluate import PoseEvaluator
-    from posecnn_torch.models import posecnn as posecnn_module
-    from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.refine.icp import icp_refine_batch
     from posecnn_torch.refine.ransac import draw_hypotheses, estimate_center
+    from posecnn_torch.utils.graph import compile_static
 
-    # 9.1: test_net in process on the flagship yaml, recording each
-    # forward's Hough inputs and what the evaluator is fed
-    recorded = {"hough": [], "images": [], "seg": []}
-    hough_voting = posecnn_module.hough_voting
-
-    def recording_hough(label, vertex, extents, meta, *args, **kw):
-        recorded["hough"].append((label.clone(), vertex.clone(), extents, meta.clone()))
-        recorded["kw"] = kw
-        return hough_voting(label, vertex, extents, meta, *args, **kw)
+    # 9.1: test_net in process on the flagship yaml, compiled: once as it
+    # is, for its images/s and stage seconds; then counted, recording what
+    # the evaluator is fed, then each forward's and each ICP call's eager
+    # run, which records the forward's Hough inputs
+    with tempfile.TemporaryDirectory() as out:
+        test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images", str(EVAL_IMAGES),
+                       "--refine", "--output", out])
+        with open(os.path.join(out, "eval.json")) as f:
+            run = json.load(f)["run"]
+    recorded = {"images": [], "seg": []}
 
     class RecordingEvaluator(PoseEvaluator):
         def __post_init__(self):
@@ -1378,15 +1513,14 @@ def phase_eval(device, card):
             super().add_image(detections, gts)
 
     with tempfile.TemporaryDirectory() as out:
-        posecnn_module.hough_voting, test_net.PoseEvaluator = recording_hough, RecordingEvaluator
+        test_net.PoseEvaluator = RecordingEvaluator
         try:
-            for key in hk.LAUNCHES:
-                hk.LAUNCHES[key] = 0
-            test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images", str(EVAL_IMAGES),
-                           "--refine", "--output", out])
-            launches = dict(hk.LAUNCHES)
+            _, run_net = compiled_run(
+                lambda: test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images",
+                                       str(EVAL_IMAGES), "--refine", "--output", out]),
+                [test_net], "test_net")
         finally:
-            posecnn_module.hough_voting, test_net.PoseEvaluator = hough_voting, PoseEvaluator
+            test_net.PoseEvaluator = PoseEvaluator
         with open(os.path.join(out, "eval.json")) as f:
             summary = json.load(f)
     ev = recorded["evaluator"]
@@ -1396,40 +1530,54 @@ def phase_eval(device, card):
             summary["seg_mean_iou"]):
         raise AssertionError(f"eval.json: {summary['num_images']} images, {len(iou)} IoUs, "
                              f"mean {summary['seg_mean_iou']}")
-    if min(launches["flat"], launches["window"]) < EVAL_IMAGES:
-        raise AssertionError(f"test_net: flat or window launched fewer than {EVAL_IMAGES} "
-                             f"times: {launches}")
-    # flat and window bit for bit on the eval forward with the most live slots
-    extents, meta = recorded["hough"][0][2], recorded["hough"][0][3]
-    inputs = {f"forward {i}": (lab, vert) for i, (lab, vert, _, _) in enumerate(recorded["hough"])}
-    shapes, errs = kernels_vs_plain(recorded["kw"], extents, meta, inputs, "test_net")
+    launches, replayed, hough_in = run_net["device"], run_net["replayed"], run_net["recorded"]
+    forwards = run_net["bodies"]["forward_with_suppression"]
+    if replayed["flat"] != EVAL_IMAGES or replayed["window"] != EVAL_IMAGES or len(
+            hough_in) != EVAL_IMAGES or run_net["forwards"] != EVAL_IMAGES or (
+            forwards != [FORWARD_BODY]):
+        raise AssertionError(f"test_net: replays launched {replayed} in {EVAL_IMAGES} frames, "
+                             f"{len(hough_in)} forwards, captured forwards {forwards}")
+    icp_graphs = len(run_net["bodies"].get("icp_refine_batch", []))
+    # flat and window bit for bit on each eval forward's Hough inputs
+    extents, kw = hough_in.call
+    meta = hough_in[0][2]
+    inputs = {f"forward {i}": (lab, vert) for i, (lab, vert, _) in enumerate(hough_in)}
+    shapes, errs = kernels_vs_plain(kw, extents, meta, inputs, "test_net")
     best = max(shapes, key=lambda n: shapes[n][1])
-    run = summary["run"]
     sec = run["seconds"]
 
-    # 9.2: test_icp's drive at full width, twice; then its scenes on the
-    # card against the CPU, and icp_refine_batch's device time a frame
+    # 9.2: test_icp's drive at full width, twice, compiled; then its scenes
+    # on the card against the CPU, and icp_refine_batch's device time a
+    # frame, eager and compiled (equal bit for bit)
     icp_lines, icp_ms, icp_rule = [], [], []
     with tempfile.TemporaryDirectory() as out:
         for rp in (0.0, 0.25):
             argv = [*EVAL_ARGS, "--device", str(device), "--output", out, "--num_scenes", "2",
                     "--rot_perturb", str(rp)]
-            rep = test_icp.main(argv)
+            rep, run_icp = compiled_run(lambda: test_icp.main(argv), [test_icp], "test_icp")
             if not rep["num_objects"] or not rep["mean_te_after_cm"] < rep["mean_te_before_cm"]:
                 raise AssertionError(f"test_icp at rot_perturb {rp}: TE "
                                      f"{rep['mean_te_before_cm']} -> {rep['mean_te_after_cm']} cm")
             icp_lines.append(f"rot_perturb {rp}: {rep['num_objects']} objects, TE "
-                             f"{rep['mean_te_before_cm']:.2f} -> {rep['mean_te_after_cm']:.2f} cm")
+                             f"{rep['mean_te_before_cm']:.2f} -> {rep['mean_te_after_cm']:.2f} cm, "
+                             f"{run_icp['checked']} compiled calls == eager")
             args = test_icp.make_parser().parse_args(argv)
             for scene in test_icp.perturbed_scenes(test_icp.load_config(args), 2,
                                                    args.rot_noise_deg, args.trans_noise):
                 icp_rule.append(icp_card_vs_cpu(scene, device, rp, args.num_iters))
                 t = [torch.from_numpy(np.asarray(scene[k])).to(device)
                      for k in ("quats", "transs", "model_pts", "depth", "masks", "k")]
-                call = partial(icp_refine_batch, *t, num_iters=args.num_iters, rot_perturb=rp)
-                icp_ms.append(device_ms(call, device, 5))
-        # one frame of the sweep profiled: the scene's launches and host ops
-        icp_prof = icp_profile(call, device)
+                kw = dict(num_iters=args.num_iters, rot_perturb=rp)
+                eager = partial(icp_refine_batch, *t, **kw)
+                compiled = partial(compile_static(icp_refine_batch), *t, **kw)
+                tree_exact(tree_map(lambda x: x.clone(), compiled()), eager(),
+                           f"ICP compiled vs eager, rot_perturb {rp}")
+                icp_ms.append((device_ms(eager, device, 5), device_ms(compiled, device, 5)))
+        # one frame of the sweep profiled, eager and compiled: the scene's
+        # device events, device busy time, wall and host ops
+        icp_prof = [icp_profile(call, device) for call in (eager, compiled)]
+        hyp = eager().hypothesis_scores.shape[1]
+        icp_scene_shape = f"{t[0].shape[0]} objects x {hyp} hypotheses"
 
     # 9.3: RANSAC centres of the planted scene's per-class directions, on
     # the card and the CPU from the same host draw
@@ -1469,22 +1617,31 @@ def phase_eval(device, card):
           f"num_units {cfg.train.num_units}, fc_dim {cfg.train.fc_dim}, "
           f"{cfg.test.hough_num_samples} samples, seeded random weights) on {card}: test_net "
           f"--refine "
-          f"{EVAL_IMAGES} images, {run['images_per_s']:.2f} images/s, seconds render "
+          f"{EVAL_IMAGES} images, {run['images_per_s']:.2f} images/s (a run without the recording), "
+          f"seconds render "
           f"{sec['render']:.3f} / forward {sec['forward']:.3f} / NMS + extraction "
           f"{sec['extract']:.3f} / ICP {sec['icp']:.3f} / evaluator {sec['evaluate']:.3f}, "
           f"{run['detections']} detections, {run['refined']} refined, seg mean IoU "
-          f"{summary['seg_mean_iou']:.4f}, launches {launches}; flat, window and tile == plain bit "
+          f"{summary['seg_mean_iou']:.4f}; compiled: the forward one graph ({forwards[0]} a "
+          f"replay), ICP {icp_graphs} graphs (one per object count); the recorded run's "
+          f"launches counted on the device {launches} (eager warm-ups, the wrappers' counts, {run_net['calls']}; graph "
+          f"replays {replayed}); "
+          f"{run_net['checked']} compiled calls (forwards and ICP) == their eager runs bit for "
+          f"bit; flat, window and tile == plain bit "
           f"for bit on every eval forward ({len(inputs)}; the liveliest, {best}: slots, live, "
           f"samples, peak coarse vote {shapes[best]}), max_abs_err {errs}; test_icp "
           f"({'; '.join(icp_lines)}), card vs CPU per scene (one step, converged share within "
           f"{ICP_ATOL}, refined poses): "
-          f"{rule}, icp_refine_batch {', '.join(f'{x:.2f}' for x in icp_ms)} ms a frame "
-          f"(CUDA events; the last frame profiled: wall {icp_prof[0]:.2f} ms, device busy "
-          f"{icp_prof[1]:.2f} ms, {icp_prof[2]} device events, top aten ops by host ms (calls, "
-          f"ms): {'; '.join(icp_prof[3])}); RANSAC centres of {len(PLANTED)} planted objects within "
+          f"{rule}, icp_refine_batch ms a frame eager / compiled (== eager bit for bit) "
+          f"{', '.join(f'{a:.3f} / {b:.3f}' for a, b in icp_ms)} (CUDA events, mean of 5); the "
+          f"last frame ({icp_scene_shape}) profiled eager / compiled: wall {icp_prof[0][0]:.2f} / "
+          f"{icp_prof[1][0]:.2f} ms, device busy {icp_prof[0][1]:.2f} / {icp_prof[1][1]:.2f} ms, "
+          f"{icp_prof[0][2]} / {icp_prof[1][2]} device events, top aten ops by host ms (calls, "
+          f"ms): {'; '.join(icp_prof[0][3])} / {'; '.join(icp_prof[1][3])}); RANSAC centres of "
+          f"{len(PLANTED)} planted objects within "
           f"{worst_px:.3f} px, card vs CPU {worst_gap:.3g} px; evaluator on the card == CPU "
           f"(largest difference {ev_gap:.3g})", flush=True)
-    return launches
+    return launches, forwards[0]
 
 
 def cfg_path(name):
@@ -1511,6 +1668,106 @@ def recording_hough(recorded):
 
 class Recorded(list):
     call = None
+
+
+def tree_map(fn, tree):
+    """fn on every tensor of a nest of tuples, named tuples, lists and
+    dicts; other leaves as they are."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return tree
+
+
+def tree_exact(got, want, where):
+    """Every tensor of `got` equal to the one at the same place of `want`,
+    element for element (NaN where NaN); raises on the first that is not."""
+    leaves = []
+    tree_map(leaves.append, got)
+    wants = []
+    tree_map(wants.append, want)
+    if len(leaves) != len(wants):
+        raise AssertionError(f"{where}: {len(leaves)} tensors against {len(wants)}")
+    for i, (g, w) in enumerate(zip(leaves, wants)):
+        if g.shape != w.shape or not exact(g, w)[1]:
+            raise AssertionError(f"{where}: output tensor {i} differs (max |d| "
+                                 f"{exact(g, w)[0] if g.shape == w.shape else 'shape'})")
+
+
+def recording_compile(made):
+    """A stand-in for `utils/graph.compile_static` that appends each
+    compiled call it makes to `made` and keeps a copy of every call's
+    arguments and outputs under the compiled call's `calls`."""
+    from posecnn_torch.utils.graph import compile_static
+
+    class Recording(compile_static):
+        def __init__(self, fn):
+            super().__init__(fn)
+            self.calls = []
+            made.append(self)
+
+        def __call__(self, *args, **kwargs):
+            out = super().__call__(*args, **kwargs)
+            self.calls.append(tree_map(lambda t: t.clone(), (args, kwargs, out)))
+            return out
+
+    return Recording
+
+
+def compiled_run(call, modules, where):
+    """call(), a CLI run, with `compile_static` of each of `modules`
+    recording (`recording_compile`), under `device_counted` (the vote
+    kernels' counts, the wrappers' and the device's, set to 0 just before
+    it);
+    then every call of every compiled program run again eagerly on its own
+    arguments, with the model's Hough recorded, and held to the graph's
+    outputs bit for bit. Returns (call's result, a dict: `calls`, the
+    wrappers' counts in the run (the eager warm-ups); `device`, each
+    kernel's launches counted on the device; `replayed`, those the graph
+    replays made (device less calls); `bodies`, each captured program's launches a
+    replay, by the compiled function's name; `forwards`, the calls of the
+    compiled forward; `recorded`, the eager reruns' Hough inputs and
+    launches (`counting_hough`, one a forward); `checked`, the calls held to
+    eager)."""
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    made = []
+    stand_in = recording_compile(made)
+    originals = [m.compile_static for m in modules]
+    for m in modules:
+        m.compile_static = stand_in
+    try:
+        result, calls, counted = device_counted(call)
+    finally:
+        for m, original in zip(modules, originals):
+            m.compile_static = original
+    replayed = {k: counted[k] - calls[k] for k in KERNELS}
+    bodies, forwards = {}, 0
+    for c in made:
+        name = getattr(c.fn, "func", c.fn).__name__
+        bodies.setdefault(name, []).extend(p.launches for p in c.programs.values())
+        if name == "forward_with_suppression":
+            forwards += len(c.calls)
+    recorded = Recorded()
+    record, original = counting_hough(recorded)
+    posecnn_module.hough_voting = record
+    checked = 0
+    try:
+        for c in made:
+            for args, kwargs, out in c.calls:
+                tree_exact(out, c.fn(*args, **kwargs), f"{where}: graph vs eager, call {checked}")
+                checked += 1
+    finally:
+        posecnn_module.hough_voting = original
+    return result, dict(calls=calls, device=counted, replayed=replayed, bodies=bodies,
+                        forwards=forwards, recorded=recorded, checked=checked)
 
 
 def domain_reversal_check(tr, batches):
@@ -1780,25 +2037,24 @@ def phase_real(card):
         del state
         torch.cuda.empty_cache()
 
-        # test_net --dataset lov --refine on the val frames, RGBD snapshot
+        # test_net --dataset lov --refine on the val frames, RGBD snapshot,
+        # compiled: with the snapshot, then with seeded random weights, whose
+        # labels leave RoIs to detect and refine (a few steps teach
+        # background); each compiled call held to its eager run, which
+        # records the forward's Hough inputs
         recorded = Recorded()
-        record, original = recording_hough(recorded)
-        # with the snapshot, then with seeded random weights, whose labels
-        # leave RoIs to detect and refine (a few steps teach background)
         written = {}
-        posecnn_module.hough_voting = record
-        try:
-            for weights, ckpt in (("snapshot", ["--ckpt", final_snapshot]), ("random", [])):
-                for key in hk.LAUNCHES:
-                    hk.LAUNCHES[key] = 0
-                test_net.main(["--dataset", "lov", "--data_root", root, "--cfg",
-                               cfg_path(REAL_CFGS[0]), *ckpt, "--refine", "--num_images",
-                               str(REAL_FRAMES[1]), "--output", os.path.join(tmp, weights)])
-                with open(os.path.join(tmp, weights, "eval.json")) as f:
-                    written[weights] = json.load(f)
-                written[weights]["launches"] = dict(hk.LAUNCHES)
-        finally:
-            posecnn_module.hough_voting = original
+        for weights, ckpt in (("snapshot", ["--ckpt", final_snapshot]), ("random", [])):
+            _, run_net = compiled_run(lambda: test_net.main(
+                ["--dataset", "lov", "--data_root", root, "--cfg", cfg_path(REAL_CFGS[0]),
+                 *ckpt, "--refine", "--num_images", str(REAL_FRAMES[1]), "--output",
+                 os.path.join(tmp, weights)]), [test_net], f"test_net --dataset lov ({weights})")
+            with open(os.path.join(tmp, weights, "eval.json")) as f:
+                written[weights] = json.load(f)
+            written[weights]["launches"] = run_net["device"]
+            written[weights]["replayed"] = run_net["replayed"]
+            recorded.extend(run_net["recorded"])
+            recorded.call = run_net["recorded"].call
     for weights, summary in written.items():
         run = summary["run"]
         finite = [summary["seg_mean_iou"], summary["add_auc"], summary["adds_auc"],
@@ -1806,9 +2062,9 @@ def phase_real(card):
         if summary["num_images"] != REAL_FRAMES[1] or not np.isfinite(finite).all() or len(
                 summary["seg_iou_per_class"]) != 22 or run["refined"] != run["detections"]:
             raise AssertionError(f"test_net --dataset lov ({weights} weights): {summary}")
-        if min(summary["launches"]["flat"], summary["launches"]["window"]) < REAL_FRAMES[1]:
-            raise AssertionError(f"test_net --dataset lov ({weights} weights): launches "
-                                 f"{summary['launches']}")
+        if not summary["replayed"]["flat"] == summary["replayed"]["window"] == REAL_FRAMES[1]:
+            raise AssertionError(f"test_net --dataset lov ({weights} weights): replays "
+                                 f"launched {summary['replayed']}")
     if written["random"]["run"]["refined"] == 0:
         raise AssertionError("test_net --dataset lov --refine: no detection to refine")
     extents, kw = recorded.call
@@ -1822,11 +2078,13 @@ def phase_real(card):
     for weights, summary in written.items():
         run, sec = summary["run"], summary["run"]["seconds"]
         evals.append(
-            f"{weights} weights: {run['images_per_s']:.2f} images/s, seconds read / forward / "
+            f"{weights} weights (compiled calls recorded): {run['images_per_s']:.2f} images/s, "
+            f"seconds read / forward / "
             f"extract / ICP / evaluator {sec['render']:.3f} / {sec['forward']:.3f} / "
             f"{sec['extract']:.3f} / {sec['icp']:.3f} / {sec['evaluate']:.3f}, "
             f"{run['detections']} detections, {run['refined']} refined, seg mean IoU "
-            f"{summary['seg_mean_iou']:.4f}, launches {summary['launches']}")
+            f"{summary['seg_mean_iou']:.4f}, launches counted on the device {summary['launches']} (graph "
+            f"replays {summary['replayed']})")
     print(f"phase 10 real frames on {card}: a fabricated YCB-Video tree (22 classes, "
           f"{REAL_FRAMES[0]} train and {REAL_FRAMES[1]} val frames at 480x640, rendered, PNG and "
           f".mat) written in {fab_s:.1f} s; "
@@ -1893,8 +2151,9 @@ def det_card_vs_cpu(device):
 
 def phase_det_demo(card):
     """Phase 11: the detection family's training and evaluation at full
-    width on lov_det.yaml, and the demo with --refine on 5 rendered frames.
-    Returns the kernels' launches in the demo run."""
+    width on lov_det.yaml, and the demo with --refine on 5 rendered frames,
+    compiled. Returns (each vote kernel's launches in the recorded demo run,
+    its captured forward's launches)."""
     import tempfile
 
     import torch
@@ -1903,8 +2162,6 @@ def phase_det_demo(card):
     from posecnn_torch.cli import demo, test_net, train_net
     from posecnn_torch.core.checkpoint import save_params
     from posecnn_torch.data.fabricate import write_demo_frames
-    from posecnn_torch.models import posecnn as posecnn_module
-    from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.ops.nms import nms
     from posecnn_torch.ops.rpn import _top_k
     from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
@@ -1993,24 +2250,21 @@ def phase_det_demo(card):
         f0 = time.perf_counter()
         write_demo_frames(images, DEMO_FRAMES)
         frames_s = time.perf_counter() - f0
-        recorded = Recorded()
-        record, original = recording_hough(recorded)
-        posecnn_module.hough_voting = record
-        try:
-            for key in hk.LAUNCHES:
-                hk.LAUNCHES[key] = 0
-            results = demo.main(["--images", images, *EVAL_ARGS, "--refine", "--output",
-                                 os.path.join(tmp, "demo")])
-            launches = dict(hk.LAUNCHES)
-        finally:
-            posecnn_module.hough_voting = original
+        results, run_demo = compiled_run(lambda: demo.main(
+            ["--images", images, *EVAL_ARGS, "--refine", "--output", os.path.join(tmp, "demo")]),
+            [demo], "the demo")
+        launches, replayed = run_demo["device"], run_demo["replayed"]
+        recorded = run_demo["recorded"]
         written = sorted(os.listdir(os.path.join(tmp, "demo")))
     if len(results) != DEMO_FRAMES or len(recorded) != DEMO_FRAMES or len(written) != (
             2 * DEMO_FRAMES + 1):
         raise AssertionError(f"demo: {len(results)} frames, {len(recorded)} forwards, wrote "
                              f"{written}")
-    if launches["flat"] != DEMO_FRAMES or launches["window"] != DEMO_FRAMES:
-        raise AssertionError(f"demo: flat and window must launch once a forward: {launches}")
+    demo_forwards = run_demo["bodies"]["forward_with_suppression"]
+    if replayed["flat"] != DEMO_FRAMES or replayed["window"] != DEMO_FRAMES or (
+            demo_forwards != [FORWARD_BODY]):
+        raise AssertionError(f"demo: the replays of one captured forward must launch flat and "
+                             f"window once a frame: {replayed}, captured {demo_forwards}")
     for f in results:
         for d in f["detections"]:
             if not np.isfinite(d["quat_wxyz"] + d["trans"]).all():
@@ -2049,14 +2303,20 @@ def phase_det_demo(card):
           f"{sec['extract']:.3f} / {sec['evaluate']:.3f}, {run['detections']} detections, "
           f"mAP@0.5 {result['map']:.4f} over {len(result['per_class'])} classes | demo "
           f"--refine on {DEMO_FRAMES} rendered 480x640 frames (written in {frames_s:.1f} s; the "
-          f"flagship yaml's widths, seeded random weights): ms a frame {frame_ms}, detections "
+          f"flagship yaml's widths, seeded random weights; compiled calls recorded): ms a frame "
+          f"{frame_ms}, detections "
           f"{[len(f['detections']) for f in results]} (classes "
-          f"{[[d['class'] for d in f['detections']] for f in results]}), launches {launches}; "
+          f"{[[d['class'] for d in f['detections']] for f in results]}), compiled: the forward "
+          f"one graph ({demo_forwards[0]} a replay), ICP "
+          f"{len(run_demo['bodies'].get('icp_refine_batch', []))} graphs, launches counted on the device "
+          f"{launches} (eager warm-ups {run_demo['calls']}, graph replays {replayed}), "
+          f"{run_demo['checked']} compiled calls "
+          f"(forwards and ICP) == their eager runs bit for bit; "
           f"flat, window and tile == plain bit for bit on each of the {len(recorded)} forwards "
           f"(slots, live, samples, peak coarse vote: "
           f"{max(shapes.values(), key=lambda v: v[1])} at the liveliest), max_abs_err {errs}",
           flush=True)
-    return launches
+    return launches, demo_forwards[0]
 
 
 def split_steps(step, state, batches):
@@ -2423,7 +2683,6 @@ def phase_switches_gan(device, card):
     from posecnn_torch.core.checkpoint import save_params, snapshot_path
     from posecnn_torch.data.fabricate import write_linemod_tree, write_ycb_tree
     from posecnn_torch.engine.train import decompress_feed
-    from posecnn_torch.models import posecnn as posecnn_module
     from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.utils.debug import finite_check
 
@@ -2541,33 +2800,26 @@ def phase_switches_gan(device, card):
 
         # 13.3: test_net on the seg + vertex snapshot: every head built,
         # the pose head's seeded; render_poses on its results
-        recorded = Recorded()
-        record, original = recording_hough(recorded)
         out = os.path.join(tmp, "eval")
         captured = io.StringIO()
-        posecnn_module.hough_voting = record
-        try:
-            for key in hk.LAUNCHES:
-                hk.LAUNCHES[key] = 0
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(captured):
-                summary = test_net.main(["--dataset", "lov", "--data_root", root, "--cfg",
-                                         cfg_path("lov_color_3d"), "--ckpt", snapshot,
-                                         "--num_images", str(SWITCH_FRAMES[1]),
-                                         "--save_results", "--output", out])
-            eval_s = time.perf_counter() - t0
-            launches = dict(hk.LAUNCHES)
-        finally:
-            posecnn_module.hough_voting = original
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(captured):
+            summary, run_net = compiled_run(lambda: test_net.main(
+                ["--dataset", "lov", "--data_root", root, "--cfg", cfg_path("lov_color_3d"),
+                 "--ckpt", snapshot, "--num_images", str(SWITCH_FRAMES[1]), "--save_results",
+                 "--output", out]), [test_net], "test_net on the switched snapshot")
+        eval_s = time.perf_counter() - t0
+        launches, replayed = run_net["device"], run_net["replayed"]
+        recorded = run_net["recorded"]
         kept = [line.split(" has no ")[1].split(";")[0]
                 for line in captured.getvalue().splitlines() if "kept the model" in line]
         if kept != ["pose_head"]:
             raise AssertionError(f"test_net on the seg + vertex snapshot kept {kept}, not the "
                                  "pose head alone")
         n = SWITCH_FRAMES[1]
-        if launches["flat"] != n or launches["window"] != n or len(recorded) != n:
-            raise AssertionError(f"test_net on the switched snapshot: launches {launches}, "
-                                 f"{len(recorded)} forwards")
+        if replayed["flat"] != n or replayed["window"] != n or len(recorded) != n:
+            raise AssertionError(f"test_net on the switched snapshot: replays launched "
+                                 f"{replayed}, {len(recorded)} forwards")
         extents, kw = recorded.call
         shapes, errs = {}, {}
         for i, (label, vert, meta) in [*enumerate(recorded), ("GT", (*gt_inputs, gt_meta))]:
@@ -2585,11 +2837,14 @@ def phase_switches_gan(device, card):
             raise AssertionError(f"render_poses wrote {written} renderings of {n}")
         parts.append(
             f"test_net --dataset lov on the {SWITCH_STEPS}-step lov_color_3d snapshot "
-            f"({n} val frames, {eval_s:.1f} s with set-up): every head built, the file's "
+            f"({n} val frames, {eval_s:.1f} s with set-up, compiled calls recorded): every "
+            f"head built, the file's "
             f"missing {kept[0]} kept at its seeded values and named; "
             f"{run['images_per_s']:.2f} images/s, "
             f"{run['detections']} detections, seg mean IoU {summary['seg_mean_iou']:.4f}, "
-            f"launches {launches}; flat, window and tile == plain bit for bit at its Hough's "
+            f"launches counted on the device {launches} (graph replays {replayed}); flat, "
+            f"window and "
+            f"tile == plain bit for bit at its Hough's "
             f"shapes on each of the {len(recorded)} forwards' inputs and on the last lov_color_3d "
             f"batch's GT inputs (slots, live, samples, peak coarse vote: "
             + "; ".join(f"{k} {v}" for k, v in shapes.items())
@@ -3495,9 +3750,11 @@ def phase_breakdowns(device, card):
                 ["--output", run_dir, "--iters", str(SUMMARY_ITERS), *DP_TOY]),
                 "phase 17 train_net")
             snapshot = os.path.join(run_dir, f"posecnn_iter_{SUMMARY_ITERS}.npz")
-            _, launches["summary test_net"], _ = counted_run(lambda: test_net.main(
+            _, run_net = compiled_run(lambda: test_net.main(
                 ["--ckpt", snapshot, "--num_images", str(SUMMARY_EVAL_IMAGES), "--output",
-                 eval_dir, *SUMMARY_EVAL_SET]), "phase 17 test_net")
+                 eval_dir, *SUMMARY_EVAL_SET]), [test_net], "phase 17 test_net")
+            launches["summary test_net"] = run_net["device"]
+            recorded_vs_plain(run_net["recorded"], "phase 17 test_net")
         summary = subprocess.run([sys.executable, "-m", "posecnn_torch.cli.summarize_run",
                                   run_dir], cwd=tmp, capture_output=True, text=True, timeout=120,
                                  env={**os.environ, "PYTHONPATH": os.path.dirname(
@@ -3564,13 +3821,13 @@ def main() -> int:
     errs, times, bounds = phase_kernels(device)
     phase_planted(device)
     phase_small_model(device)
-    launches = phase_serve(card)
+    launches, cli_bodies = phase_serve(card)
     phase_validate(device)
     runs = phase_full_width(device, card)
     phase_train(card)
-    eval_launches = phase_eval(device, card)
+    eval_launches, cli_bodies["test_net"] = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
-    demo_launches = phase_det_demo(card)
+    demo_launches, cli_bodies["demo"] = phase_det_demo(card)
     seg_launches = phase_seg_video(device, card)
     switch_launches = phase_switches_gan(device, card)
     slice11_launches = phase_slice11(card, native_s)
@@ -3578,8 +3835,9 @@ def main() -> int:
     entry_launches, entry_per_body = phase_entry_bench(card)
     p17_errs, p17_launches, p17_per_body, p17_tunings = phase_breakdowns(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
-    # the tile kernel, the HTTP serving run for the c2f pair; and those of
-    # the test_net run (phase 9) and of phase 10's training steps and
+    # the tile kernel, the batch-1 HTTP serving run for the c2f pair (its
+    # graph replays, counted on the device); and those of the
+    # test_net run (phase 9, recorded) and of phase 10's training steps and
     # test_net run, each counted from 0
     launches["tile"] = runs["exhaustive"]["tile"]
 
@@ -3598,6 +3856,7 @@ def main() -> int:
          "slice11_launches": slice11_launches[k], "dp_launches": dp_launches[k],
          "phase16_launches": {name: counts[k] for name, counts in entry_launches.items()},
          "per_captured_forward": {name: body[k] for name, body in entry_per_body.items()},
+         "per_captured_cli_body": {name: body[k] for name, body in cli_bodies.items()},
          "phase17_max_abs_err": p17_errs[k],
          "phase17_launches": {name: counts[k] for name, counts in p17_launches.items()},
          "phase17_per_captured_body": {name: body[k] for name, body in p17_per_body.items()},

@@ -18,6 +18,7 @@ from posecnn_torch.data.procedural import (
     load_background_pool,
     make_procedural_objects,
 )
+from posecnn_torch.ops.nms import per_class_suppression
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -68,6 +69,16 @@ def setup_device(name: str) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return device
+
+
+def forward_with_suppression(model, data, extents, meta, nms_threshold: float, **forward_kw):
+    """The PoseCNN forward and NMS's device part over its Hough RoIs
+    (`ops/nms.per_class_suppression`): the program that `serve`, `demo`
+    and `test_net` compile (`utils/graph.compile_static`), as the JAX CLIs
+    jit the forward with its `nms_per_class`. Returns (outputs,
+    suppression); `ops/nms.greedy_keep(suppression)` is the keep mask."""
+    out = model(data, extents, meta, **forward_kw)
+    return out, per_class_suppression(out.hough.rois, nms_threshold, out.hough.valid)
 
 
 def _coerce_flag(value, like):

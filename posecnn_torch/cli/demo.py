@@ -7,6 +7,9 @@ single-instance mode (`vote_threshold` −1, 16 RoIs an image, c2f Hough on
 the card's vote kernels), per-class NMS at 0.5, detections (rotation from
 the RoI's class quaternion, translation from Hough), and with `--refine`
 ICP against the frame's depth, every detection of a frame in one batch.
+On the card the forward with NMS's device part, and ICP, run compiled
+(`utils/graph.compile_static`: one CUDA graph per input signature, as the
+JAX demo jits its forward at (1, H, W)); `--device cpu` runs them eagerly.
 It writes `<idx>-label.npy`, `<idx>-overlay.png` (the label tint and each
 detection's projected 3D box) and `detections.json` (per frame its
 forward seconds and each detection's class, pose and, refined, its
@@ -29,19 +32,27 @@ from __future__ import annotations
 import json
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
 
-from posecnn_torch.cli.common import base_parser, head_flags_from_ckpt, load_config, setup_device
+from posecnn_torch.cli.common import (
+    base_parser,
+    forward_with_suppression,
+    head_flags_from_ckpt,
+    load_config,
+    setup_device,
+)
 from posecnn_torch.core.checkpoint import restore_for_eval
 from posecnn_torch.data.datasets import YCB_CLASS_COLORS, DemoDataset, YCBVideoDataset
 from posecnn_torch.data.minibatch import build_meta_blob
 from posecnn_torch.data.procedural import synthetic_class_library
 from posecnn_torch.engine.evaluate import extract_detections
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import nms_per_class
+from posecnn_torch.ops.nms import greedy_keep
 from posecnn_torch.refine.icp import icp_refine_batch
+from posecnn_torch.utils.graph import compile_static
 from posecnn_torch.utils.visualize import draw_detections, overlay_label, save_image
 
 
@@ -95,6 +106,10 @@ def main(argv=None) -> list:
     extents_t = torch.from_numpy(np.asarray(extents, np.float32)).to(device)
     points_t = torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(device)
     pixel_means = np.asarray(cfg.pixel_means, np.float32)
+    # the forward with NMS's device part, and ICP, each one CUDA graph per
+    # input signature on the card; outputs live until their next call
+    forward = compile_static(partial(forward_with_suppression, model, nms_threshold=0.5))
+    refine = compile_static(icp_refine_batch)
 
     os.makedirs(args.output, exist_ok=True)
     results = []
@@ -105,8 +120,8 @@ def main(argv=None) -> list:
         blob = frame["color"][:, :, :3].astype(np.float32)[:, :, ::-1] - pixel_means
         data = torch.from_numpy(np.ascontiguousarray(blob[None])).to(device)
         t0 = time.perf_counter()
-        out = model(data, extents_t, meta)
-        keep = nms_per_class(out.hough.rois, 0.5, out.hough.valid)
+        out, suppression = forward(data, extents_t, meta)
+        keep = greedy_keep(suppression)
         label = out.label_2d[0].cpu().numpy()
         dt = time.perf_counter() - t0  # ends in the label's fetch
         dets = extract_detections(out.hough.rois.cpu().numpy(),
@@ -115,7 +130,7 @@ def main(argv=None) -> list:
         init_poses = {}  # detection index → the network's pose
         if args.refine and dets and "depth" in frame:
             cls = torch.tensor([d[0] for d in dets], device=device)
-            res = icp_refine_batch(
+            res = refine(
                 torch.from_numpy(np.stack([d[1] for d in dets]).astype(np.float32)).to(device),
                 torch.from_numpy(np.stack([d[2] for d in dets]).astype(np.float32)).to(device),
                 points_t[cls], torch.from_numpy(frame["depth"]).to(device),

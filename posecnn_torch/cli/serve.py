@@ -12,7 +12,10 @@ Counterpart of `posecnn_tpu/cli/serve.py`, with the same HTTP contract:
 
 The model runs at a fixed input size and batch; smaller inputs are
 placed in the top-left corner of the canvas. `--batch N` coalesces
-concurrent requests into one forward (MicroBatcher).
+concurrent requests into one forward (MicroBatcher). On the card the
+forward with NMS's device part runs as one CUDA graph, captured when the
+engine starts (`utils/graph.compile_static`, as the JAX engine jits it at
+its batch); `--device cpu` runs it eagerly.
 
     python -m posecnn_torch.cli.serve --port 8475          # serve forever
     python -m posecnn_torch.cli.serve --bench 20           # one JSON latency line
@@ -37,6 +40,7 @@ import torch
 from posecnn_torch.cli.common import (
     YCB_K,
     base_parser,
+    forward_with_suppression,
     head_flags_from_ckpt,
     load_config,
     setup_device,
@@ -44,11 +48,16 @@ from posecnn_torch.cli.common import (
 from posecnn_torch.core.checkpoint import restore_for_eval
 from posecnn_torch.engine.evaluate import extract_detections
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import nms_per_class
+from posecnn_torch.ops.nms import greedy_keep
+from posecnn_torch.utils.graph import compile_static
 
 
 class InferenceEngine:
-    """Fixed-shape PoseCNN inference at a static batch size on one device."""
+    """Fixed-shape PoseCNN inference at a static batch size on one device.
+
+    `infer_device` runs the forward compiled (one CUDA graph at the
+    engine's batch and canvas, captured in `__init__`; eager on the CPU);
+    `_compiled.fn` is its body, run eagerly."""
 
     def __init__(self, cfg, num_classes, points, extents, symmetry, k,
                  height=480, width=640, ckpt=None, class_names=None,
@@ -85,21 +94,32 @@ class InferenceEngine:
         meta0[:, :9] = k.flatten()
         meta0[:, 9:18] = np.linalg.inv(k).flatten()
         self._meta0 = meta0
-        # warm up: builds the CUDA kernels and the cuDNN plans
+        self._compiled = compile_static(self._body)
+        # one caller at a time on the graph's static buffers
+        self._lock = threading.Lock()
+        # warm up and capture: builds the CUDA kernels, the cuDNN plans and the graph
         self.infer_device(
             torch.zeros((self.batch, height, width, 3), dtype=torch.uint8, device=self.device),
             torch.from_numpy(meta0).to(self.device),
         )
 
     @torch.inference_mode()
+    def _body(self, data_u8: torch.Tensor, meta: torch.Tensor):
+        """The compiled program: the uint8 cast, the mean subtraction, the
+        model and NMS's device part."""
+        out, suppression = forward_with_suppression(
+            self.model, data_u8.float() - self._pixel_means, self._extents, meta,
+            self.nms_threshold)
+        return out.label_2d, out.hough.rois, out.hough.poses_init, out.poses_pred, suppression
+
     def infer_device(self, data_u8: torch.Tensor, meta: torch.Tensor):
-        """One forward on device tensors: (B, H, W, 3) uint8 BGR and
-        (B, 48) meta. Returns (label_2d, rois, poses_init, poses_pred,
-        keep) on the device."""
-        data = data_u8.float() - self._pixel_means
-        out = self.model(data, self._extents, meta)
-        keep = nms_per_class(out.hough.rois, self.nms_threshold, out.hough.valid)
-        return out.label_2d, out.hough.rois, out.hough.poses_init, out.poses_pred, keep
+        """One forward on device tensors, compiled: (B, H, W, 3) uint8 BGR
+        and (B, 48) meta at the engine's batch and canvas. Returns
+        (label_2d, rois, poses_init, poses_pred, keep) on the device; the
+        first four are the graph's outputs, which the next call
+        overwrites (`infer_batch` reads them under the engine's lock)."""
+        *outputs, suppression = self._compiled(data_u8, meta)
+        return (*outputs, greedy_keep(suppression))
 
     def __call__(self, image_rgb: np.ndarray, k: np.ndarray | None = None,
                  want_label: bool = False) -> dict:
@@ -135,17 +155,18 @@ class InferenceEngine:
                 meta[b, :9] = np.asarray(k, np.float32).flatten()
                 meta[b, 9:18] = np.linalg.inv(np.asarray(k, np.float64)).astype(np.float32).flatten()
         t0 = time.perf_counter()
-        label, rois, poses_init, poses_pred, keep = self.infer_device(
-            torch.from_numpy(canvas).to(self.device), torch.from_numpy(meta).to(self.device)
-        )
-        rois_np = rois.cpu().numpy()
-        keep_np = keep.cpu().numpy()
-        init_np = poses_init.cpu().numpy()
-        pred_np = poses_pred.cpu().numpy()
-        # fetch the (B, H, W) label map only when a client asked for it
-        label_np = (
-            label.cpu().numpy() if want_label is not None and any(want_label) else None
-        )
+        with self._lock:
+            label, rois, poses_init, poses_pred, keep = self.infer_device(
+                torch.from_numpy(canvas).to(self.device), torch.from_numpy(meta).to(self.device)
+            )
+            rois_np = rois.cpu().numpy()
+            keep_np = keep.cpu().numpy()
+            init_np = poses_init.cpu().numpy()
+            pred_np = poses_pred.cpu().numpy()
+            # fetch the (B, H, W) label map only when a client asked for it
+            label_np = (
+                label.cpu().numpy() if want_label is not None and any(want_label) else None
+            )
         dt = time.perf_counter() - t0
         out = []
         for b in range(n):

@@ -5,8 +5,9 @@ scenes with known poses from the procedural class library (512 points a
 class), perturb each GT pose (a random axis by `--rot_noise_deg`·N(0, 1)
 degrees, the translation by `--trans_noise`·N(0, 1) metres a component),
 refine every object of a scene in one `icp_refine_batch` call against the
-rendered depth and GT masks, and report rotation and translation errors
-before and after:
+rendered depth and GT masks (on the card compiled, one CUDA graph per
+object count, `utils/graph.compile_static`), and report rotation and
+translation errors before and after:
 
     python -m posecnn_torch.cli.test_icp --num_scenes 2 --rot_perturb 0.25 \\
         --set train.num_classes=22 train.syn_height=480 train.syn_width=640
@@ -33,6 +34,7 @@ from posecnn_torch.cli.common import base_parser, load_config, setup_device
 from posecnn_torch.data.procedural import synthetic_class_library
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
 from posecnn_torch.refine.icp import icp_refine_batch
+from posecnn_torch.utils.graph import compile_static
 from posecnn_torch.utils.pose_error import re as rot_err, te as trans_err
 from posecnn_torch.utils.quaternion import mat_to_quat_np, quat_to_mat_np
 from posecnn_torch.utils.visualize import draw_detections, save_image
@@ -93,12 +95,17 @@ def perturbed_scenes(cfg, num_scenes: int, rot_noise_deg: float, trans_noise: fl
     return scenes
 
 
+def scene_inputs(scene: dict, device) -> tuple:
+    """One scene's `icp_refine_batch` tensors on `device`: (quats, transs,
+    model_pts, depth, masks, k)."""
+    return tuple(torch.from_numpy(np.asarray(scene[name])).to(device)
+                 for name in ("quats", "transs", "model_pts", "depth", "masks", "k"))
+
+
 def refine_scene(scene: dict, device, num_iters: int, rot_perturb: float):
     """`icp_refine_batch` on one scene's inputs on `device`."""
-    t = {name: torch.from_numpy(np.asarray(scene[name])).to(device)
-         for name in ("quats", "transs", "model_pts", "depth", "masks", "k")}
-    return icp_refine_batch(t["quats"], t["transs"], t["model_pts"], t["depth"], t["masks"],
-                            t["k"], num_iters=num_iters, rot_perturb=rot_perturb)
+    return icp_refine_batch(*scene_inputs(scene, device), num_iters=num_iters,
+                            rot_perturb=rot_perturb)
 
 
 def _errors(q, t, q_gt, t_gt):
@@ -114,8 +121,11 @@ def main(argv=None) -> dict:
     os.makedirs(args.output, exist_ok=True)
     report = []
     scenes = perturbed_scenes(cfg, args.num_scenes, args.rot_noise_deg, args.trans_noise)
+    # one CUDA graph per object count on the card; eager on the CPU
+    refine = compile_static(icp_refine_batch)
     for si, scene in enumerate(scenes):
-        res = refine_scene(scene, device, args.num_iters, args.rot_perturb)
+        res = refine(*scene_inputs(scene, device), num_iters=args.num_iters,
+                     rot_perturb=args.rot_perturb)
         quats, transs, scores = res.quat.cpu().numpy(), res.trans.cpu().numpy(), res.score.cpu()
         for i, (cls, q_gt, t_gt) in enumerate(scene["gt"]):
             re0, te0 = _errors(scene["quats"][i], scene["transs"][i], q_gt, t_gt)

@@ -29,6 +29,11 @@ optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
         train.syn_width=64 train.num_units=16 train.fc_dim=64 test.hough_num_samples=64 \\
         train.add_num_points=32
 
+On the card the posecnn forward with NMS's device part runs compiled, one
+CUDA graph per input signature (RGB, or RGBD with its depth blob), and so
+does ICP, one graph per object count (`utils/graph.compile_static`; JAX
+jits both); `--device cpu` runs them eagerly.
+
 `<output>/eval.json` holds the evaluator's summary, as the JAX test_net
 writes it, and under "run" the device, the images/s of the loop and the
 seconds of each stage (render = rendering or reading a frame and making
@@ -65,6 +70,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -74,6 +80,7 @@ from posecnn_torch.cli.common import (
     base_parser,
     class_geometry,
     data_flags_from_ckpt,
+    forward_with_suppression,
     has_real_frames,
     head_flags_from_ckpt,
     load_backgrounds,
@@ -102,11 +109,12 @@ from posecnn_torch.engine.evaluate import (
 from posecnn_torch.engine.train import INPUTS
 from posecnn_torch.models.detection import PoseCNNDet
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import nms, nms_per_class
+from posecnn_torch.ops.nms import greedy_keep, nms
 from posecnn_torch.ops.rpn import estimate_translation_from_box
 from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
 from posecnn_torch.refine.icp import icp_refine_batch
 from posecnn_torch.refine.ransac import draw_hypotheses, estimate_center
+from posecnn_torch.utils.graph import compile_static
 
 STAGES = ("render", "forward", "extract", "icp", "evaluate")
 
@@ -185,10 +193,11 @@ def ransac_translation(label, vertex_pred, dets, k, seed):
     return out
 
 
-def refine_detections(dets, label_t, depth, points, k, cfg, device):
-    """All detections of a frame refined by ICP in one batch."""
+def refine_detections(dets, label_t, depth, points, k, cfg, device, refine):
+    """All detections of a frame refined by ICP in one batch, through
+    `refine` (`icp_refine_batch` compiled)."""
     cls = torch.tensor([d[0] for d in dets], device=device)
-    res = icp_refine_batch(
+    res = refine(
         torch.from_numpy(np.stack([np.asarray(d[1], np.float32) for d in dets])).to(device),
         torch.from_numpy(np.stack([np.asarray(d[2], np.float32) for d in dets])).to(device),
         points[cls], torch.from_numpy(depth).to(device), label_t[None] == cls[:, None, None],
@@ -367,6 +376,11 @@ def main(argv=None) -> dict:
     meta0[:9] = k.flatten()
     meta0[9:18] = np.linalg.inv(k).flatten()
     pm = np.asarray(cfg.pixel_means, np.float32)
+    # the forward with NMS's device part, and ICP, each one CUDA graph per
+    # input signature on the card; outputs live until their next call
+    forward = compile_static(partial(forward_with_suppression, model,
+                                     nms_threshold=cfg.test.nms_threshold))
+    refine = compile_static(icp_refine_batch)
 
     def rendered_frame():
         sample = gen.render()
@@ -431,13 +445,14 @@ def main(argv=None) -> dict:
         blob, blob_p, meta, depth, gt_label, gts = make_frame()
         kk = meta[:9].reshape(3, 3)
         t.append(time.perf_counter())
-        out = model(torch.from_numpy(blob[None]).to(device), extents_t,
-                    torch.from_numpy(meta[None]).to(device),
-                    data_p=None if blob_p is None else torch.from_numpy(blob_p[None]).to(device),
-                    full_vertex=use_ransac)
+        out, suppression = forward(
+            torch.from_numpy(blob[None]).to(device), extents_t,
+            torch.from_numpy(meta[None]).to(device),
+            data_p=None if blob_p is None else torch.from_numpy(blob_p[None]).to(device),
+            full_vertex=use_ransac)
         _sync(device)
         t.append(time.perf_counter())
-        keep = nms_per_class(out.hough.rois, cfg.test.nms_threshold, out.hough.valid)
+        keep = greedy_keep(suppression)
         label_t = out.label_2d[0]
         label = label_t.cpu().numpy()
         rois = out.hough.rois.cpu().numpy()
@@ -457,7 +472,7 @@ def main(argv=None) -> dict:
         t.append(time.perf_counter())
         if args.refine and dets and depth is not None:
             dets = refine_detections(dets, label_t, np.asarray(depth, np.float32), points_t, kk,
-                                     cfg, device)
+                                     cfg, device, refine)
             n_refined += len(dets)
         t.append(time.perf_counter())
         if gt_label is not None:

@@ -292,6 +292,13 @@ struct WindowBox {
   }
 };
 
+// One launch of the calling kernel, counted on the device by its first
+// thread (hough_kernels.device_launches): a CUDA graph's replays call no
+// host wrapper, so only the kernel itself sees them.
+__device__ __forceinline__ void count_launch(int* launches) {
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) atomicAdd(launches, 1);
+}
+
 // grid (tiles_y * tiles_x * kTileParts, K); block kTileThreads. Block
 // part p of a (kTileH, kTileW) Pallas tile holds its kTileRows rows from
 // p * kTileRows; thread t owns column t of them. Cell (row, col) lies at
@@ -299,7 +306,8 @@ struct WindowBox {
 __global__ void __launch_bounds__(kTileThreads)
 tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bboxes,
                  float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
-                 int cell_stride, int grid_h, int grid_w) {
+                 int cell_stride, int grid_h, int grid_w, int* __restrict__ launches) {
+  count_launch(launches);
   const int k = blockIdx.y;
   const int tiles_x = (grid_w + kTileW - 1) / kTileW;
   const int tile = blockIdx.x / kTileParts;
@@ -343,7 +351,8 @@ tile_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
 __global__ void __launch_bounds__(kFlatThreads)
 flat_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bboxes,
                  float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
-                 int cell_stride, int grid_h, int grid_w) {
+                 int cell_stride, int grid_h, int grid_w, int* __restrict__ launches) {
+  count_launch(launches);
   const int k = blockIdx.y;
   const int idx = blockIdx.x * kFlatThreads + threadIdx.x;
   const int base = (idx / kTile) * kTile;  // first cell of this Pallas tile
@@ -375,7 +384,9 @@ flat_vote_kernel(const float* __restrict__ samples, const float* __restrict__ bb
 __global__ void __launch_bounds__(kWindowThreads)
 window_vote_kernel(const float* __restrict__ samples, const int* __restrict__ origins,
                    float* __restrict__ votes, float* __restrict__ dsum, int num_samples,
-                   int cell_stride, int grid_h, int grid_w, int top_t) {
+                   int cell_stride, int grid_h, int grid_w, int top_t,
+                   int* __restrict__ launches) {
+  count_launch(launches);
   const int p = blockIdx.x / kWindowParts;
   const int k = p / top_t;
   const int oy = origins[p * 3 + 0], ox = origins[p * 3 + 1];
@@ -409,36 +420,37 @@ extern "C" {
 // votes, dsum: (K, grid_h, grid_w) fp32.
 int hough_tile_votes(const float* samples, const float* bboxes, float* votes, float* dsum,
                      int num_slots, int num_samples, int cell_stride, int grid_h, int grid_w,
-                     void* stream) {
+                     int* launches, void* stream) {
   if (num_slots == 0 || grid_h == 0 || grid_w == 0) return 0;
   const int n_tiles = ((grid_h + kTileH - 1) / kTileH) * ((grid_w + kTileW - 1) / kTileW);
   const dim3 grid(n_tiles * kTileParts, num_slots);
   tile_vote_kernel<<<grid, kTileThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w);
+      samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
 // votes, dsum: (K, grid_h * grid_w) fp32.
 int hough_flat_votes(const float* samples, const float* bboxes, float* votes, float* dsum,
                      int num_slots, int num_samples, int cell_stride, int grid_h, int grid_w,
-                     void* stream) {
+                     int* launches, void* stream) {
   const int n_cells = grid_h * grid_w;
   if (num_slots == 0 || n_cells == 0) return 0;
   const int n_tiles = (n_cells + kTile - 1) / kTile;
   const dim3 grid(n_tiles * kFlatParts, num_slots);
   flat_vote_kernel<<<grid, kFlatThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w);
+      samples, bboxes, votes, dsum, num_samples, cell_stride, grid_h, grid_w, launches);
   return static_cast<int>(cudaGetLastError());
 }
 
 // votes, dsum: (num_windows, 1024) fp32; num_windows = K * top_t.
 int hough_window_votes(const float* samples, const int* origins, float* votes, float* dsum,
                        int num_windows, int num_samples, int cell_stride, int grid_h,
-                       int grid_w, int top_t, void* stream) {
+                       int grid_w, int top_t, int* launches, void* stream) {
   if (num_windows == 0) return 0;
   const dim3 grid(num_windows * kWindowParts);
   window_vote_kernel<<<grid, kWindowThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      samples, origins, votes, dsum, num_samples, cell_stride, grid_h, grid_w, top_t);
+      samples, origins, votes, dsum, num_samples, cell_stride, grid_h, grid_w, top_t,
+      launches);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -61,11 +61,11 @@ def library() -> ctypes.CDLL:
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.hough_tile_votes.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.hough_tile_votes.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.hough_tile_votes.restype = i
-        lib.hough_flat_votes.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.hough_flat_votes.argtypes = [p, p, p, p, i, i, i, i, i, p, p]
         lib.hough_flat_votes.restype = i
-        lib.hough_window_votes.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
+        lib.hough_window_votes.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p]
         lib.hough_window_votes.restype = i
         _lib = lib
         return lib

@@ -10,10 +10,13 @@ perturbations) is refined by damped Gauss-Newton with a trust region and
 scored by the fraction of model points with a close observed point.
 
 Where the JAX package vmaps the hypotheses of one object and scans the
-iterations inside one jitted program, the port puts every (object,
-hypothesis) row of a frame into one batch and loops the iterations on
-the host: a frame costs about 70 launches an iteration however many
-objects it holds, and no host synchronisation until the result is read.
+iterations inside one jitted program (`posecnn_tpu/refine/icp.py:287`,
+static in the iteration and hypothesis counts and the rotation sweep),
+the port puts every (object, hypothesis) row of a frame into one batch
+and loops the iterations in Python: about 70 launches an iteration
+however many objects a frame holds, with no host read, so that the CLIs
+capture the whole call as one CUDA graph per object count
+(`utils/graph.compile_static`, its keywords static) and replay it.
 
 Index arithmetic follows XLA's semantics, not torch's: JAX clamps gather
 indices and converts NaN to integer 0, where torch raises on the CPU and
