@@ -48,10 +48,21 @@ that fails, with a non-zero exit:
      (`experiments/cfgs/lov_color_2d_pool_full.yaml`: 22 classes, 480×640,
      batch 8, fc_dim 4096, adam) on seeded random weights and the
      procedural class library, the pooled synthetic feed through the
-     prefetcher, bf16 train steps through `cli/train_net.build_trainer`:
-     2 warm-up and 6 timed steps with the feed's render threads running,
-     then 6 on held batches with them stopped, each of which must launch
-     the flat and window kernels; the loss and every gradient finite, the
+     prefetcher, bf16 train steps through `cli/train_net.build_trainer`,
+     whose step is compiled (`engine/train.CompiledTrainStep`, one CUDA
+     graph replayed a step): 2 warm-up steps (the first the real step and
+     the capture), then 6 timed steps of the compiled step and 6 of the
+     same step eager with the feed's render threads running, then 6 of
+     each on held batches with them stopped, the flat and window kernels
+     launched once a step (counted on the device); the equality gate on
+     the flagship (adam) and on `bench train`'s configuration (momentum):
+     5 consecutive compiled steps from one state with live Hough slots (the
+     seg head biased to one class) and a step of the lr staircase, each
+     against eager steps from the same state, the metrics bit for bit,
+     each gradient within the eager spread or `GRAD_TOL` of its largest
+     entry, the optimizer run eagerly on the compiled step's gradients
+     equal to its parameters and state bit for bit, a replay's dropout
+     equal to fresh generators'; the loss and every gradient finite, the
      parameters moved, pose rows supervised; the flat, window and tile
      kernels bit for bit against their plain versions on the packed
      samples and window origins of a step's Hough (64 slots, 256 samples,
@@ -1200,14 +1211,17 @@ def train_hough_gate(tr, b, vert):
 
 
 def timed_steps(step, state, batches):
-    """Run `step` on each batch (an iterator or a list) with CUDA events
-    around each call. Returns (device ms per step, launches per step,
-    metrics per step, host seconds spent waiting for batches, wall s)."""
+    """Run `step` (a callable of (state, batch)) on each batch (an iterator
+    or a list) with CUDA events around each call. Returns (device ms per
+    step, the run's launches as the kernels counted them on the device:
+    eager launches and graph replays, metrics per step, host seconds spent
+    waiting for batches, wall s)."""
     import torch
 
     from posecnn_torch.ops import hough_kernels as hk
 
-    events, launches, metrics, wait_s = [], [], [], 0.0
+    events, metrics, wait_s = [], [], 0.0
+    hk.reset_device_launches()
     wall0 = time.perf_counter()
     it = iter(batches)
     while True:
@@ -1217,25 +1231,26 @@ def timed_steps(step, state, batches):
         except StopIteration:
             break
         wait_s += time.perf_counter() - w0
-        for key in hk.LAUNCHES:
-            hk.LAUNCHES[key] = 0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics.append(step(state, batch))
         end.record()
-        launches.append(dict(hk.LAUNCHES))
         events.append((start, end))
     torch.cuda.synchronize()
-    return ([a.elapsed_time(b) for a, b in events], launches, metrics, wait_s,
-            time.perf_counter() - wall0)
+    wall = time.perf_counter() - wall0
+    counted = hk.device_launches()
+    return ([a.elapsed_time(b) for a, b in events], {k: counted[k] for k in KERNELS}, metrics,
+            wait_s, wall)
 
 
 def check_train_steps(launches, metrics):
-    """Each step launched the flat and window kernels, its metrics are
-    finite and it supervised pose rows."""
-    for i, (counts, m) in enumerate(zip(launches, metrics)):
-        if counts["flat"] < 1 or counts["window"] < 1:
-            raise AssertionError(f"train step {i}: flat or window never launched: {counts}")
+    """The run launched the flat and window kernels once a step (as the
+    kernels counted them on the device), each step's metrics are finite
+    and each step supervised pose rows."""
+    if launches["flat"] != len(metrics) or launches["window"] != len(metrics):
+        raise AssertionError(f"{len(metrics)} train steps launched {launches}, not flat and "
+                             "window once a step")
+    for i, m in enumerate(metrics):
         values = {k: float(v) for k, v in m.items()}
         if not all(np.isfinite(list(values.values()))):
             raise AssertionError(f"train step {i}: non-finite metrics {values}")
@@ -1243,9 +1258,236 @@ def check_train_steps(launches, metrics):
             raise AssertionError(f"train step {i}: no supervised pose rows")
 
 
+# phase 8's equality gate: consecutive steps from one state; the eager steps
+# it takes from a step's state where two of them differ; the bound on a
+# gradient tensor's difference, as a share of its largest entry, five bf16
+# ulps (2^-8 each): the trunk and heads run in bf16, where an fp32 add in
+# another order that moves one rounding moves a value by an ulp, and two
+# eager steps differ by up to ~2 of them (7.1e-3, PERF.md); and the seg
+# head's bias that makes one class every pixel's label (random weights
+# leave the vote no class above its 500-pixel label threshold)
+GATE_STEPS, GATE_EAGER_RUNS, GRAD_TOL, LIVE_BIAS = 5, 4, 2e-2, 100.0
+
+
+def step_outputs(step, state, batch, compiled):
+    """One step of `step` (a CompiledTrainStep) on `batch`, compiled or
+    eagerly (`TrainStep.__call__`): ([its metrics, lr included, as one
+    fp64 tensor], [each parameter's gradient as the update used it],
+    [every parameter and buffer after it], [the optimizer's state tensors
+    after it])."""
+    import torch
+
+    from posecnn_torch.engine.train import TrainStep
+
+    m = step(state, batch) if compiled else TrainStep.__call__(step, state, batch)
+    return ([torch.tensor([float(m[k]) for k in sorted(m)], dtype=torch.float64)],
+            [p.grad.detach().clone() for p in step.model.parameters()],
+            [t.detach().clone() for t in step.model.state_dict().values()],
+            [t.detach().clone() for t in state.opt.state_tensors()])
+
+
+def distance(a, b) -> float:
+    """The largest |difference| over matching tensors (lists of lists)."""
+    return max(float((x.double() - y.double()).abs().max()) for xs, ys in zip(a, b)
+               for x, y in zip(xs, ys) if x.numel())
+
+
+def gradients_agree(got, eagers) -> float:
+    """Each gradient tensor of `got` within the eager steps' own spread of
+    it or within GRAD_TOL of its largest entry, from the nearest eager
+    step. Returns the largest difference as a share of that entry."""
+    worst = 0.0
+    for i, g in enumerate(got):
+        ref = [e[i] for e in eagers]
+        scale = max(float(ref[0].abs().max()), 1e-30)
+        near = min(float((g.double() - r.double()).abs().max()) for r in ref)
+        spread = max(float((a.double() - b.double()).abs().max()) for j, a in enumerate(ref)
+                     for b in ref[j + 1:])
+        if near > max(spread, GRAD_TOL * scale):
+            raise AssertionError(f"gradient {i}: {near:.3e} from the nearest eager one, whose "
+                                 f"spread is {spread:.3e} and largest entry {scale:.3e}")
+        worst = max(worst, near / scale)
+    return worst
+
+
+def live_hough_inputs(step, state, batch, where):
+    """Make the seg head label every pixel with the class of the batch's
+    first GT row (`LIVE_BIAS` on its output bias, in place), so that the
+    steps after vote on live slots; then hold the vote kernels to plain on
+    the Hough inputs of the state's training forward. Returns the live
+    slots of those inputs."""
+    import types
+
+    import torch
+
+    cls = int(batch["gt_poses"][batch["gt_valid"].bool()][0, 1])
+    with torch.no_grad():
+        step.model.seg_head.score_out.bias[cls] += LIVE_BIAS
+    tr = types.SimpleNamespace(model=step.model, cfg=step.cfg, state=state,
+                               device=step.extents.device)
+    b, inputs = train_hough_inputs(tr, step, batch)
+    shapes, _ = kernels_vs_plain(step.model.hough_kw, step.extents, b["meta"],
+                                 {"live": inputs["step"]}, where)
+    return shapes["live"][1]
+
+
+def equality_gate(step, state, batches, where):
+    """The compiled step against the same step eager over len(batches)
+    consecutive steps from one state: the given state with the seg head
+    biased so that the steps vote on live slots (`live_hough_inputs`, which
+    also holds the kernels to plain on them) and the optimizer's count two
+    updates before a step of the lr staircase. The run is the compiled
+    step's (replays of its graph); before each of its steps the state is
+    kept (`bench.snapshot`, restored in place, as a graph reads it) and
+    eager steps are run from it. A step is three parts, each held to its
+    own bar. Its forward (every metric and lr): equal bit for bit where
+    two eager steps are. Its backward (each gradient as the update used
+    it): within the eager steps' spread, or GRAD_TOL of the tensor's
+    largest entry, from the nearest eager step (GATE_EAGER_RUNS of them
+    where two differ): the backward adds in a device-dependent order, and
+    Adam's update amplifies that in the parameters, where it cannot be
+    told apart from a fault. Its update: the optimizer run eagerly from the
+    same state on the compiled step's gradients equals the compiled
+    step's parameters and optimizer state (Adam's moments and steps, the
+    momentum traces) bit for bit. The parameters' and the optimizer
+    state's distances from the nearest eager step and between the eager
+    steps are printed beside. The vote kernels' launches of the compiled
+    steps are counted on the device. The state is left restored to the
+    one given. Returns a dict: the live slots, the launches per replay, a
+    line to print."""
+    from posecnn_torch.bench import snapshot
+    from posecnn_torch.engine.train import fastforward_opt_counts
+
+    given = snapshot(step, state)
+    live = live_hough_inputs(step, state, batches[0], where)
+    fastforward_opt_counts(state.opt, step.cfg.train.stepsize - 2)
+    lrs = [state.opt.schedule(state.opt.count + i) for i in range(len(batches))]
+    if len(set(lrs)) < 2:
+        raise AssertionError(f"{where}: the gate's steps cross no step of the lr staircase: {lrs}")
+    start = snapshot(step, state)
+    step(state, batches[0])  # make sure of the graph: a signature's first call runs eagerly
+    start()
+    counted = dict.fromkeys(KERNELS, 0)
+    rows, forward_bitwise = [], 0
+    for i, batch in enumerate(batches):
+        at = snapshot(step, state)
+        runs = []
+        for _ in range(2):
+            at()
+            runs.append(step_outputs(step, state, batch, compiled=False))
+        if distance(runs[0][:1], runs[1][:1]) != 0.0 or distance(runs[0][1:2], runs[1][1:2]) != 0.0:
+            while len(runs) < GATE_EAGER_RUNS:
+                at()
+                runs.append(step_outputs(step, state, batch, compiled=False))
+        at()
+        got, _, launches = device_counted(lambda: step_outputs(step, state, batch, True))
+        counted = {k: counted[k] + launches[k] for k in KERNELS}
+        after = snapshot(step, state)
+        # the update, eagerly, on the compiled step's gradients
+        at()
+        for p, g in zip(step.model.parameters(), got[1]):
+            p.grad = g.clone()
+        state.opt.prepare()
+        state.opt.descend()
+        update = distance([[t.detach() for t in step.model.state_dict().values()],
+                           [t.detach() for t in state.opt.state_tensors()]], got[2:])
+        after()
+        forward = distance(got[:1], runs[0][:1])
+        bitwise = all(distance(e[:1], runs[0][:1]) == 0.0 for e in runs)
+        if (bitwise and forward != 0.0) or update != 0.0:
+            raise AssertionError(f"{where}, step {i + 1}: the compiled step's metrics differ from "
+                                 f"the eager step's by {forward:.3e} (eager steps bit for bit: "
+                                 f"{bitwise}), its update from the eager update on its own "
+                                 f"gradients by {update:.3e}")
+        forward_bitwise += bitwise
+        grads = gradients_agree(got[1], [e[1] for e in runs])
+        rows.append((forward, grads, *(
+            (min(distance([got[j]], [e[j]]) for e in runs),
+             max(distance([a[j]], [b[j]]) for k, a in enumerate(runs) for b in runs[k + 1:]))
+            for j in (2, 3))))
+    per_replay = {k: counted[k] / len(batches) for k in KERNELS}
+    if counted["flat"] != len(batches) or counted["window"] != len(batches):
+        raise AssertionError(f"{where}: {len(batches)} replayed steps launched {counted}")
+    given()
+    line = (f"equality gate, {where}: {len(batches)} consecutive compiled steps (replays) from "
+            f"one state ({live} live Hough slots in the first step's labels, the kernels == "
+            f"plain on them; lr {[float(f'{x:.3g}') for x in lrs]}), each against eager steps "
+            f"from the same state: metrics and lr bit for bit in {forward_bitwise} of "
+            f"{len(batches)} steps (where the eager steps are), the update on the compiled "
+            f"gradients bit for bit in every step; by step, the gradients' largest difference "
+            f"from the nearest eager step as a share of the tensor's largest entry (bar "
+            f"{GRAD_TOL:g} or the eager spread), and the parameters' and optimizer state's "
+            f"distance from the nearest eager step / between eager steps: "
+            + "; ".join(f"{i + 1}: {g:.2e}, parameters {p[0]:.3e} / {p[1]:.3e}, state "
+                        f"{o[0]:.3e} / {o[1]:.3e}" for i, (_, g, p, o) in enumerate(rows))
+            + f"; launches in the compiled steps (device) {counted}")
+    return {"rows": rows, "live_slots": live, "launches_per_replay": per_replay, "line": line}
+
+
+def recording_dropout(step, recorded):
+    """A stand-in for the model's `dropout` that, under graph capture,
+    appends (generator index in `step.generators`, input, output) of each
+    call to `recorded`: after each replay those tensors hold the replay's.
+    Returns (the stand-in, the original)."""
+    import torch
+
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    original = posecnn_module.dropout
+
+    def record(x, keep_prob, generator):
+        out = original(x, keep_prob, generator)
+        if torch.cuda.is_current_stream_capturing():
+            index = next(i for i, g in enumerate(step.generators) if g is generator)
+            recorded.append((index, x, out))
+        return out
+
+    return record, original
+
+
+def bench_config_gate():
+    """The equality gate on `bench train`'s configuration (22 classes,
+    480×640, batch 2, momentum, its one batch five times), its compiled
+    step's dropout recorded at its capture; then two more replays, each
+    replay's dropout on each of its inputs equal to the same dropout drawn
+    from fresh generators seeded by `SeedSequence([seed, step])`."""
+    import torch
+
+    from posecnn_torch import bench
+    from posecnn_torch.engine.train import dropout_generators
+    from posecnn_torch.models import posecnn as posecnn_module
+
+    step, state, batch = bench.train_setup(torch.device("cuda"))
+    recorded = []
+    stand_in, original = recording_dropout(step, recorded)
+    posecnn_module.dropout = stand_in
+    try:
+        gate = equality_gate(step, state, [batch] * GATE_STEPS,
+                             "bench train's configuration (momentum)")
+        streams = sorted(i for i, _, _ in recorded)  # fc9's only with a domain head
+        if streams != list(range(len(streams))) or len(streams) < 4:
+            raise AssertionError(f"the captured step's dropout streams: {streams}")
+        checked = []
+        for _ in range(2):
+            step(state, batch)
+            fresh = dropout_generators(step.cfg.rng_seed, state.step - 1, batch["data"].device)
+            for index, x, out in recorded:
+                if not torch.equal(out, original(x, step.keep_prob, fresh[index])):
+                    raise AssertionError(f"a replay's dropout (stream {index}, step "
+                                         f"{state.step - 1}) differs from a fresh generator's")
+            checked.append(state.step - 1)
+    finally:
+        posecnn_module.dropout = original
+    gate["line"] += (f"; each of the {len(streams)} dropout streams of the replays at steps "
+                     f"{checked} equal to fresh generators' of SeedSequence([seed, step]), bit "
+                     "for bit")
+    return gate
+
+
 def phase_train(card):
-    """The training path at full width; returns the launch counts of each
-    timed step with the feed running."""
+    """The training path at full width; returns the vote kernels' launches
+    per replayed step of the compiled step (counted on the device)."""
+    import gc
     import itertools
 
     import torch
@@ -1254,7 +1496,7 @@ def phase_train(card):
 
     from posecnn_torch.cli import train_net
     from posecnn_torch.cli.validate import device_ms
-    from posecnn_torch.engine.train import make_train_step
+    from posecnn_torch.engine.train import CompiledTrainStep, TrainStep
     from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
 
     # the flagship yaml sets hough_backend "xla" to get around a TPU
@@ -1267,29 +1509,40 @@ def phase_train(card):
     tr = train_net.build_trainer(args, train_net.load_config(args))
     t = tr.cfg.train
     batch_size = t.ims_per_batch
-    step = make_train_step(tr.cfg, tr.model, tr.points, tr.extents, tr.symmetry)
+    # the trainer's step, as train_net runs it: compiled (one CUDA graph)
+    step = tr.step
+    if not isinstance(step, CompiledTrainStep):
+        raise AssertionError(f"train_net's posecnn step is {type(step).__name__}, not compiled")
+
+    def eager(state, batch):  # the same step, launch by launch
+        return TrainStep.__call__(step, state, batch)
+
     before = [p.detach().clone() for p in tr.model.parameters()]
     setup_s = time.perf_counter() - t0
+    runs = {}
     try:
-        for _ in range(TRAIN_WARMUP):
+        for _ in range(TRAIN_WARMUP):  # the first: the batch's real step, then the capture
             step(tr.state, next(tr.batches))
         warm_s = time.perf_counter() - t0 - setup_s
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        tr.batches.gets = tr.batches.dry = 0
         # with the feed's two render threads running, as training runs
-        feed_ms, feed_launches, metrics, wait_s, feed_wall = timed_steps(
-            step, tr.state, itertools.islice(tr.batches, TRAIN_TIMED))
+        for name, call in (("compiled", step), ("eager", eager)):
+            tr.batches.gets = tr.batches.dry = 0
+            runs[name] = (*timed_steps(call, tr.state, itertools.islice(tr.batches, TRAIN_TIMED)),
+                          tr.batches.dry, tr.batches.gets)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        dry, gets = tr.batches.dry, tr.batches.gets
-        held = [next(tr.batches) for _ in range(3)]
+        held = [next(tr.batches) for _ in range(GATE_STEPS)]
     finally:
         tr.batches.close()
     produce = sorted(tr.batches.produce_seconds)
+    for name, (_, launches, metrics, *_) in runs.items():
+        check_train_steps(launches, metrics)
+    feed_ms, feed_launches, metrics, wait_s, feed_wall, dry, gets = runs["compiled"]
 
-    check_train_steps(feed_launches, metrics)
-    # one more step by its parts: its gradients as backward left them (the
-    # update rewrites them in place with the decay and the clip)
+    # one more step by its parts (eager between the replays): its gradients
+    # as backward left them (the update rewrites them in place with the
+    # decay and the clip)
     total, _ = step.forward(tr.state, held[2])
     step.backward(total)
     bad = [n for n, p in tr.model.named_parameters()
@@ -1304,8 +1557,16 @@ def phase_train(card):
     del before
 
     # the same steps with the feed's threads stopped, on held batches
-    alone_ms, alone_launches, alone_metrics, _, _ = timed_steps(step, tr.state, held * 2)
-    check_train_steps(alone_launches, alone_metrics)
+    alone = {}
+    for name, call in (("compiled", step), ("eager", eager)):
+        alone[name] = timed_steps(call, tr.state, held[:3] * 2)
+        check_train_steps(alone[name][1], alone[name][2])
+    alone_ms, alone_launches = alone["compiled"][:2]
+    per_replay = {k: v / len(alone_ms) for k, v in alone_launches.items()}
+    if (step.compiled.programs and len(step.compiled.programs) != 1) or any(
+            p.launches != FORWARD_BODY for p in step.compiled.programs.values()):
+        raise AssertionError(f"phase 8: the compiled step's graphs launch "
+                             f"{[p.launches for p in step.compiled.programs.values()]}")
     # one batch produced with nothing else running (a fresh producer:
     # its first call fills the pool, the next renders the fresh scenes)
     make_batch = tr.make_batch_factory(2)
@@ -1350,20 +1611,26 @@ def phase_train(card):
         label_threshold=500, skip_pixels=kw["skip_pixels"], num_samples=kw["num_samples"],
         max_classes=8, vertex_factor=8), tr.device, 10)
 
-    # the device's busy share over two steps (profiled, so the host is slower)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        p0 = time.perf_counter()
-        for batch in held[:2]:
-            step(tr.state, batch)
+    # the device's busy share over two steps of each (profiled, so the
+    # host is slower)
+    busy = {}
+    for name, call in (("eager", eager), ("compiled", step)):
         torch.cuda.synchronize()
-        prof_wall_ms = (time.perf_counter() - p0) * 1e3
-    busy_ms = kernel_busy_ms(prof) / 2  # per step
-    top = top_kernels(prof, 10, 2)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            p0 = time.perf_counter()
+            for batch in held[:2]:
+                call(tr.state, batch)
+            torch.cuda.synchronize()
+            prof_wall_ms = (time.perf_counter() - p0) * 1e3
+        busy[name] = (kernel_busy_ms(prof) / 2, prof_wall_ms)  # per step
+        if name == "eager":
+            top = top_kernels(prof, 10, 2)
+    busy_ms, prof_wall_ms = busy["eager"]
 
-    # FLOPs of one step (the forward and backward products and convolutions)
+    # FLOPs of one step (the forward and backward products and convolutions;
+    # a replay runs no operator the counter sees, so the eager step)
     with FlopCounterMode(display=False) as counter:
-        step(tr.state, held[2])
+        eager(tr.state, held[2])
     flops = counter.get_total_flops()
 
     # the kernels against their plain versions at the training Hough's
@@ -1373,44 +1640,72 @@ def phase_train(card):
     if vote_shapes["gt"][1] == 0 or vote_shapes["gt"][3] <= 0:
         raise AssertionError("the train step's GT inputs gave no live slot: nothing compared")
     valid_rows, matched, gate_launches = train_hough_gate(tr, b, hough_inputs["gt"][1])
+    # the compiled step against the eager one from one state, with live
+    # Hough slots and a step of the staircase (the gate resets both after)
+    gate = equality_gate(step, tr.state, held, "phase 8 flagship (adam)")
     ms, ms_feed = float(np.mean(alone_ms)), float(np.mean(feed_ms))
+    ms_eager = float(np.mean(alone["eager"][0]))
     wall_feed = 1e3 * feed_wall / TRAIN_TIMED
+    e_ms, _, _, e_wait_s, e_wall, e_dry, e_gets = runs["eager"]
+    wall_feed_eager = 1e3 * e_wall / TRAIN_TIMED
     dtype = str(tr.model.trunk.compute_dtype).removeprefix("torch.")
+    c_busy_ms, c_prof_wall_ms = busy["compiled"]
     print(f"phase 8 train step at full width (r6 phase-B flagship, {t.num_classes} classes, "
           f"{t.syn_height}x{t.syn_width}, batch {batch_size}, num_units {t.num_units}, fc_dim "
           f"{t.fc_dim}, {t.optimizer}, grad_clip {t.grad_clip}, pool {t.syn_pool_size}/"
-          f"{t.syn_pool_fresh} fresh, hough_backend auto = c2f, {dtype}) on {card}: set-up "
-          f"{setup_s:.1f} s, first batches and warm-up {warm_s:.1f} s; "
-          f"{TRAIN_TIMED} steps with the feed's 2 threads running: ms per step (CUDA events) "
-          f"{', '.join(f'{x:.2f}' for x in feed_ms)} (mean {ms_feed:.2f}), wall {wall_feed:.2f} "
-          f"ms per step, {batch_size * TRAIN_TIMED / feed_wall:.1f} images/s, waited on the feed "
-          f"{1e3 * wait_s / TRAIN_TIMED:.2f} ms per step, queue dry at {dry} of {gets} gets, "
+          f"{t.syn_pool_fresh} fresh, hough_backend auto = c2f, {dtype}) on {card}, train_net's "
+          f"compiled step (one CUDA graph, replayed) beside the same step eager: set-up "
+          f"{setup_s:.1f} s, first batches, the real first step, the capture and a replay "
+          f"{warm_s:.1f} s; {TRAIN_TIMED} steps each with the feed's 2 threads running: ms per "
+          f"step (CUDA events) compiled {', '.join(f'{x:.2f}' for x in feed_ms)} (mean "
+          f"{ms_feed:.2f}), wall {wall_feed:.2f} ms per step, "
+          f"{batch_size * TRAIN_TIMED / feed_wall:.1f} images/s, waited on the feed "
+          f"{1e3 * wait_s / TRAIN_TIMED:.2f} ms per step, queue dry at {dry} of {gets} gets; "
+          f"eager {', '.join(f'{x:.2f}' for x in e_ms)} (mean {float(np.mean(e_ms)):.2f}), wall "
+          f"{wall_feed_eager:.2f} ms per step, {batch_size * TRAIN_TIMED / e_wall:.1f} images/s, "
+          f"waited {1e3 * e_wait_s / TRAIN_TIMED:.2f} ms per step, dry at {e_dry} of {e_gets}; "
           f"batch production median {1e3 * produce[len(produce) // 2]:.1f} ms (max "
           f"{1e3 * produce[-1]:.1f}) over {len(produce)} batches, peak memory {peak_gb:.2f} GB; "
-          f"{len(alone_ms)} steps with the feed stopped: ms per step "
-          f"{', '.join(f'{x:.2f}' for x in alone_ms)} (mean {ms:.2f}), "
-          f"{1e3 * batch_size / ms:.1f} images/s; one batch produced alone "
+          f"{len(alone_ms)} steps each with the feed stopped: ms per step compiled "
+          f"{', '.join(f'{x:.2f}' for x in alone_ms)} (mean {ms:.2f}, "
+          f"{1e3 * batch_size / ms:.1f} images/s), eager "
+          f"{', '.join(f'{x:.2f}' for x in alone['eager'][0])} (mean {ms_eager:.2f}, "
+          f"{1e3 * batch_size / ms_eager:.1f} images/s); one batch produced alone "
           f"{1e3 * produce_alone_s:.1f} ms ({1e3 * fill_s:.1f} ms for the first, which fills "
-          f"the pool with {batch_size} renders); split (CUDA events, mean of 2, feed stopped): "
-          f"forward {split['forward']:.2f} ms (Hough inside), backward {split['backward']:.2f} "
-          f"ms, optimizer {split['optimizer']:.2f} ms; Hough alone {hough_ms:.2f} ms device, "
-          f"{hough_host_ms:.2f} ms host enqueue, _prepare_slots {prep_ms:.3f} ms an image; "
-          f"device busy {busy_ms:.2f} ms per step, {100 * busy_ms / (prof_wall_ms / 2):.1f}% of "
-          f"2 profiled steps ({prof_wall_ms:.1f} ms), {100 * busy_ms / wall_feed:.1f}% of the "
-          f"wall with the feed; top device events, ms per step: {'; '.join(top)}; "
+          f"the pool with {batch_size} renders); split of the eager step (CUDA events, mean of "
+          f"2, feed stopped): forward {split['forward']:.2f} ms (Hough inside), backward "
+          f"{split['backward']:.2f} ms, optimizer {split['optimizer']:.2f} ms; Hough alone "
+          f"{hough_ms:.2f} ms device, {hough_host_ms:.2f} ms host enqueue, _prepare_slots "
+          f"{prep_ms:.3f} ms an image; device busy per step (profiler, 2 steps each) eager "
+          f"{busy_ms:.2f} ms, {100 * busy_ms / (prof_wall_ms / 2):.1f}% of its wall "
+          f"({prof_wall_ms / 2:.1f} ms), compiled {c_busy_ms:.2f} ms, "
+          f"{100 * c_busy_ms / (c_prof_wall_ms / 2):.1f}% of its wall ({c_prof_wall_ms / 2:.1f} "
+          f"ms), {100 * busy_ms / wall_feed:.1f}% of the compiled wall with the feed; top device "
+          f"events of the eager step, ms per step: {'; '.join(top)}; "
           f"{flops / 1e12:.3f} TFLOP per step (FlopCounterMode), "
-          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s, MFU "
+          f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s compiled, MFU "
           f"{100 * flops / (ms / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16 at the "
-          f"feed-stopped rate ({100 * flops / (wall_feed / 1e3) / PEAK_BF16_FLOPS:.2f}% at the "
-          f"wall with the feed); launches per step with the feed {feed_launches}; final loss "
+          f"compiled feed-stopped rate ({100 * flops / (ms_eager / 1e3) / PEAK_BF16_FLOPS:.2f}% "
+          f"eager; {100 * flops / (wall_feed / 1e3) / PEAK_BF16_FLOPS:.2f}% at the compiled wall "
+          f"with the feed); launches (counted on the device) in the {TRAIN_TIMED} compiled steps "
+          f"with the feed {feed_launches}, per replayed step {per_replay}; final loss "
           f"{float(metrics[-1]['loss']):.4f}, pose rows {float(metrics[-1]['num_pose_rois']):.0f}"
           f"; flat, window and tile kernels == plain, bit for bit, at the training Hough's "
           f"shapes (slots, live slots, samples, peak coarse vote): "
           + ", ".join(f"{n} inputs {v[:3]}, {v[3]:.1f}" for n, v in vote_shapes.items())
           + f", max_abs_err {vote_errs}; training Hough c2f == exhaustive on a step's GT inputs "
           f"at vertex factor {kw['vertex_factor']}: {valid_rows} valid rows, {matched} matched, "
-          f"launches {gate_launches}", flush=True)
-    return feed_launches
+          f"launches {gate_launches}; {gate['line']}", flush=True)
+    del tr, step, held, b, hough_inputs, label, vert
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the gate on `bench train`'s configuration (momentum, batch 2), with
+    # a replay's dropout held to fresh generators'
+    momentum = bench_config_gate()
+    print(f"phase 8 {momentum['line']}", flush=True)
+    return {"per_replayed_step": per_replay,
+            "flagship_gate": {k: gate[k] for k in ("launches_per_replay", "live_slots")},
+            "momentum_gate": {k: momentum[k] for k in ("launches_per_replay", "live_slots")}}
 
 
 def summaries_agree(got, want, tol=1e-5):
@@ -1653,12 +1948,18 @@ def recording_hough(recorded):
     """A stand-in for the model's `hough_voting` that appends a copy of each
     call's (label, 1/8 vertex map, meta) to `recorded`, keeps its extents
     and keywords under `recorded.call`, and votes as the original; returns
-    (the stand-in, the original)."""
+    (the stand-in, the original). A call under graph capture (a compiled
+    train step's) records nothing: it runs no kernel, and its graph's
+    replays show in the kernels' own counts on the device."""
+    import torch
+
     from posecnn_torch.models import posecnn as posecnn_module
 
     original = posecnn_module.hough_voting
 
     def record(label, vertex, extents, meta, *args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return original(label, vertex, extents, meta, *args, **kw)
         recorded.append((label.detach().clone(), vertex.detach().clone(), meta.clone()))
         recorded.call = (extents, kw)
         return original(label, vertex, extents, meta, *args, **kw)
@@ -2923,10 +3224,14 @@ def counting_hough(recorded):
     launches under `recorded.launches`; returns (the stand-in, the original)."""
     from posecnn_torch.ops import hough_kernels as hk
 
+    import torch
+
     record, original = recording_hough(recorded)
     recorded.launches = []
 
     def counted(*args, **kw):
+        if torch.cuda.is_current_stream_capturing():
+            return record(*args, **kw)  # recorded by nothing (see recording_hough)
         before = dict(hk.LAUNCHES)
         out = record(*args, **kw)
         recorded.launches.append({k: hk.LAUNCHES[k] - before[k] for k in KERNELS})
@@ -3045,10 +3350,8 @@ def phase_slice11(card, native_build_s):
 
         recorded = Recorded()
         counted, original = counting_hough(recorded)
-        for key in hk.LAUNCHES:
-            hk.LAUNCHES[key] = 0
-        posecnn_module.hough_voting = counted
-        try:
+
+        def handoff_and_resume():
             state, handoff_log, handoff_s = run_train_net(
                 "--set", *sets, f"train.max_host_rss_gb={limit:.3f}")
             snaps = sorted(os.listdir(out))
@@ -3056,14 +3359,21 @@ def phase_slice11(card, native_build_s):
                     f.endswith("_iter_1.npz") for f in snaps):
                 raise AssertionError(f"handoff: ended at step {state.step}, files {snaps}, "
                                      f"log tail {handoff_log[-400:]!r}")
-            state, resume_log, resume_s = run_train_net("--resume", "--set", *sets)
+            return handoff_s, *run_train_net("--resume", "--set", *sets)
+
+        posecnn_module.hough_voting = counted
+        try:
+            (handoff_s, state, resume_log, resume_s), _, launches = device_counted(
+                handoff_and_resume)
         finally:
             posecnn_module.hough_voting = original
-        launches = {k: hk.LAUNCHES[k] for k in KERNELS}
+        # each run's first step is eager (its Hough recorded), the resumed
+        # run's second a replay of the graph its first captured
         if state.step != HANDOFF_ITERS or "_iter_1.npz" not in resume_log or (
-                "snapshotting" in resume_log) or len(recorded) != HANDOFF_ITERS:
-            raise AssertionError(f"--resume: ended at step {state.step}, {len(recorded)} steps, "
-                                 f"log tail {resume_log[-400:]!r}")
+                "snapshotting" in resume_log) or len(recorded) != 2 or (
+                launches["flat"], launches["window"]) != (HANDOFF_ITERS, HANDOFF_ITERS):
+            raise AssertionError(f"--resume: ended at step {state.step}, {len(recorded)} eager "
+                                 f"steps, launches {launches}, log tail {resume_log[-400:]!r}")
         with open(os.path.join(out, "metrics.jsonl")) as f:
             losses = [json.loads(line)["loss"] for line in f]
         if len(losses) != HANDOFF_ITERS or not np.isfinite(losses).all():
@@ -3074,8 +3384,10 @@ def phase_slice11(card, native_build_s):
             f"(half the process's RSS before it): snapshotted at iteration 1 and returned in "
             f"{handoff_s:.1f} s with set-up; --resume from it to iteration {HANDOFF_ITERS} with "
             f"the handoff off in {resume_s:.1f} s; losses {[round(x, 4) for x in losses]}; "
-            f"launches {launches}, flat and window once a step and == plain bit for bit on "
-            f"each of the {len(recorded)} steps' inputs, max_abs_err {handoff_errs}")
+            f"launches {launches} (counted on the device: flat and window once a step, the "
+            f"compiled step's first call in each run eager, the resumed run's last a replay), "
+            f"== plain bit for bit on each of the {len(recorded)} eager steps' inputs, "
+            f"max_abs_err {handoff_errs}")
         del state, recorded
         torch.cuda.empty_cache()
 
@@ -3114,7 +3426,7 @@ def phase_slice11(card, native_build_s):
         finally:
             tr.batches.close()
         check_train_steps(pre_launches, pre_metrics)
-        launches = {k: launches[k] + sum(c[k] for c in pre_launches) for k in KERNELS}
+        launches = {k: launches[k] + pre_launches[k] for k in KERNELS}
         pre_errs = recorded_vs_plain(recorded, "the --pretrained steps")
         parts.append(
             f"--pretrained: a Caffe-layout vgg16.npy at VGG16's shapes (13 convs, fc6 "
@@ -3122,8 +3434,9 @@ def phase_slice11(card, native_build_s):
             f"(fc8 skipped); conv1_1 and the pose head's fc6 equal the npy (HWIO -> OIHW, "
             f"(in, out) -> (out, in)) before the first step; {PRETRAINED_STEPS} steps, ms "
             f"(CUDA events) {', '.join(f'{x:.2f}' for x in pre_ms)}, loss "
-            f"{float(pre_metrics[-1]['loss']):.4f}, launches a step {pre_launches}, == plain "
-            f"bit for bit, max_abs_err {pre_errs}; launches in phase 14's train_net runs "
+            f"{float(pre_metrics[-1]['loss']):.4f}, launches {pre_launches} in "
+            f"{PRETRAINED_STEPS} compiled steps (the first eager, its Hough == plain bit for "
+            f"bit, max_abs_err {pre_errs}); launches in phase 14's train_net runs "
             f"{launches}")
         del tr, step, recorded
         torch.cuda.empty_cache()
@@ -3390,22 +3703,20 @@ ORACLE_IMAGES = 4  # phase 16 (d): held-out scenes the rotation oracle scores
 
 def counted_run(call, where):
     """call() with the model's Hough recorded and the kernels' counts set
-    to 0 just before it and read just after; then each recorded Hough call
-    held to its plain versions (`recorded_vs_plain`). Returns (call's
-    result, its launches, the recorded calls)."""
+    to 0 just before it and read just after (`device_counted`: the
+    launches the kernels counted on the device, eager ones and a compiled
+    train step's replays); then each recorded (eager) Hough call held to
+    its plain versions (`recorded_vs_plain`). Returns (call's result, its
+    launches, the recorded calls)."""
     from posecnn_torch.models import posecnn as posecnn_module
-    from posecnn_torch.ops import hough_kernels as hk
 
     recorded = Recorded()
     stand_in, original = counting_hough(recorded)
-    for key in hk.LAUNCHES:
-        hk.LAUNCHES[key] = 0
     posecnn_module.hough_voting = stand_in
     try:
-        out = call()
+        out, _, launches = device_counted(call)
     finally:
         posecnn_module.hough_voting = original
-    launches = {k: hk.LAUNCHES[k] for k in KERNELS}
     recorded_vs_plain(recorded, where)
     return out, launches, recorded
 
@@ -3509,6 +3820,12 @@ def phase_entry_bench(card):
                     raise AssertionError(f"phase 16 bench {command}: a captured forward "
                                          f"launches {body}, not 1 flat and 1 window")
                 per_body[f"bench {command} {line['timing']}"] = body
+            if "launches_per_step" in line:  # the compiled train step's graph
+                body = line["launches_per_step"]
+                if body != FORWARD_BODY:
+                    raise AssertionError(f"phase 16 bench {command}: a replayed train step "
+                                         f"launches {body}, not 1 flat and 1 window")
+                per_body[f"bench {command} {line['feed']} compiled step"] = body
             print(f"phase 16 (c) bench {command}: {json.dumps(line)}", flush=True)
         print(f"phase 16 (c) bench {command}: {time.perf_counter() - t0:.1f} s", flush=True)
         gc.collect()
@@ -3578,6 +3895,13 @@ def check_bench_line(command, line, signed=()):
            and not (np.isfinite(v) and (v > 0 or k.split(".")[-1] in signed))}
     if bad:
         raise AssertionError(f"phase 17 bench {command}: {bad} in {json.dumps(line)}")
+    if "launches_per_step" in line:  # a compiled train step's graph
+        name = f"{line.get('variant', 'full')} compiled step"
+        want = NO_VOTE if line.get("variant") in ("no_pose", "seg_only") else C2F_PAIR
+        if tuple(line["launches_per_step"][k] for k in KERNELS) != want:
+            raise AssertionError(f"phase 17 bench {command} {name}: a replayed step launches "
+                                 f"{line['launches_per_step']}, not {want} (tile, flat, window)")
+        return name, line["launches_per_step"]
     body = line.get("launches_per_body", line.get("launches_per_forward"))
     if body is None:
         return None
@@ -3824,7 +4148,7 @@ def main() -> int:
     launches, cli_bodies = phase_serve(card)
     phase_validate(device)
     runs = phase_full_width(device, card)
-    phase_train(card)
+    train = phase_train(card)
     eval_launches, cli_bodies["test_net"] = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
     demo_launches, cli_bodies["demo"] = phase_det_demo(card)
@@ -3860,7 +4184,10 @@ def main() -> int:
          "phase17_max_abs_err": p17_errs[k],
          "phase17_launches": {name: counts[k] for name, counts in p17_launches.items()},
          "phase17_per_captured_body": {name: body[k] for name, body in p17_per_body.items()},
-         "phase17_at_tunings": p17_tunings[k]}
+         "phase17_at_tunings": p17_tunings[k],
+         "per_replayed_train_step": train["per_replayed_step"][k],
+         "train_gate_per_replay": {name: train[name]["launches_per_replay"][k]
+                                   for name in ("flagship_gate", "momentum_gate")}}
         for k in ("tile", "flat", "window")
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -41,15 +41,20 @@ TPU's.
           bf16, the cfg's optimizer (momentum), keep_prob 0.5; class
           points from RandomState(0); one fixed batch rendered by the
           carried generator (its C++ loops) at RandomState(0), with the
-          sparse vertex feed (the headline) and the dense one. n steps of
-          `TrainStep.forward / backward / update` on that batch, step i+1
-          reading data + loss_i·1e-20, no host read between steps, n1 = 3,
-          n2 = 23. As JAX's functional `run` starts every call from the
-          same state, every timed run starts from the model, optimizer and
-          step of the end of the warm-up, restored outside the events.
-          Eager: the training forward copies host constants to the device,
-          which a CUDA graph cannot capture. A line before the last gives
-          torch.profiler's device-busy ms of one step.
+          sparse vertex feed (the headline) and the dense one. n steps on
+          that batch, step i+1 reading data + loss_i·1e-20, no host read
+          between steps, n1 = 3, n2 = 23: eagerly (`TrainStep.forward /
+          backward / update`), and as the compiled step (`engine/train.
+          CompiledTrainStep`, one CUDA graph replayed a step, the chain
+          inside its body), as `bench_train.py:80` times a jitted step. As
+          JAX's functional `run` starts every call from the same state,
+          every timed run starts from the model, optimizer and step of the
+          end of the warm-up, restored in place outside the events (a graph
+          reads them at their addresses). Each feed's line gives both and
+          torch.profiler's device-busy ms of one step of each; the last two
+          lines are the eager step's metric (`…_h100_eager`) and the
+          compiled step's, `posecnn_torch_train_s_per_iter_480x640_b2_h100`
+          with `"timing": "cuda_graph"`, as `infer` prints its own.
   c2f     `bench_graph_phases.py:120-170`: the samples of a planted label
           (classes 3 / 9 / 15 in three squares) and a vertex map of
           RandomState(0) (randn·0.3) through `_prepare_slots` (label
@@ -74,14 +79,15 @@ TPU's.
           64 pose rows; no_pose; seg_only, its batch cut to the keys the
           seg loss reads; add_p128; fc1024; res_240x320 at half the focal
           length; batch1), each on a fresh batch of RandomState(0), then
-          the six differences the script derives. Eager, n 3 / 23, every
-          timed run from one restored state, as `train`; each variant's
-          device-busy ms of one profiled step and their six differences
-          beside them (the eager step waits on its host).
+          the six differences the script derives. Eager and compiled, n 3 /
+          23, every timed run from one restored state, as `train`; each
+          variant's device-busy ms of one profiled eager step and their six
+          differences beside them (the eager step waits on its host), and
+          the compiled step's ms and differences.
   train_mfu  `bench_train_mfu.py`: the step at (batch, scale) (8, 0.5),
           (8, 1.0), (16, 1.0) (adam, grad clip 35, GT RoIs prepended,
           max_rois 16·b, 8·b GT rows, 1 object an image, focal × scale),
-          eager at n 3 / 13. FLOPs of one step from
+          eager and compiled at n 3 / 13. FLOPs of one step from
           `torch.utils.flop_counter.FlopCounterMode` (the vote kernels add
           none), MFU over the H100's 989 TFLOP/s of dense bf16. The
           script's `device_s_per_iter` times a compiled loop with no host
@@ -89,15 +95,19 @@ TPU's.
           is `s_per_iter_eager` (and `samples_per_s`, `mfu_pct` follow
           it), and the device's own time is `step_busy_ms`, the
           device-busy ms of one profiled step, with `mfu_pct_busy` from
-          it. The JAX row's `compile_s` is the warm-up step's seconds
-          here. Written to `output/bench_train_mfu_torch.json`.
+          it; the compiled step, which waits on no host work, is the
+          script's loop: `s_per_iter_compiled` and `mfu_pct_compiled`. The
+          JAX row's `compile_s` is the warm-up step's seconds here. Written
+          to `output/bench_train_mfu_torch.json`.
   profile `profile_train.py`: `train`'s step (sparse feed), warmed outside
           the trace; its FLOPs and 20 steps each ended by a host read (the
           `train_step_mfu` line); 5 such steps under torch.profiler (CPU
           and CUDA), the chrome trace written under `POSECNN_TRACE_DIR`
           (default `posecnn_torch_trace` in the temporary directory), and
           the 40 device kernels of most self time as the script's per-plane
-          table, the plane named after the card. Written to
+          table, the plane named after the card; then the same for the
+          compiled step (its s a step and MFU at a host read a step, the
+          device kernels of 5 replayed steps). Written to
           `output/train_profile_torch.json`.
 
 Without a CUDA device the command exits non-zero: it measures the card
@@ -107,7 +117,7 @@ and has no CPU mode.
 from __future__ import annotations
 
 import argparse
-import copy
+import gc
 import json
 import os
 import subprocess
@@ -124,7 +134,7 @@ from posecnn_torch.cli.common import setup_device
 from posecnn_torch.core.config import cfg_from_dict
 from posecnn_torch.data.pipeline import to_device
 from posecnn_torch.data.synthetic import SyntheticSceneGenerator
-from posecnn_torch.engine.train import create_train_state, make_train_step
+from posecnn_torch.engine.train import CompiledTrainStep, create_train_state, make_train_step
 from posecnn_torch.entry import (
     HEIGHT,
     NUM_CLASSES,
@@ -347,33 +357,56 @@ def train_steps(step, state, batch: dict, n: int) -> torch.Tensor:
     return loss
 
 
+def compiled_twin(step) -> CompiledTrainStep:
+    """`step`'s model, class points and keep rate as a compiled step whose
+    body reads data + loss·1e-20 of the step before it (`feedback`):
+    `train_steps`' chain inside the graph."""
+    return CompiledTrainStep(step.cfg, step.model, step.points, step.extents, step.symmetry,
+                             keep_prob=step.keep_prob, feedback=True)
+
+
+def compiled_steps(step, state, batch: dict, n: int) -> torch.Tensor:
+    """n calls of a `compiled_twin` on `batch`, the first reading data +
+    0 (`train_steps` on the graph); returns the last loss without
+    waiting. The first call of a signature runs eagerly and captures."""
+    step.carry.zero_()
+    for _ in range(n):
+        step(state, batch)
+    return step.carry
+
+
 def snapshot(step, state):
     """A restore() that puts the model's parameters and buffers, the
-    optimizer's state and count, and the global step (which seeds the
-    dropout streams) back to what they are now."""
-    params = copy.deepcopy(step.model.state_dict())
-    opt = copy.deepcopy(state.opt.opt.state_dict())
+    optimizer's state tensors and count, and the global step (which seeds
+    the dropout streams) back to what they are now, in place: each tensor
+    keeps its address, which a compiled step's graph reads (an optimizer's
+    `load_state_dict` would put new tensors in its state)."""
+    tensors = [*step.model.state_dict(keep_vars=True).values(), *state.opt.state_tensors()]
+    saved = [t.detach().clone() for t in tensors]
     count, at = state.opt.count, state.step
 
     def restore():
-        step.model.load_state_dict(params)
-        # load_state_dict keeps the tensors it is given: hand it copies
-        state.opt.opt.load_state_dict(copy.deepcopy(opt))
+        with torch.no_grad():
+            for t, value in zip(tensors, saved):
+                t.copy_(value)
         state.opt.count, state.step = count, at
 
     return restore
 
 
-def train_seconds(step, state, batch: dict, n1: int, n2: int) -> tuple:
-    """(device s, host s) a step, each timed run starting from the state
-    as it is now (`snapshot`), as JAX's functional loop starts every call
-    from one state; the state is left restored to it. Warm up first."""
+def train_seconds(step, state, batch: dict, n1: int, n2: int, steps=None) -> tuple:
+    """(device s, host s) a step of `steps` (`train_steps`, or
+    `compiled_steps` with a `compiled_twin`), each timed run starting from
+    the state as it is now (`snapshot`), as JAX's functional loop starts
+    every call from one state; the state is left restored to it. Warm up
+    first (the compiled step warms in `differenced_median`'s first runs)."""
+    steps = steps or train_steps
     restore = snapshot(step, state)
     device = batch["data"].device
 
     def run(n):
         restore()
-        return timed(lambda: train_steps(step, state, batch, n), device)
+        return timed(lambda: steps(step, state, batch, n), device)
 
     seconds = differenced_median(run, n1, n2)
     restore()
@@ -401,40 +434,61 @@ def device_kernel_ms(prof) -> dict:
             if ev.device_type == DeviceType.CUDA and not ev.is_user_annotation}
 
 
-def step_busy_ms(step, state, batch: dict) -> tuple:
-    """(device-busy ms, wall ms) of one training step under torch.profiler:
-    the device-side events' self times, and the host clock to a synchronise."""
+def step_busy_ms(step, state, batch: dict, steps=None) -> tuple:
+    """(device-busy ms, wall ms) of one training step of `steps`
+    (`train_steps` or `compiled_steps`) under torch.profiler: the
+    device-side events' self times, and the host clock to a synchronise."""
     from torch.profiler import ProfilerActivity, profile
 
+    steps = steps or train_steps
     device = batch["data"].device
     torch.cuda.synchronize(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        train_steps(step, state, batch, 1)
+        steps(step, state, batch, 1)
         torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
     return sum(device_kernel_ms(prof).values()), wall * 1e3
 
 
+def compiled_launches(step) -> Optional[dict]:
+    """The vote kernels' launches in one replay of a compiled step's graph
+    (None on the CPU, where the step runs eagerly and captures none)."""
+    programs = list(step.compiled.programs.values())
+    if len(programs) > 1:
+        raise AssertionError(f"a bench step took {len(programs)} graphs, not one")
+    return programs[0].launches if programs else None
+
+
 def bench_train(device) -> list:
-    """`bench_train.py`: seconds a step with the sparse and the dense feed."""
+    """`bench_train.py`: seconds a step with the sparse and the dense feed,
+    eager and compiled."""
     card = card_line()
-    lines, per_feed = [], {}
+    lines, eager, compiled = [], {}, {}
     for feed in ("sparse", "dense"):
         step, state, batch = train_setup(device, dense=feed == "dense")
         train_steps(step, state, batch, 1)  # cuDNN's plans, the kernels' library
         dev_s, host_s = train_seconds(step, state, batch, *TRAIN_N)
         busy_ms, wall_ms = step_busy_ms(step, state, batch)
-        per_feed[feed] = dev_s
+        twin = compiled_twin(step)
+        c_dev_s, c_host_s = train_seconds(twin, state, batch, *TRAIN_N, compiled_steps)
+        c_busy_ms, c_wall_ms = step_busy_ms(twin, state, batch, compiled_steps)
+        eager[feed], compiled[feed] = dev_s, c_dev_s
         lines.append({"feed": feed, "s_per_iter": dev_s, "host_s_per_iter": host_s,
                       "profiled_step_device_busy_ms": busy_ms, "profiled_step_wall_ms": wall_ms,
-                      "busy_share": busy_ms / wall_ms, **card})
-        del step, state, batch
-    lines.append({"metric": "posecnn_torch_train_s_per_iter_480x640_b2_h100",
-                  "value": per_feed["sparse"], "unit": "s/iter", "timing": "eager",
-                  "note": "step time (fwd+bwd+update) on CUDA events, fc4096, sparse vertex "
-                          "feed", "sparse_feed_s": per_feed["sparse"],
-                  "dense_feed_s": per_feed["dense"], **card})
+                      "busy_share": busy_ms / wall_ms, "compiled_s_per_iter": c_dev_s,
+                      "compiled_host_s_per_iter": c_host_s,
+                      "compiled_profiled_step_device_busy_ms": c_busy_ms,
+                      "compiled_profiled_step_wall_ms": c_wall_ms,
+                      "compiled_busy_share": c_busy_ms / c_wall_ms,
+                      "launches_per_step": compiled_launches(twin), **card})
+        del step, state, batch, twin
+    note = "step time (fwd+bwd+update) on CUDA events, fc4096, sparse vertex feed"
+    for timing, per_feed, suffix in (("eager", eager, "_eager"), ("cuda_graph", compiled, "")):
+        lines.append({"metric": f"posecnn_torch_train_s_per_iter_480x640_b2_h100{suffix}",
+                      "value": per_feed["sparse"], "unit": "s/iter", "timing": timing,
+                      "note": note, "sparse_feed_s": per_feed["sparse"],
+                      "dense_feed_s": per_feed["dense"], **card})
     return lines
 
 
@@ -614,31 +668,43 @@ def train_differences(ms: dict) -> dict:
 
 def train_variant_seconds(device, **variant) -> tuple:
     """(device s, host s) a step of `train`'s step with `variant`'s
-    changes (`train_setup`'s keywords), warmed once, n 3 / 23; then the
-    device-busy ms of one profiled step (`step_busy_ms`)."""
+    changes (`train_setup`'s keywords), warmed once, n 3 / 23; the
+    device-busy ms of one profiled step (`step_busy_ms`); then the
+    compiled step's (device s, host s) and launches a replay."""
     step, state, batch = train_setup(device, **variant)
     train_steps(step, state, batch, 1)  # cuDNN's plans, the kernels' library
     dev_s, host_s = train_seconds(step, state, batch, *TRAIN_COMPONENTS_N)
-    return dev_s, host_s, step_busy_ms(step, state, batch)[0]
+    busy_ms = step_busy_ms(step, state, batch)[0]
+    twin = compiled_twin(step)
+    compiled = train_seconds(twin, state, batch, *TRAIN_COMPONENTS_N, compiled_steps)
+    return dev_s, host_s, busy_ms, compiled, compiled_launches(twin)
 
 
 def bench_train_components(device) -> list:
     """`bench_train_components.py`: the nine variants, then the derived
     differences. The eager step waits on its host work, which a variant
     may change less than its device work, so each variant's device-busy
-    ms and their differences stand beside the script's."""
+    ms and their differences stand beside the script's; the compiled
+    step's ms and differences, which wait on no host work, beside both."""
     card = card_line()
-    lines, ms, busy = [], {}, {}
+    lines, ms, busy, compiled = [], {}, {}, {}
     for name, variant in TRAIN_VARIANTS:
-        dev_s, host_s, busy[name] = train_variant_seconds(device, **variant)
-        ms[name] = dev_s * 1e3
+        dev_s, host_s, busy[name], (c_dev_s, c_host_s), launches = train_variant_seconds(
+            device, **variant)
+        ms[name], compiled[name] = dev_s * 1e3, c_dev_s * 1e3
         lines.append({"variant": name, **variant, "ms_per_iter": dev_s * 1e3,
                       "host_ms_per_iter": host_s * 1e3,
-                      "profiled_step_device_busy_ms": busy[name], **card})
+                      "profiled_step_device_busy_ms": busy[name],
+                      "compiled_ms_per_iter": c_dev_s * 1e3,
+                      "compiled_host_ms_per_iter": c_host_s * 1e3,
+                      "launches_per_step": launches, **card})
+        gc.collect()  # the variant's graph and its memory pool
         torch.cuda.empty_cache()
     lines.append({"metric": "posecnn_torch_train_components_480x640_b2_h100", "unit": "ms/iter",
                   "timing": "eager", **ms, **train_differences(ms), "device_busy_ms": busy,
-                  "device_busy_differences": train_differences(busy), **card})
+                  "device_busy_differences": train_differences(busy),
+                  "compiled_ms": compiled, "compiled_differences": train_differences(compiled),
+                  **card})
     return lines
 
 
@@ -667,17 +733,26 @@ def bench_train_mfu(device) -> list:
         warmup_s = time.perf_counter() - t0
         dev_s, host_s = train_seconds(step, state, batch, *MFU_N)
         busy_ms = step_busy_ms(step, state, batch)[0]
+        twin = compiled_twin(step)
+        c_dev_s, c_host_s = train_seconds(twin, state, batch, *MFU_N, compiled_steps)
         flops = step_flops(step, state, batch)
         achieved, achieved_busy = flops / dev_s / 1e12, flops / busy_ms / 1e9
+        achieved_compiled = flops / c_dev_s / 1e12
         lines.append({"batch": b, "scale": scale, "hw": [setup["height"], setup["width"]],
                       "s_per_iter_eager": dev_s, "host_s_per_iter": host_s,
                       "samples_per_s": b / dev_s, "step_flops": flops,
                       "achieved_tflops": achieved, "mfu_pct": 100 * achieved / PEAK_BF16_TFLOPS,
                       "step_busy_ms": busy_ms, "achieved_tflops_busy": achieved_busy,
                       "mfu_pct_busy": 100 * achieved_busy / PEAK_BF16_TFLOPS,
+                      "s_per_iter_compiled": c_dev_s, "host_s_per_iter_compiled": c_host_s,
+                      "samples_per_s_compiled": b / c_dev_s,
+                      "achieved_tflops_compiled": achieved_compiled,
+                      "mfu_pct_compiled": 100 * achieved_compiled / PEAK_BF16_TFLOPS,
+                      "launches_per_step": compiled_launches(twin),
                       "peak_tflops": PEAK_BF16_TFLOPS, "warmup_s": warmup_s,
                       "peak_memory_gb": torch.cuda.max_memory_allocated(device) / 1e9, **card})
-        del step, state, batch
+        del step, state, batch, twin
+        gc.collect()  # the point's graph and its memory pool
         torch.cuda.empty_cache()
     out = {"metric": "posecnn_torch_train_mfu_sweep_h100", "points": lines, **card}
     os.makedirs(os.path.dirname(MFU_OUT), exist_ok=True)
@@ -692,43 +767,69 @@ def trace_dir() -> str:
                           os.path.join(tempfile.gettempdir(), "posecnn_torch_trace"))
 
 
-def bench_profile(device) -> list:
-    """`profile_train.py`: the step's MFU at a host read a step, then a
-    torch.profiler trace of 5 steps and its top device kernels; writes
-    PROFILE_OUT."""
-    from torch.profiler import ProfilerActivity, profile
-
-    card = card_line()
-    step, state, batch = train_setup(device)
-    train_steps(step, state, batch, 1)  # warm, outside the trace
-    torch.cuda.synchronize(device)
-    flops = step_flops(step, state, batch)
+def host_sync_seconds(steps, step, state, batch: dict) -> float:
+    """Seconds a step of `steps` with a host read after each, as
+    `profile_train.py` times its loop."""
     t0 = time.perf_counter()
     for _ in range(PROFILE_HOST_SYNC_STEPS):
-        float(train_steps(step, state, batch, 1))
-    dt = (time.perf_counter() - t0) / PROFILE_HOST_SYNC_STEPS
-    mfu_line = {"metric": "posecnn_torch_train_step_mfu_h100", "step_flops": flops,
-                "s_per_iter_host_sync": dt, "achieved_tflops": flops / dt / 1e12,
-                "peak_tflops_assumed": PEAK_BF16_TFLOPS,
-                "mfu": flops / dt / (PEAK_BF16_TFLOPS * 1e12), **card}
+        float(steps(step, state, batch, 1))
+    return (time.perf_counter() - t0) / PROFILE_HOST_SYNC_STEPS
+
+
+def traced_kernels(steps, step, state, batch: dict, trace: str) -> dict:
+    """Each device kernel's ms over PROFILE_TRACED_STEPS steps of `steps`
+    under torch.profiler, a host read a step as the script; the chrome
+    trace written to `trace`."""
+    from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILE_TRACED_STEPS):
-            float(train_steps(step, state, batch, 1))  # a host read a step, as the script
+            float(steps(step, state, batch, 1))
+    prof.export_chrome_trace(trace)
+    return device_kernel_ms(prof)
+
+
+def bench_profile(device) -> list:
+    """`profile_train.py`: the step's MFU at a host read a step, then a
+    torch.profiler trace of 5 steps and its top device kernels; the same
+    for the compiled step beside them; writes PROFILE_OUT."""
+    card = card_line()
+    step, state, batch = train_setup(device)
+    train_steps(step, state, batch, 1)  # warm, outside the trace
+    twin = compiled_twin(step)
+    compiled_steps(twin, state, batch, 2)  # its real step and capture, then a replay
+    torch.cuda.synchronize(device)
+    flops = step_flops(step, state, batch)
+    dt = host_sync_seconds(train_steps, step, state, batch)
+    c_dt = host_sync_seconds(compiled_steps, twin, state, batch)
+    mfu_line = {"metric": "posecnn_torch_train_step_mfu_h100", "step_flops": flops,
+                "s_per_iter_host_sync": dt, "achieved_tflops": flops / dt / 1e12,
+                "peak_tflops_assumed": PEAK_BF16_TFLOPS,
+                "mfu": flops / dt / (PEAK_BF16_TFLOPS * 1e12),
+                "compiled_s_per_iter_host_sync": c_dt,
+                "compiled_achieved_tflops": flops / c_dt / 1e12,
+                "compiled_mfu": flops / c_dt / (PEAK_BF16_TFLOPS * 1e12), **card}
+
     path = trace_dir()
     os.makedirs(path, exist_ok=True)
     trace = os.path.join(path, "train_step.trace.json")
-    prof.export_chrome_trace(trace)
-    kernels = device_kernel_ms(prof)
+    kernels = traced_kernels(train_steps, step, state, batch, trace)
+    c_trace = os.path.join(path, "compiled_train_step.trace.json")
+    c_kernels = traced_kernels(compiled_steps, twin, state, batch, c_trace)
     plane = f"/device:GPU:0 ({card['device']})"
     per_plane = {plane: dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:PROFILE_TOP])}
+    c_top = dict(sorted(c_kernels.items(), key=lambda kv: -kv[1])[:PROFILE_TOP])
     os.makedirs(os.path.dirname(PROFILE_OUT), exist_ok=True)
     with open(PROFILE_OUT, "w") as f:
-        json.dump({"mfu": mfu_line, "per_plane": per_plane, "trace": trace}, f, indent=1)
-    return [mfu_line, {"plane": plane, "top_kernels_ms": per_plane[plane], **card},
+        json.dump({"mfu": mfu_line, "per_plane": per_plane, "trace": trace,
+                   "compiled": {"top_kernels_ms": c_top, "trace": c_trace}}, f, indent=1)
+    return [mfu_line, {"plane": plane, "top_kernels_ms": per_plane[plane],
+                       "compiled_top_kernels_ms": c_top, **card},
             {"metric": "posecnn_torch_train_profile_h100", "planes": list(per_plane),
              "steps": PROFILE_TRACED_STEPS, "device_kernel_ms": sum(kernels.values()),
-             "kernels": len(kernels), "trace": trace, "wrote": PROFILE_OUT, **card}]
+             "kernels": len(kernels), "compiled_device_kernel_ms": sum(c_kernels.values()),
+             "compiled_kernels": len(c_kernels), "launches_per_step": compiled_launches(twin),
+             "trace": trace, "compiled_trace": c_trace, "wrote": PROFILE_OUT, **card}]
 
 
 COMMANDS = {"infer": bench_infer, "phases": bench_phases, "train": bench_train, "c2f": bench_c2f,

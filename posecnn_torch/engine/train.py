@@ -15,15 +15,26 @@ Loss composition as in the reference's train_net:
 The optimizer is optax's chain in the same order and with the same
 formulas, so that a step here moves the parameters as the JAX step does:
 masked `add_decayed_weights` and `clip_by_global_norm` as
-`torch._foreach_*` ops over all gradients, then `torch.optim.SGD` or
-`Adam`, on the staircase `lr_schedule`.
+`torch._foreach_*` ops over all gradients, then optax's momentum trace
+(`_foreach` ops) or `torch.optim.Adam`, on the staircase `lr_schedule`.
+The learning rate the update reads is a device tensor (Adam's on the
+CPU: a float), which the host sets before each update.
 
-The step is eager PyTorch: forward with autograd, `backward()`, update.
-Hough inside the forward runs without gradient (its kernels have no
-backward and need none). Dropout streams come from (seed, step), as
+A step is forward with autograd, `backward()`, update. Hough inside the
+forward runs without gradient (its kernels have no backward and need
+none). Dropout streams come from (seed, step), as
 `jax.random.fold_in(PRNGKey(seed), step)` gives the JAX step its key.
 The inputs are COLOR, DEPTH or NORMAL blobs in `data`, or RGBD's colour
-in `data` and depth in `data_p`.
+in `data` and depth in `data_p`. `TrainStep` runs eagerly, one launch at
+a time. `make_train_step` gives the posecnn family `CompiledTrainStep`,
+the counterpart of the JAX step's `jax.jit(step_fn, donate_argnums=(0,))`:
+on a card its call is one CUDA graph per batch signature
+(`utils/graph.compile_step`) holding forward, backward, update and the
+metrics; on the CPU it runs the same body eagerly. The data-parallel step
+(a mesh of several ranks) stays eager: its gloo collectives cannot be
+captured, and its `max_pose_rois` cap keeps a data-dependent number of
+rows (`torch.nonzero`, `models/posecnn.global_pose_row_cap`). The GAN,
+detection, segmentation and video steps are eager.
 
 The detection step (`DetTrainStep`) is train_net_det's: the
 `models.detection.detection_losses` terms with the ADD pose term, on one
@@ -82,6 +93,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
+from functools import partial
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -109,6 +121,7 @@ from posecnn_torch.parallel.mesh import (
     tp_partial_params,
     tp_sharded_params,
 )
+from posecnn_torch.utils.graph import compile_step, device_constant
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
@@ -174,11 +187,21 @@ class Optimizer:
     """optax.chain(masked(add_decayed_weights), clip_by_global_norm,
     sgd(momentum) | adam) over a list of parameters, updated in place from
     their `.grad` (`posecnn_tpu/engine/train.py:108-125`). The decay and
-    the clip rewrite the gradients in place; `torch.optim.SGD` (dampening
-    0, the same trace as optax's) or `torch.optim.Adam` (the same
-    bias-corrected moments; fused on the card) takes the last step.
-    `sharded` are tensor-parallel shards whose squares the clip's norm sums
-    over `shard_group` (each shard counted once)."""
+    the clip rewrite the gradients in place; optax's trace (`trace = g +
+    μ·trace`, then `p −= lr·trace`, as `_foreach` ops) or
+    `torch.optim.Adam` (the same bias-corrected moments) takes the last
+    step. `sharded` are tensor-parallel shards whose squares the clip's
+    norm sums over `shard_group` (each shard counted once).
+
+    A form a CUDA graph can replay: the learning rate lives in the device
+    tensor `lr`, which `prepare` sets to `schedule(count)` before each
+    update, outside any graph; on the card Adam is fused and capturable
+    with that tensor as its rate (its `step` and moments stay at their
+    addresses), and the traces are made once, here. Missing gradients
+    count as zeros made once and zeroed again each update. `update` is
+    `prepare`, `apply` (the device part, which a graph captures) and the
+    count, and `apply` is `condition` (the gradient transforms) then
+    `descend` (the move); the eager and the compiled step both run it so."""
 
     def __init__(self, params: Sequence[torch.Tensor], *, kind: str, schedule: Callable,
                  weight_decay: float = 0.0, grad_clip: float = 0.0, momentum: float = 0.9,
@@ -191,21 +214,61 @@ class Optimizer:
         self.decayed = [p for p, m in zip(self.params, _weight_mask(self.params)) if m]
         self.grad_clip = grad_clip
         self.count = 0  # updates so far: the schedule's count
+        on_card = self.params[0].is_cuda
+        self.lr = torch.zeros((), dtype=torch.float32, device=self.params[0].device)
+        self._zeros: dict[int, torch.Tensor] = {}  # the missing gradients', by index
+        self.momentum, self.trace, self.opt = momentum, None, None
         if kind == "momentum":
-            self.opt = torch.optim.SGD(self.params, lr=schedule(0), momentum=momentum)
+            self.trace = [torch.zeros_like(p) for p in self.params]
         elif kind == "adam":
-            self.opt = torch.optim.Adam(self.params, lr=schedule(0), betas=(ADAM_B1, ADAM_B2),
-                                        eps=ADAM_EPS, fused=self.params[0].is_cuda)
+            # on the CPU torch.optim takes a tensor rate only fused or capturable
+            self.opt = torch.optim.Adam(self.params, lr=self.lr if on_card else schedule(0),
+                                        betas=(ADAM_B1, ADAM_B2), eps=ADAM_EPS, fused=on_card,
+                                        capturable=on_card)
         else:
             raise ValueError(f"unknown optimizer '{kind}'")
 
-    @torch.no_grad()
     def update(self) -> float:
         """One update from the parameters' gradients (a missing gradient
         counts as zero, as in optax). Returns the learning rate it used."""
-        for p in self.params:
+        lr = self.prepare()
+        self.apply()
+        self.count += 1
+        return lr
+
+    def prepare(self) -> float:
+        """Set the rate of the next update, `schedule(count)`, and return it."""
+        lr = self.schedule(self.count)
+        if self.opt is not None and not isinstance(self.opt.param_groups[0]["lr"], torch.Tensor):
+            self.opt.param_groups[0]["lr"] = lr
+        else:
+            self.lr.fill_(lr)
+        return lr
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the optimizer's state, at the address the update
+        writes (Adam's made now where no update has made them yet)."""
+        if self.trace is not None:
+            return list(self.trace)
+        return [t for p in self.params for t in _adam_state(self.opt, p).values()]
+
+    def apply(self) -> None:
+        """The update's device work, at the rate `prepare` set."""
+        self.condition()
+        self.descend()
+
+    @torch.no_grad()
+    def condition(self) -> None:
+        """The chain's gradient transforms, in place on `.grad`: a missing
+        gradient as zeros, the masked weight decay, the global-norm clip."""
+        for i, p in enumerate(self.params):
             if p.grad is None:
-                p.grad = torch.zeros_like(p)
+                zeros = self._zeros.get(i)
+                if zeros is None:
+                    zeros = self._zeros[i] = torch.zeros_like(p)
+                else:
+                    zeros.zero_()  # the decay and the clip rewrite it
+                p.grad = zeros
         if self.weight_decay > 0 and self.decayed:
             # optax.masked(add_decayed_weights): g + wd · p on the kernels
             torch._foreach_add_([p.grad for p in self.decayed], self.decayed,
@@ -220,11 +283,17 @@ class Optimizer:
             keep = norm < self.grad_clip
             torch._foreach_div_(g, torch.where(keep, torch.ones_like(norm), norm))
             torch._foreach_mul_(g, torch.where(keep, 1.0, self.grad_clip).to(norm))
-        lr = self.schedule(self.count)
-        self.opt.param_groups[0]["lr"] = lr
-        self.opt.step()
-        self.count += 1
-        return lr
+
+    @torch.no_grad()
+    def descend(self) -> None:
+        """The move from the conditioned gradients at the rate `prepare` set."""
+        if self.trace is None:
+            self.opt.step()
+            return
+        # optax.sgd(lr, momentum): trace = g + μ·trace; p += −lr·trace
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, [p.grad for p in self.params])
+        torch._foreach_sub_(self.params, torch._foreach_mul(self.trace, self.lr))
 
     def _sharded_norm(self) -> torch.Tensor:
         """The global norm with the shards' squares summed over their group."""
@@ -236,24 +305,35 @@ class Optimizer:
         return torch.sqrt(whole + all_reduce_sum(shards, self.shard_group))
 
 
+def _adam_state(adam: torch.optim.Adam, p: torch.Tensor) -> dict:
+    """`p`'s Adam state, made as Adam's first update makes it where there
+    is none yet (zero moments, step 0: the next update is its first)."""
+    state = adam.state[p]
+    if not state:
+        group = adam.param_groups[0]
+        on_device = group["fused"] or group["capturable"]
+        # torch.optim's scalar dtype: fp64 only for a non-fused fp64 default
+        dtype = (torch.float64 if torch.get_default_dtype() == torch.float64 and not on_device
+                 else torch.float32)
+        state["step"] = torch.zeros((), dtype=dtype, device=p.device if on_device else "cpu")
+        state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+        state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+    return state
+
+
 def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
     """Set the optimizer's update count, which the schedule reads, and
     every parameter's `step` in the `torch.optim` state to `step`
     (`posecnn_tpu/engine/train.py:76-99` sets every optax `count`). The
     staircase then follows the global iteration, and Adam's bias
     correction is that of an optimizer `step` updates old, with the
-    moments it has (zero on a fresh one, as optax's init). SGD's state
-    has no count."""
+    moments it has (zero on a fresh one, as optax's init). The count is
+    written into the existing `step` tensor, which a captured update reads
+    at its address. The momentum trace has no count."""
     opt.count = step
-    if isinstance(opt.opt, torch.optim.Adam):
+    if opt.opt is not None:
         for p in opt.params:
-            state = opt.opt.state[p]
-            if not state:
-                state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-            # fused Adam keeps the step on the parameter's device
-            state["step"] = torch.tensor(float(step), dtype=torch.float32,
-                                         device=p.device if p.is_cuda else "cpu")
+            _adam_state(opt.opt, p)["step"].fill_(float(step))
     return opt
 
 
@@ -288,23 +368,28 @@ def decompress_feed(batch: dict, cfg: Config) -> dict:
     if batch.get("data") is None or batch["data"].dtype != torch.uint8:
         return batch
     b = dict(batch)
-    pm = torch.tensor(cfg.pixel_means, dtype=torch.float32, device=b["data"].device)
-    b["data"] = b["data"].float() - pm
+    b["data"] = b["data"].float() - device_constant(cfg.pixel_means, b["data"].device)
     if "label" in b:
         b["label"] = b["label"].long()
     return b
 
 
-def dropout_generators(seed: int, step: int, device, data_rank: int = 0) -> list[torch.Generator]:
-    """The five dropout streams of one step (seg head, vertex head, fc6,
-    fc7, fc9), seeded from (seed, step), and from (seed, step, data_rank)
-    on a data-parallel rank past the first, whose images must not repeat
-    rank 0's masks. `generate_state` gives a prefix of the same words for
-    fewer streams, so the first four are those of a model without the
-    domain head."""
+def dropout_seeds(seed: int, step: int, data_rank: int = 0) -> list[int]:
+    """The seeds of the five dropout streams of one step (seg head, vertex
+    head, fc6, fc7, fc9): `SeedSequence([seed, step])`'s words, and
+    (seed, step, data_rank)'s on a data-parallel rank past the first,
+    whose images must not repeat rank 0's masks. `generate_state` gives a
+    prefix of the same words for fewer streams, so the first four are
+    those of a model without the domain head."""
     entropy = [seed, step] if data_rank == 0 else [seed, step, data_rank]
-    states = np.random.SeedSequence(entropy).generate_state(5)
-    return [torch.Generator(device=device).manual_seed(int(s)) for s in states]
+    return [int(s) for s in np.random.SeedSequence(entropy).generate_state(5)]
+
+
+def dropout_generators(seed: int, step: int, device, data_rank: int = 0) -> list[torch.Generator]:
+    """Fresh generators of the five dropout streams of one step, seeded
+    with `dropout_seeds`."""
+    return [torch.Generator(device=device).manual_seed(s)
+            for s in dropout_seeds(seed, step, data_rank)]
 
 
 def compute_losses(model, batch: dict, cfg: Config, points, extents, symmetry,
@@ -423,12 +508,22 @@ def loss_point_scale(points: torch.Tensor, extents: torch.Tensor, symmetry: torc
     return points * scale[:, None, None], sym_eff
 
 
+def step_losses(cfg: Config, model, points, extents, symmetry, batch: dict,
+                generators: Sequence[Optional[torch.Generator]], is_symmetric: bool, *,
+                keep_prob: float = 0.5, mesh: Optional[Mesh] = None):
+    """(total loss, metrics) of the posecnn step on `batch`: the ADD points
+    scaled for the SYMSIZE curriculum's phase, then `compute_losses`."""
+    pts, sym = loss_point_scale(points, extents, symmetry, is_symmetric)
+    return compute_losses(model, batch, cfg, pts, extents, sym, generators, keep_prob=keep_prob,
+                          mesh=mesh)
+
+
 class TrainStep:
     """One training step: `forward` (losses), `backward`, `update`;
     calling it runs the three and returns the metrics (tensors on the
-    device, plus `lr`). With a `mesh` it is one rank's part of the
-    data-parallel step: `backward` also sums the gradients over the data
-    group (`parallel/mesh.reduce_gradients`)."""
+    device, plus `lr`), one launch at a time. With a `mesh` it is one
+    rank's part of the data-parallel step: `backward` also sums the
+    gradients over the data group (`parallel/mesh.reduce_gradients`)."""
 
     # train_loop's host-RSS handoff: the posecnn step's alone, as in JAX
     host_rss_handoff = True
@@ -451,10 +546,9 @@ class TrainStep:
         """(total loss, metrics) of `batch` at the state's step."""
         cfg = self.cfg
         gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device, self.data_rank)
-        pts, sym = loss_point_scale(self.points, self.extents, self.symmetry,
-                                    state.step >= cfg.train.symsize)
-        return compute_losses(self.model, batch, cfg, pts, self.extents, sym, gens,
-                              keep_prob=self.keep_prob, mesh=self.mesh)
+        return step_losses(cfg, self.model, self.points, self.extents, self.symmetry, batch, gens,
+                           state.step >= cfg.train.symsize, keep_prob=self.keep_prob,
+                           mesh=self.mesh)
 
     def backward(self, total: torch.Tensor) -> None:
         self.model.zero_grad(set_to_none=True)
@@ -481,10 +575,98 @@ class TrainStep:
         return metrics
 
 
+def _compiled_body(cfg: Config, model, points, extents, symmetry, keep_prob: float,
+                   generators: Sequence[torch.Generator], carry: Optional[torch.Tensor],
+                   batch: dict, opt: Optimizer, is_symmetric: bool) -> dict:
+    """The device work of one posecnn step, which `CompiledTrainStep`
+    captures: the losses, the backward, the update at the rate the host
+    set, the metrics. With `carry` the step reads data + carry·1e-20 and
+    writes its loss into carry. A function, not a method, so that what the
+    compiled step keeps holds no reference back to the step."""
+    if carry is not None:
+        batch = {**batch, "data": batch["data"] + carry * 1e-20}
+    total, metrics = step_losses(cfg, model, points, extents, symmetry, batch, generators,
+                                 is_symmetric, keep_prob=keep_prob)
+    model.zero_grad(set_to_none=True)
+    total.backward()
+    opt.apply()
+    if carry is not None:
+        carry.copy_(metrics["loss"])
+    return metrics
+
+
+class CompiledTrainStep(TrainStep):
+    """The posecnn step as the JAX step's `jax.jit(step_fn,
+    donate_argnums=(0,))` (`posecnn_tpu/engine/train.py:349-400`): calling
+    it on a card runs forward, backward, update and the metrics as one
+    CUDA graph per batch signature (`utils/graph.compile_step`: the batch's
+    keys, shapes and dtypes, the optimizer, and whether the SYMSIZE
+    curriculum has switched symmetry on, which makes at most two graphs;
+    the feed pads the GT rows to `max_gt`, so one signature serves a run).
+    The first call of a signature is its batch's real step, run eagerly;
+    later calls copy the batch in and replay. Before each call the host
+    seeds the five dropout generators, which every graph registers, with
+    `dropout_seeds` of the state's step, and writes the learning rate into
+    the optimizer's `lr`; after it, it counts the update and the step. The
+    metrics are fresh tensors (the eager step's contract), `lr` the host's
+    float. On the CPU the call runs the same body eagerly.
+
+    After a call each parameter's `.grad` is the gradient its update used
+    (conditioned in place), as after the eager step: the graph's gradient
+    tensors after a replay, the eager step's after a signature's first call.
+    `forward`, `backward` and `update` stay the eager step's and may be
+    called between replays: they read and write the same parameters and
+    optimizer state, and a replay reads those at their addresses. With
+    `feedback` the body reads data + `carry`·1e-20 and writes its loss into
+    the device scalar `carry`: the benches' chain of data-dependent steps.
+    No mesh: the data-parallel step is `TrainStep`'s."""
+
+    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5,
+                 feedback: bool = False):
+        super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+        device = extents.device
+        self.generators = [torch.Generator(device=device) for _ in range(5)]
+        self.carry = torch.zeros((), dtype=torch.float32, device=device) if feedback else None
+        body = partial(_compiled_body, cfg, model, points, extents, symmetry, keep_prob,
+                       self.generators, self.carry)
+        params, held = list(model.parameters()), {}
+
+        def drop_gradients():  # before a capture: its backward allocates the graph's own
+            held["eager"] = [p.grad for p in params]
+            model.zero_grad(set_to_none=True)
+
+        self._params, self._held, self._graph_grads = params, held, {}
+        self.compiled = compile_step(body, generators=self.generators,
+                                     before_capture=drop_gradients)
+
+    def __call__(self, state: TrainState, batch: dict) -> dict:
+        cfg = self.cfg
+        for g, seed in zip(self.generators, dropout_seeds(cfg.rng_seed, state.step)):
+            g.manual_seed(seed)
+        lr = state.opt.prepare()
+        metrics = self.compiled(batch, state.opt, state.step >= cfg.train.symsize)
+        program = self.compiled.last
+        if program is not None:
+            grads = self._graph_grads.get(program)
+            if grads is None:  # captured by this call: the eager step's gradients go back
+                self._graph_grads[program] = [p.grad for p in self._params]
+                grads = self._held.pop("eager")
+            for p, g in zip(self._params, grads):
+                p.grad = g
+        state.opt.count += 1
+        state.step += 1
+        metrics["lr"] = lr
+        return metrics
+
+
 def make_train_step(cfg: Config, model, points, extents, symmetry, *,
                     keep_prob: float = 0.5, mesh: Optional[Mesh] = None) -> TrainStep:
+    """The posecnn step: compiled (`CompiledTrainStep`), or with a mesh of
+    several ranks the eager data-parallel `TrainStep`."""
     check_supported(cfg)
-    return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob, mesh=mesh)
+    if mesh is not None and mesh.grid.size > 1:
+        return TrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob, mesh=mesh)
+    return CompiledTrainStep(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
 
 
 @dataclass

@@ -32,7 +32,9 @@ Backends (JAX name in brackets):
 Hough is zero-gradient by contract (`:785-789, 1045`): both entry points
 run under `torch.no_grad()`, so the training forward builds no graph
 through them and the kernels' wrappers never see a tensor that requires
-grad.
+grad. Their constants (box corners, jitters, the identity quaternion)
+are device buffers made once per device (`utils/graph.device_constant`),
+so that a CUDA graph can capture the training emission.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from posecnn_torch.ops.hough_kernels import (
     hough_votes_exhaustive,
 )
 from posecnn_torch.utils.bbox import box_iou
+from posecnn_torch.utils.graph import device_constant
 from posecnn_torch.utils.quaternion import quat_to_mat
 
 VERTEX_CHANNELS = 3
@@ -89,7 +92,7 @@ def _gt_projected_boxes(gt_poses, extents, fx, fy, px, py):
     intrinsics of each row's image. Returns (G, 4)."""
     cls = gt_poses[:, 1].long().clamp(0, extents.shape[0] - 1)
     half = extents[cls] * 0.5  # (G, 3)
-    signs = torch.tensor(_CORNER_SIGNS, dtype=torch.float32, device=gt_poses.device)
+    signs = device_constant(_CORNER_SIGNS, gt_poses.device)
     corners = signs[None] * half[:, None, :]  # (G, 8, 3)
     r = quat_to_mat(gt_poses[:, 6:10])
     xyz = torch.einsum("gij,gkj->gki", r, corners) + gt_poses[:, None, 10:13]
@@ -590,7 +593,7 @@ def hough_voting(
     domain = torch.where(gt_valid.any(), 0, 1).to(torch.int32)  # 1: an image set without GT
 
     # 9 jittered boxes per maximum, one after another (:998-1017)
-    jit = torch.tensor(_JITTERS, dtype=torch.float32, device=label.device) * 0.05
+    jit = device_constant(_JITTERS, label.device) * 0.05
     ww = (x2 - x1)[:, None]
     hh = (y2 - y1)[:, None]
     jx1 = x1[:, None] + jit[None, :, 0] * ww
@@ -610,6 +613,10 @@ def hough_voting(
         domains=domain.expand(9 * b * m).contiguous(),
         valid=rep(cand_valid),
     )
+
+
+# the identity rotation of a GT row's pose_init (`hough_voting.py:1110-1113`)
+_IDENTITY_QUAT = [[1.0, 0.0, 0.0, 0.0]]
 
 
 @torch.no_grad()
@@ -634,7 +641,7 @@ def append_gt_rois(out: HoughOutputs, gt_poses: torch.Tensor, gt_valid: Optional
         rois=torch.cat([bidx.float()[:, None], cls.float()[:, None], boxes,
                         torch.ones((g, 1), device=gt_poses.device)], -1),
         poses_init=torch.cat([
-            torch.tensor([[1.0, 0.0, 0.0, 0.0]], device=gt_poses.device).expand(g, 4),
+            device_constant(_IDENTITY_QUAT, gt_poses.device).expand(g, 4),
             gt_poses[:, 10:13]], -1),
         poses_target=_one_hot_blocks(safe_cls, gt_poses[:, 6:10] * vf[:, None], num_classes),
         poses_weight=_one_hot_blocks(safe_cls, vf[:, None].expand(g, 4), num_classes),

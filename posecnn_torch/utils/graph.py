@@ -30,6 +30,13 @@ under capture in `hough_kernels.CAPTURED`, not in `LAUNCHES`, and each
 captured program keeps its body's count (`launches`). The launches that
 replays make show only on the device, where the kernels count them
 (`hough_kernels.device_launches`).
+
+`compile_step(fn)` is `jax.jit(step_fn, donate_argnums=(0,))` for a
+program that moves state in place: the training step, whose parameters
+and optimizer state live outside it at fixed addresses and whose metrics
+are its outputs (see its docstring). `device_constant` keeps a host
+constant on the device once, so that no program copies it from the host
+on every call: a capture refuses a pageable host-to-device copy.
 """
 
 from __future__ import annotations
@@ -54,17 +61,28 @@ def _capture(warm: Callable, body: Callable, device, pool=None):
     return graph, out, {k: hough_kernels.CAPTURED[k] - before[k] for k in before}
 
 
+def _key(a):
+    if isinstance(a, torch.Tensor):
+        return ("tensor", tuple(a.shape), a.dtype, str(a.device))
+    return ("static", a)
+
+
 def signature(args, kwargs):
     """A call's key: each tensor argument's shape, dtype and device, and
     every other argument's value (JAX's static arguments)."""
+    return (tuple(_key(a) for a in args),
+            tuple((name, _key(kwargs[name])) for name in sorted(kwargs)))
 
-    def key(a):
-        if isinstance(a, torch.Tensor):
-            return ("tensor", tuple(a.shape), a.dtype, str(a.device))
-        return ("static", a)
 
-    return (tuple(key(a) for a in args),
-            tuple((name, key(kwargs[name])) for name in sorted(kwargs)))
+def _one_device(tensors, what: str) -> torch.device:
+    """The one device of `tensors`; raises ValueError on none or several."""
+    devices = {a.device for a in tensors}
+    if not devices:
+        raise ValueError(f"{what}: the call has no tensor argument")
+    if len(devices) > 1:
+        raise ValueError(f"{what}: the tensor arguments lie on more than one "
+                         f"device: {', '.join(sorted(map(str, devices)))}")
+    return devices.pop()
 
 
 class _Program:
@@ -107,13 +125,8 @@ class compile_static:  # noqa: N801 — named and used as a function, as `jax.ji
         self._pool = None
 
     def __call__(self, *args, **kwargs):
-        devices = {a.device for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)}
-        if not devices:
-            raise ValueError("compile_static: the call has no tensor argument")
-        if len(devices) > 1:
-            raise ValueError("compile_static: the tensor arguments lie on more than one "
-                             f"device: {', '.join(sorted(map(str, devices)))}")
-        (device,) = devices
+        device = _one_device([a for a in (*args, *kwargs.values())
+                              if isinstance(a, torch.Tensor)], "compile_static")
         if device.type != "cuda":
             return self.fn(*args, **kwargs)
         sig = signature(args, kwargs)
@@ -126,6 +139,137 @@ class compile_static:  # noqa: N801 — named and used as a function, as `jax.ji
             program.load(args, kwargs)
         program.graph.replay()
         return program.outputs
+
+
+class _StepProgram:
+    """One batch signature's graph: the static batch it reads, the metric
+    names and the stacked metrics it writes, its vote kernels' launches."""
+
+    def __init__(self, graph, batch, keys, stacked, launches):
+        self.graph, self.batch, self.keys = graph, batch, keys
+        self.stacked, self.launches = stacked, launches
+
+    def replay(self, batch: dict) -> dict:
+        with torch.no_grad():
+            for k, buf in self.batch.items():
+                if isinstance(buf, torch.Tensor):
+                    buf.copy_(batch[k])
+        self.graph.replay()
+        return dict(zip(self.keys, self.stacked.clone().unbind()))
+
+
+class compile_step:  # noqa: N801 — named and used as a function, as `jax.jit`
+    """`jax.jit(step_fn, donate_argnums=(0,))` for a step that moves its
+    state in place: `compile_step(fn, ...)(batch, *static)` is
+    `fn(batch, *static)`, one CUDA graph per signature.
+
+    `fn` takes a dict of tensors (the batch) and `static` (hashable
+    values: JAX's static arguments) and returns a dict of fp32 scalar
+    tensors (the metrics); everything else it does is in place on tensors
+    that outlive it (parameters, gradients, optimizer state). Whatever it
+    reads from the host (a learning rate, the dropout seeds) the caller
+    writes into device tensors or `generators` before each call.
+
+    The signature is the batch's keys with each value's shape, dtype and
+    device (any other value by itself), and `static`. The first call of a
+    signature is the real step of its batch, as JAX's first `jit` call is:
+    `fn` runs eagerly on a side stream (the warm-up of the PyTorch
+    documentation's whole-network capture), then `before_capture()` runs
+    (the training step drops its gradients there, so that the graph's
+    backward allocates its own), then one call of `fn` on static copies of
+    the batch is captured into a graph in this compiled step's private
+    pool, with each of `generators` registered. The capture runs nothing,
+    so the state moves once. A later call copies the batch into those
+    copies and replays: each generator draws from the state it has when
+    the replay starts (the caller seeds it), as the eager call would.
+
+    Returns the eager call's metrics, or the replay's as fresh tensors
+    (one clone of the stacked metrics, unbound), which a later call does
+    not overwrite. On a CPU device `fn` runs as it is (the caller asked
+    for the CPU). A capture that fails raises with its cause; nothing falls
+    back to the eager call. The batch's tensors lie on one device.
+    `programs` maps each signature to its program (`launches`: the vote
+    kernels' launches in one replay); `last` is the program of the last
+    call on a card (the one it captured or replayed)."""
+
+    def __init__(self, fn: Callable[..., dict], *, before_capture: Callable[[], None] = lambda: None,
+                 generators: Sequence[torch.Generator] = ()):
+        self.fn = fn
+        self.before_capture = before_capture
+        self.generators = list(generators)
+        self.programs: dict = {}
+        self.last = None
+        self._pool = None
+
+    def __call__(self, batch: dict, *static) -> dict:
+        device = _one_device([v for v in batch.values() if isinstance(v, torch.Tensor)],
+                             "compile_step")
+        if device.type != "cuda":
+            return self.fn(batch, *static)
+        sig = (tuple((k, _key(batch[k])) for k in sorted(batch)), static)
+        program = self.programs.get(sig)
+        if program is not None:
+            self.last = program
+            return program.replay(batch)
+        # the real step of this batch, on a side stream
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            metrics = self.fn(batch, *static)
+        current.wait_stream(side)
+        self.programs[sig] = self.last = self._capture(batch, static, device)
+        return metrics
+
+    def _capture(self, batch: dict, static: tuple, device) -> _StepProgram:
+        self.before_capture()
+        with torch.no_grad():
+            copies = {k: v.clone() if isinstance(v, torch.Tensor) else v for k, v in batch.items()}
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        for g in self.generators:
+            graph.register_generator_state(g)
+        torch.cuda.synchronize(device)
+        before = dict(hough_kernels.CAPTURED)
+        # thread-local: a feed's threads may run beside the capture
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            metrics = self.fn(copies, *static)
+            bad = {k: (v.dtype, tuple(v.shape)) for k, v in metrics.items()
+                   if v.dtype != torch.float32 or v.ndim != 0}
+            if bad:
+                raise ValueError(f"compile_step: the metrics must be fp32 scalars: {bad}")
+            stacked = torch.stack(list(metrics.values()))
+        launches = {k: hough_kernels.CAPTURED[k] - before[k] for k in before}
+        return _StepProgram(graph, copies, list(metrics), stacked, launches)
+
+
+_CONSTANTS: dict = {}
+
+
+def _frozen(values):
+    return tuple(map(_frozen, values)) if isinstance(values, (list, tuple)) else values
+
+
+def device_constant(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """`torch.tensor(values, dtype=dtype)` on `device`, made once per
+    (values, dtype, device) and kept for every later call: built per call
+    it is a pageable host-to-device copy, which a CUDA graph capture
+    refuses. Its first use on a card must come outside a capture (it
+    copies then). It is a normal tensor (not an inference tensor), shared
+    by every caller, who must not write to it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    key = (_frozen(values), dtype, device)
+    constant = _CONSTANTS.get(key)
+    if constant is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"device_constant: first use on {device} under graph capture; "
+                               "make it eagerly first")
+        with torch.inference_mode(False):
+            constant = _CONSTANTS[key] = torch.tensor(values, dtype=dtype).to(device)
+    return constant
 
 
 def checksum(outputs) -> torch.Tensor:

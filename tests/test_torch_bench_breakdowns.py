@@ -97,8 +97,9 @@ def test_train_variants_are_the_scripts():
 
 def test_train_differences_on_a_fake_clock(monkeypatch):
     """Every timed run of a variant costs a fixed 5 s plus its per-step ms
-    on the fake clock: the bench reports each variant's per-step ms and
-    the script's six differences of them."""
+    on the fake clock (a quarter of it for the compiled step): the bench
+    reports each variant's per-step ms and the script's six differences of
+    them, eager and compiled."""
     per_step = {"full": 100.0, "rows_126": 120.0, "rows_126_compact64": 110.0,
                 "no_pose": 70.0, "seg_only": 40.0, "add_p128": 95.0, "fc1024": 90.0,
                 "res_240x320": 31.0, "batch1": 60.0}
@@ -111,11 +112,16 @@ def test_train_differences_on_a_fake_clock(monkeypatch):
 
     def fake_timed(fn, device):
         fn()
-        return (5.0 + current["n"] * current["ms"] / 1e3,) * 2
+        return (5.0 + current["n"] * current["ms"] * current["scale"] / 1e3,) * 2
 
     monkeypatch.setattr(bench, "card_line", lambda: {"device": "fake", "power_limit": "0 W"})
     monkeypatch.setattr(bench, "train_setup", fake_setup)
-    monkeypatch.setattr(bench, "train_steps", lambda s, st, b, n: current.update(n=n))
+    monkeypatch.setattr(bench, "train_steps", lambda s, st, b, n: current.update(n=n, scale=1))
+    monkeypatch.setattr(bench, "compiled_twin", lambda step: None)
+    monkeypatch.setattr(bench, "compiled_steps",
+                        lambda s, st, b, n: current.update(n=n, scale=0.25))
+    monkeypatch.setattr(bench, "compiled_launches",
+                        lambda step: {"tile": 0, "flat": 1, "window": 1})
     monkeypatch.setattr(bench, "snapshot", lambda step, state: lambda: None)
     monkeypatch.setattr(bench, "timed", fake_timed)
     # the profiled step's device is busy half the step
@@ -125,6 +131,7 @@ def test_train_differences_on_a_fake_clock(monkeypatch):
     assert [line["variant"] for line in lines[:-1]] == list(per_step)
     for line in lines[:-1]:
         assert line["ms_per_iter"] == pytest.approx(per_step[line["variant"]])
+        assert line["compiled_ms_per_iter"] == pytest.approx(per_step[line["variant"]] / 4)
         assert line["profiled_step_device_busy_ms"] == per_step[line["variant"]] / 2
     summary = lines[-1]
     assert summary["metric"] == "posecnn_torch_train_components_480x640_b2_h100"
@@ -133,6 +140,7 @@ def test_train_differences_on_a_fake_clock(monkeypatch):
     for key, value in want.items():
         assert summary[key] == pytest.approx(value), key
         assert summary["device_busy_differences"][key] == pytest.approx(value / 2), key
+        assert summary["compiled_differences"][key] == pytest.approx(value / 4), key
 
 
 def tiny_variant(variant: dict) -> dict:
