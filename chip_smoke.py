@@ -7,9 +7,11 @@ Run from the root of the repository on a machine with a CUDA card and
 nvcc. It drives the port's serving path and stops at the first phase
 that fails, with a non-zero exit:
 
-  1. the card's name and power limit; build the CUDA vote kernels and
-     print `ptxas -v`'s registers, shared memory and spills per kernel,
-     with the data-path library (`data/native.py`, g++) built beside them;
+  1. the card's name and power limit; build the CUDA kernels, one nvcc a
+     source started together (`csrc/hough_vote.cu`, the vote kernels;
+     `csrc/nms_scan.cu`, the NMS scan), and print `ptxas -v`'s registers,
+     shared memory and spills per kernel, with the data-path library
+     (`data/native.py`, g++) built beside them;
   2. each kernel against its plain PyTorch version, bit for bit, at the
      serve shapes, on samples packed from a planted 480×640 scene
      (K = 8 slots, S = 1024 samples), and all three at the edge cases
@@ -20,7 +22,14 @@ that fails, with a non-zero exit:
      loop of wrapper calls (`call_ms`: what the serving path pays), the
      plain version's time and the kernel's bound, with torch.profiler's
      per-kernel device time as a cross-check; the exhaustive kernel's
-     time beside the coarse-to-fine pair's on the same samples;
+     time beside the coarse-to-fine pair's on the same samples; the NMS
+     scan kernel (`nms_scan_kernel`) against its plain version bit for bit
+     at every `scan_case` (the RPN's (1, 2000) suppression matrix at
+     lov_det.yaml's shapes, test_net's (21, 128) per-class one, no valid
+     row, every row killing the later ones, no kills, N = 1, N = 33), one
+     launch each counted by the wrapper and on the device, with `ms`,
+     `call_ms`, the plain version's time and its bound at (1, 2000) and
+     (21, 128);
   3. the planted scene through `hough_voting` on the card: the planted
      centres and depths are recovered;
   4. the whole model, small and in fp32, on the card against the CPU;
@@ -110,16 +119,29 @@ that fails, with a non-zero exit:
      forward's kernels bit for bit to plain. Per config: ms a step split into feed
      wait, forward, backward and optimizer (CUDA events), images/s and
      peak memory;
- 11. the detection family and the demo at full width: 4 bf16 train steps
-     of `lov_det.yaml` as written (22 classes, 480×640, batch 1, 20 anchors
-     a cell, 2000 boxes into the RPN's NMS, 128 proposals and sampled RoIs,
-     fc_dim 4096, SGD momentum) through `cli/train_net.build_trainer`, each
-     split into forward / backward / optimizer (CUDA events), every loss
-     term finite, peak memory, FLOPs a step (FlopCounterMode), the RPN's
-     `proposal_layer` and its NMS timed alone; a small fp32 PoseCNNDet on
-     the card against the CPU with the same target noise; `test_net` on the
-     snapshot of those steps (8 held-out renders; images/s, stage seconds,
-     mAP, `eval_det.json`); `python -m posecnn_torch.cli.demo --refine` on 5
+ 11. the detection family and the demo at full width: `lov_det.yaml` as
+     written (22 classes, 480×640, batch 1, 20 anchors a cell, 2000 boxes
+     into the RPN's NMS, 128 proposals and sampled RoIs, fc_dim 4096, SGD
+     momentum, bf16) through `cli/train_net.build_trainer`, whose step is
+     compiled (`engine/train.CompiledDetTrainStep`, one CUDA graph with the
+     RPN's NMS on the scan kernel): 4 eager steps, each split into forward
+     / backward / optimizer (CUDA events), FLOPs a step (FlopCounterMode on
+     the eager step); then the compiled step's capture and 4 replays (CUDA
+     events; images/s and MFU on their time), the scan launched once a
+     replay and the vote kernels never (counted on the device, every count
+     set to 0 just before), every loss term finite, peak memory; the
+     equality gate (phase 8's, with the detection step's launches) over 5
+     consecutive replays across a step of the lr staircase; the RPN's
+     `proposal_layer` and its NMS timed alone, the device scan against the
+     host scan, and the kernel == plain bit for bit on that real (1, 2000)
+     matrix; a small fp32 PoseCNNDet on the card against the CPU with the
+     same target noise; `test_net` on the snapshot of those steps (8
+     held-out renders), its `det_infer` (one graph, the scan twice a
+     replay: the RPN's NMS and the per-class one) and `det_pose` (one graph per padded detection
+     count) compiled: recorded (`compiled_run`: every compiled call equal to
+     its eager run bit for bit), timed, and with its programs eager, whose
+     `eval_det.json` must equal the compiled run's (images/s of both, stage
+     seconds, mAP, the graphs); `python -m posecnn_torch.cli.demo --refine` on 5
      rendered 480×640 frames in the demo's format with the flagship yaml's
      widths, compiled (its forward and ICP), every compiled call equal to
      its eager run bit for bit, flat and window launched once a replayed
@@ -254,8 +276,10 @@ the kernels count on the device (`device_counted`,
 set to 0 just before the run; its times come from a pass without the
 recording where the phase prints them so.
 
-The line before the last is one JSON object with the kernels' results;
-the last line is {"ok": true, "device": {...}}. Without a CUDA device,
+The line before the last is one JSON object with the kernels' results:
+the three vote kernels and the NMS scan, whose `launches` are those of
+phase 11's compiled training run; the last line is {"ok": true, "device":
+{...}}. Without a CUDA device,
 or without the posecnn_torch package beside it, it prints no result
 and exits non-zero.
 """
@@ -400,9 +424,13 @@ def packed_planted(device):
     return prep["packed"], prep["bboxes"], prep["samp_w"]
 
 
-# the kernels by their names in the source, the JSON line and LAUNCHES
+# the vote kernels by their names in the source, the JSON line and LAUNCHES
 KERNELS = {"tile": "tile_vote_kernel", "flat": "flat_vote_kernel",
            "window": "window_vote_kernel"}
+# every kernel the launch counts hold (ops/_cuda.KERNELS): the vote kernels
+# and the NMS scan, whose library also builds its packing kernel
+COUNTED = (*KERNELS, "scan")
+SCAN_KERNEL, PACK_KERNEL = "nms_scan_kernel", "pack_kill_kernel"
 EDGE_CASES = ("s1", "s37", "s300", "s1100", "inf_depth", "short", "dead", "multi")
 
 
@@ -463,6 +491,66 @@ def vote_edge_case(name):
                       1).astype(np.float32)
     top_t, local_max = (32, True) if name == "multi" else (4, False)
     return samples, bboxes, (height, width), dict(top_t=top_t, coarse_local_max=local_max)
+
+
+# the NMS scan's inputs: the RPN's (1, 2000) suppression matrix at phase
+# 11's shapes, test_net's (21, 128) per-class one, and the edges
+SCAN_CASES = ("rpn", "per_class", "all_invalid", "all_kill", "no_kills", "n1", "n33")
+DET_RPN = dict(height=480, width=640, stride=16, scales=(4, 8, 16, 32),
+               ratios=(0.5, 0.75, 1.0, 1.5, 2.0), pre_nms=2000, threshold=0.7, min_size=16.0)
+
+
+def scan_case(name):
+    """The greedy scan's inputs, made from a seed on the CPU: (kill (B, N, N)
+    bool, sorted_valid (B, N) bool) tensors, as `ops/nms.box_suppression`
+    makes them. `rpn` is `proposal_layer`'s at lov_det.yaml's shapes
+    (`DET_RPN`): 24000 anchors on the 30×40 conv5_3 map of a 480×640 frame
+    with seeded scores and deltas, the top 2000 decoded and clipped, the
+    16 px size filter as the valid rows, IoU > 0.7. `per_class` is
+    `test_net`'s per-class NMS at lov_det's test shapes: 21 foreground
+    classes × 128 proposals around six objects, scores per class, IoU >
+    0.5, an eighth of the proposals invalid. `all_invalid` has no valid
+    row; `all_kill` every row killing every later one; `no_kills` none;
+    `n1` N = 1 in three leading indices; `n33` N = 33 (a word and a bit)."""
+    import torch
+
+    from posecnn_torch.ops.nms import box_suppression
+    from posecnn_torch.ops.rpn import _top_k, anchor_grid, generate_anchors
+    from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
+
+    rng = np.random.RandomState(100 + SCAN_CASES.index(name))
+    if name == "rpn":
+        r = DET_RPN
+        h, w = -(-r["height"] // r["stride"]), -(-r["width"] // r["stride"])
+        anchors = torch.from_numpy(anchor_grid(h, w, r["stride"], generate_anchors(
+            r["stride"], r["ratios"], r["scales"])))
+        scores = torch.from_numpy(rng.rand(len(anchors)).astype(np.float32))
+        deltas = torch.from_numpy((rng.randn(len(anchors), 4) * 0.2).astype(np.float32))
+        top, idx = _top_k(scores, r["pre_nms"])
+        boxes = clip_boxes(bbox_transform_inv(anchors[idx], deltas[idx]), r["height"],
+                           r["width"])
+        size_ok = ((boxes[:, 2] - boxes[:, 0] + 1 >= r["min_size"])
+                   & (boxes[:, 3] - boxes[:, 1] + 1 >= r["min_size"]))
+        _, kill, valid = box_suppression(boxes, top, r["threshold"], size_ok)
+        return kill[None], valid[None]
+    b, n = {"per_class": (21, 128), "n1": (3, 1), "n33": (2, 33)}.get(name, (2, 64))
+    centres = rng.uniform(40, 600, (6, 2))
+    c = centres[rng.randint(0, 6, n)] + rng.randn(n, 2) * 12
+    half = rng.uniform(15, 60, (n, 2))
+    boxes = np.concatenate([c - half, c + half], 1).astype(np.float32)
+    boxes = np.broadcast_to(boxes, (b, n, 4)).copy()
+    scores = rng.rand(b, n).astype(np.float32)
+    scores[:, ::5] = 0.5  # ties keep their input order
+    valid = rng.rand(b, n) > 0.125
+    if name == "all_invalid":
+        valid[:] = False
+    _, kill, sorted_valid = box_suppression(torch.from_numpy(boxes), torch.from_numpy(scores),
+                                            0.5, torch.from_numpy(valid))
+    if name == "all_kill":
+        kill = torch.ones_like(kill).triu(diagonal=1)
+    elif name == "no_kills":
+        kill = torch.zeros_like(kill)
+    return kill.contiguous(), sorted_valid
 
 
 def exact(got, want):
@@ -528,7 +616,8 @@ def ptxas_lines(report):
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
-            name = next((k for k in KERNELS.values() if k in m.group(1)), None)
+            name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL)
+                         if k in m.group(1)), None)
             continue
         if name is None:
             continue
@@ -733,6 +822,63 @@ def phase_kernels(device):
     return errs, times, bounds
 
 
+def scan_bound(kill, kept):
+    """The least time of the NMS scan on these inputs: the bytes the walk
+    needs (each kept row's kills of the rows after it, one byte each, the
+    valid mask read and the kept mask written) over the memory rate; its
+    ORs, a word of 32 kills at a time, are far fewer than the bytes.
+    Returns (bound ms, "bytes", bytes)."""
+    import torch
+
+    n = kill.shape[-1]
+    rows = torch.arange(n, device=kept.device)
+    needed = float(((n - 1 - rows) * kept.reshape(-1, n)).sum()) + 2 * kept.numel()
+    return needed / PEAK_BYTES * 1e3, "bytes", needed
+
+
+def phase_scan(device):
+    """Phase 2, the NMS scan: the kernel against its plain version bit for
+    bit at every `scan_case`, its launches counted by the wrapper and on
+    the device; at the RPN's (1, 2000) and test_net's (21, 128) its time
+    as a CUDA graph of n launches (`ms`), per wrapper call (`call_ms`),
+    the plain version's and its bound. Returns those of the RPN shape, the
+    main path's, with the (21, 128) ones under "per_class"."""
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.ops.nms import greedy_scan, greedy_scan_plain
+
+    results, counts, shapes = {}, {}, {}
+    for case in SCAN_CASES:
+        kill, valid = (t.to(device) for t in scan_case(case))
+        shapes[case] = tuple(valid.shape)
+        want = greedy_scan_plain(kill, valid)
+        got, calls, counted = device_counted(lambda: greedy_scan(kill, valid))
+        err, same = exact(got, want)
+        if not same or got.shape != want.shape:
+            raise AssertionError(f"{SCAN_KERNEL} disagrees with its plain version at scan case "
+                                 f"{case}: {int((got != want).sum())} rows differ")
+        counts[case] = (calls["scan"], counted["scan"])
+        if counts[case] != (1, 1):
+            raise AssertionError(f"{SCAN_KERNEL} at {case}: wrapper / device launches "
+                                 f"{counts[case]}, not 1 / 1")
+        if case in ("rpn", "per_class"):
+            ms = graph_ms(lambda: greedy_scan(kill, valid), 50)
+            call_ms = device_ms(lambda: greedy_scan(kill, valid), device, 50)
+            plain_ms = device_ms(lambda: greedy_scan_plain(kill, valid), device, 1, warm=False)
+            bound = scan_bound(kill, want)
+            results[case] = dict(shape=shapes[case], kept=int(want.sum()),
+                                 valid=int(valid.sum()), max_abs_err=err, ms=ms,
+                                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                                 bound_by=bound[1], bytes=bound[2])
+    print("phase 2 NMS scan kernel vs plain, bit for bit at (B, N) "
+          + ", ".join(f"{c} {shape}" for c, shape in shapes.items())
+          + "; one launch each (wrapper / device); ms graph/call/plain/bound (bound by, bytes "
+          "needed; kept of valid rows): "
+          + ", ".join(f"{c} {r['ms']:.4f}/{r['call_ms']:.4f}/{r['plain_ms']:.1f}/"
+                      f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']:.4g}; {r['kept']} of "
+                      f"{r['valid']})" for c, r in results.items()), flush=True)
+    return {**results["rpn"], "per_class": results["per_class"]}
+
+
 def phase_planted(device):
     """The planted scene through hough_voting: centres within 1 px, depths 1%."""
     import torch
@@ -795,7 +941,7 @@ def phase_small_model(device):
           + (", rois/poses_init/poses_pred within 1e-3" if agree == 1.0 else ""), flush=True)
 
 
-FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1}  # a captured forward's launches (c2f)
+FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0}  # a captured forward's (c2f)
 # phase 5: requests a counted pass sends (batch 1: the five images in turn;
 # batch 4: twice the batch from as many clients), and requests a timed
 # pass sends, its clients as many as the batch
@@ -803,21 +949,21 @@ SERVE_TIMED = 200
 
 
 def device_counted(call):
-    """call() with the vote kernels' counts set to 0 just before it: the
-    wrappers' (`hough_kernels.LAUNCHES`) and the kernels' own on the
-    device (`hough_kernels.device_launches`). Returns (call's result, the
-    wrappers' counts after it: the kernels they launched eagerly, and the
-    device's: those and the ones graph replays made, which call no
-    wrapper)."""
-    from posecnn_torch.ops import hough_kernels as hk
+    """call() with the CUDA kernels' counts set to 0 just before it: the
+    wrappers' (`_cuda.LAUNCHES`) and the kernels' own on the device
+    (`_cuda.device_launches`). Returns (call's result, the wrappers' counts
+    after it: the kernels they launched eagerly, and the device's: those
+    and the ones graph replays made, which call no wrapper), each by
+    kernel of COUNTED."""
+    from posecnn_torch.ops import _cuda
 
-    for key in hk.LAUNCHES:
-        hk.LAUNCHES[key] = 0
-    hk.reset_device_launches()
+    for key in _cuda.LAUNCHES:
+        _cuda.LAUNCHES[key] = 0
+    _cuda.reset_device_launches()
     out = call()
-    counted = hk.device_launches()
-    calls = {k: hk.LAUNCHES[k] for k in KERNELS}
-    return out, calls, {k: counted[k] for k in KERNELS}
+    counted = _cuda.device_launches()
+    calls = {k: _cuda.LAUNCHES[k] for k in COUNTED}
+    return out, calls, {k: counted[k] for k in COUNTED}
 
 
 def phase_serve(card):
@@ -1239,7 +1385,7 @@ def timed_steps(step, state, batches):
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall0
     counted = hk.device_launches()
-    return ([a.elapsed_time(b) for a, b in events], {k: counted[k] for k in KERNELS}, metrics,
+    return ([a.elapsed_time(b) for a, b in events], {k: counted[k] for k in COUNTED}, metrics,
             wait_s, wall)
 
 
@@ -1311,11 +1457,12 @@ def gradients_agree(got, eagers) -> float:
 
 
 def live_hough_inputs(step, state, batch, where):
-    """Make the seg head label every pixel with the class of the batch's
-    first GT row (`LIVE_BIAS` on its output bias, in place), so that the
-    steps after vote on live slots; then hold the vote kernels to plain on
-    the Hough inputs of the state's training forward. Returns the live
-    slots of those inputs."""
+    """The posecnn family's preparation of the equality gate: make the seg
+    head label every pixel with the class of the batch's first GT row
+    (`LIVE_BIAS` on its output bias, in place), so that the steps after
+    vote on live slots; then hold the vote kernels to plain on the Hough
+    inputs of the state's training forward. Returns the gate's note: the
+    live slots of those inputs."""
     import types
 
     import torch
@@ -1328,38 +1475,47 @@ def live_hough_inputs(step, state, batch, where):
     b, inputs = train_hough_inputs(tr, step, batch)
     shapes, _ = kernels_vs_plain(step.model.hough_kw, step.extents, b["meta"],
                                  {"live": inputs["step"]}, where)
-    return shapes["live"][1]
+    live = shapes["live"][1]
+    return {"live_slots": live, "note": f"{live} live Hough slots in the first step's labels, "
+                                        "the kernels == plain on them"}
 
 
-def equality_gate(step, state, batches, where):
-    """The compiled step against the same step eager over len(batches)
-    consecutive steps from one state: the given state with the seg head
-    biased so that the steps vote on live slots (`live_hough_inputs`, which
-    also holds the kernels to plain on them) and the optimizer's count two
-    updates before a step of the lr staircase. The run is the compiled
-    step's (replays of its graph); before each of its steps the state is
-    kept (`bench.snapshot`, restored in place, as a graph reads it) and
-    eager steps are run from it. A step is three parts, each held to its
-    own bar. Its forward (every metric and lr): equal bit for bit where
-    two eager steps are. Its backward (each gradient as the update used
-    it): within the eager steps' spread, or GRAD_TOL of the tensor's
-    largest entry, from the nearest eager step (GATE_EAGER_RUNS of them
-    where two differ): the backward adds in a device-dependent order, and
-    Adam's update amplifies that in the parameters, where it cannot be
-    told apart from a fault. Its update: the optimizer run eagerly from the
-    same state on the compiled step's gradients equals the compiled
-    step's parameters and optimizer state (Adam's moments and steps, the
-    momentum traces) bit for bit. The parameters' and the optimizer
-    state's distances from the nearest eager step and between the eager
-    steps are printed beside. The vote kernels' launches of the compiled
-    steps are counted on the device. The state is left restored to the
-    one given. Returns a dict: the live slots, the launches per replay, a
-    line to print."""
+# what one replayed training step launches: the posecnn step its c2f pair,
+# the detection step the RPN's NMS scan
+C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0}
+DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1}
+
+
+def equality_gate(step, state, batches, where, per_replay, prepare=None):
+    """A compiled step (a `CompiledStep` of either family) against the same
+    step eager over len(batches) consecutive steps from one state: the
+    given state, readied by the family's `prepare(step, state, batch,
+    where)` where it has one (the posecnn family's `live_hough_inputs`,
+    which returns the gate's note), with the optimizer's count two updates
+    before a step of the lr staircase. The run is the compiled step's
+    (replays of its graph); before each of its steps the state is kept
+    (`bench.snapshot`, restored in place, as a graph reads it) and eager
+    steps are run from it. A step is three parts, each held to its own
+    bar. Its forward (every metric and lr): equal bit for bit where two
+    eager steps are. Its backward (each gradient as the update used it):
+    within the eager steps' spread, or GRAD_TOL of the tensor's largest
+    entry, from the nearest eager step (GATE_EAGER_RUNS of them where two
+    differ): the backward adds in a device-dependent order, and the update
+    amplifies that in the parameters, where it cannot be told apart from a
+    fault. Its update: the optimizer run eagerly from the same state on the
+    compiled step's gradients equals the compiled step's parameters and
+    optimizer state (Adam's moments and steps, the momentum traces) bit for
+    bit. The parameters' and the optimizer state's distances from the
+    nearest eager step and between the eager steps are printed beside. The
+    CUDA kernels' launches of the compiled steps are counted on the device
+    and must be `per_replay` a step. The state is left restored to the one
+    given. Returns `prepare`'s result (or {}) with the rows, the launches
+    per replay and a line to print."""
     from posecnn_torch.bench import snapshot
     from posecnn_torch.engine.train import fastforward_opt_counts
 
     given = snapshot(step, state)
-    live = live_hough_inputs(step, state, batches[0], where)
+    prepared = prepare(step, state, batches[0], where) if prepare is not None else {}
     fastforward_opt_counts(state.opt, step.cfg.train.stepsize - 2)
     lrs = [state.opt.schedule(state.opt.count + i) for i in range(len(batches))]
     if len(set(lrs)) < 2:
@@ -1367,7 +1523,7 @@ def equality_gate(step, state, batches, where):
     start = snapshot(step, state)
     step(state, batches[0])  # make sure of the graph: a signature's first call runs eagerly
     start()
-    counted = dict.fromkeys(KERNELS, 0)
+    counted = dict.fromkeys(COUNTED, 0)
     rows, forward_bitwise = [], 0
     for i, batch in enumerate(batches):
         at = snapshot(step, state)
@@ -1381,7 +1537,7 @@ def equality_gate(step, state, batches, where):
                 runs.append(step_outputs(step, state, batch, compiled=False))
         at()
         got, _, launches = device_counted(lambda: step_outputs(step, state, batch, True))
-        counted = {k: counted[k] + launches[k] for k in KERNELS}
+        counted = {k: counted[k] + launches[k] for k in COUNTED}
         after = snapshot(step, state)
         # the update, eagerly, on the compiled step's gradients
         at()
@@ -1405,13 +1561,13 @@ def equality_gate(step, state, batches, where):
             (min(distance([got[j]], [e[j]]) for e in runs),
              max(distance([a[j]], [b[j]]) for k, a in enumerate(runs) for b in runs[k + 1:]))
             for j in (2, 3))))
-    per_replay = {k: counted[k] / len(batches) for k in KERNELS}
-    if counted["flat"] != len(batches) or counted["window"] != len(batches):
-        raise AssertionError(f"{where}: {len(batches)} replayed steps launched {counted}")
+    if counted != {k: per_replay[k] * len(batches) for k in COUNTED}:
+        raise AssertionError(f"{where}: {len(batches)} replayed steps launched {counted}, not "
+                             f"{per_replay} a step")
     given()
+    note = f"{prepared['note']}; " if "note" in prepared else ""
     line = (f"equality gate, {where}: {len(batches)} consecutive compiled steps (replays) from "
-            f"one state ({live} live Hough slots in the first step's labels, the kernels == "
-            f"plain on them; lr {[float(f'{x:.3g}') for x in lrs]}), each against eager steps "
+            f"one state ({note}lr {[float(f'{x:.3g}') for x in lrs]}), each against eager steps "
             f"from the same state: metrics and lr bit for bit in {forward_bitwise} of "
             f"{len(batches)} steps (where the eager steps are), the update on the compiled "
             f"gradients bit for bit in every step; by step, the gradients' largest difference "
@@ -1421,7 +1577,7 @@ def equality_gate(step, state, batches, where):
             + "; ".join(f"{i + 1}: {g:.2e}, parameters {p[0]:.3e} / {p[1]:.3e}, state "
                         f"{o[0]:.3e} / {o[1]:.3e}" for i, (_, g, p, o) in enumerate(rows))
             + f"; launches in the compiled steps (device) {counted}")
-    return {"rows": rows, "live_slots": live, "launches_per_replay": per_replay, "line": line}
+    return {**prepared, "rows": rows, "launches_per_replay": dict(per_replay), "line": line}
 
 
 def recording_dropout(step, recorded):
@@ -1463,7 +1619,8 @@ def bench_config_gate():
     posecnn_module.dropout = stand_in
     try:
         gate = equality_gate(step, state, [batch] * GATE_STEPS,
-                             "bench train's configuration (momentum)")
+                             "bench train's configuration (momentum)", C2F_STEP,
+                             live_hough_inputs)
         streams = sorted(i for i, _, _ in recorded)  # fc9's only with a domain head
         if streams != list(range(len(streams))) or len(streams) < 4:
             raise AssertionError(f"the captured step's dropout streams: {streams}")
@@ -1642,7 +1799,8 @@ def phase_train(card):
     valid_rows, matched, gate_launches = train_hough_gate(tr, b, hough_inputs["gt"][1])
     # the compiled step against the eager one from one state, with live
     # Hough slots and a step of the staircase (the gate resets both after)
-    gate = equality_gate(step, tr.state, held, "phase 8 flagship (adam)")
+    gate = equality_gate(step, tr.state, held, "phase 8 flagship (adam)", C2F_STEP,
+                         live_hough_inputs)
     ms, ms_feed = float(np.mean(alone_ms)), float(np.mean(feed_ms))
     ms_eager = float(np.mean(alone["eager"][0]))
     wall_feed = 1e3 * feed_wall / TRAIN_TIMED
@@ -2037,6 +2195,8 @@ def compiled_run(call, modules, where):
     compiled forward; `recorded`, the eager reruns' Hough inputs and
     launches (`counting_hough`, one a forward); `checked`, the calls held to
     eager)."""
+    import torch
+
     from posecnn_torch.models import posecnn as posecnn_module
 
     made = []
@@ -2049,7 +2209,7 @@ def compiled_run(call, modules, where):
     finally:
         for m, original in zip(modules, originals):
             m.compile_static = original
-    replayed = {k: counted[k] - calls[k] for k in KERNELS}
+    replayed = {k: counted[k] - calls[k] for k in COUNTED}
     bodies, forwards = {}, 0
     for c in made:
         name = getattr(c.fn, "func", c.fn).__name__
@@ -2063,7 +2223,9 @@ def compiled_run(call, modules, where):
     try:
         for c in made:
             for args, kwargs, out in c.calls:
-                tree_exact(out, c.fn(*args, **kwargs), f"{where}: graph vs eager, call {checked}")
+                with torch.no_grad():
+                    want = c.fn(*args, **kwargs)
+                tree_exact(out, want, f"{where}: graph vs eager, call {checked}")
                 checked += 1
     finally:
         posecnn_module.hough_voting = original
@@ -2450,11 +2612,28 @@ def det_card_vs_cpu(device):
     return rel, int(cpu.proposals.valid.sum())
 
 
+class Eager:
+    """A stand-in for `utils/graph.compile_static` that calls the body as
+    it is: a CLI's run with its programs eager."""
+
+    def __init__(self, fn):
+        self.fn, self.programs = fn, {}
+
+    def __call__(self, *args, **kwargs):
+        return self.fn(*args, **kwargs)
+
+
+# a replay of test_net's captured det_infer: the scans of the RPN's NMS and
+# of the per-class NMS
+DET_INFER_BODY = {"tile": 0, "flat": 0, "window": 0, "scan": 2}
+
+
 def phase_det_demo(card):
     """Phase 11: the detection family's training and evaluation at full
-    width on lov_det.yaml, and the demo with --refine on 5 rendered frames,
-    compiled. Returns (each vote kernel's launches in the recorded demo run,
-    its captured forward's launches)."""
+    width on lov_det.yaml, compiled, and the demo with --refine on 5
+    rendered frames, compiled. Returns (each vote kernel's launches in the
+    recorded demo run, its captured forward's launches, the detection
+    family's results for the scan's entry of the kernels line)."""
     import tempfile
 
     import torch
@@ -2463,25 +2642,32 @@ def phase_det_demo(card):
     from posecnn_torch.cli import demo, test_net, train_net
     from posecnn_torch.core.checkpoint import save_params
     from posecnn_torch.data.fabricate import write_demo_frames
+    from posecnn_torch.data.procedural import synthetic_class_library
+    from posecnn_torch.engine.train import CompiledDetTrainStep, TrainStep
+    from posecnn_torch.ops.nms import box_suppression, greedy_keep, greedy_scan, greedy_scan_plain
     from posecnn_torch.ops.nms import nms
     from posecnn_torch.ops.rpn import _top_k
     from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
+    from posecnn_torch.utils.graph import compile_static
 
-    # 11.1: train_net's trainer on lov_det.yaml as written
+    # 11.1: train_net's trainer on lov_det.yaml as written, its step compiled
     args = train_net.make_parser().parse_args(["--cfg", DET_CFG])
     t0 = time.perf_counter()
     tr = train_net.build_trainer(args, train_net.load_config(args))
     t, model, step, device = tr.cfg.train, tr.model, tr.step, tr.device
+    if not isinstance(step, CompiledDetTrainStep):
+        raise AssertionError(f"train_net's detection step is {type(step).__name__}, not compiled")
     dtype = str(model.compute_dtype).removeprefix("torch.")
     setup_s = time.perf_counter() - t0
     try:
-        batches = [next(tr.batches) for _ in range(DET_STEPS)]
+        batches = [next(tr.batches) for _ in range(max(DET_STEPS, GATE_STEPS))]
     finally:
         tr.batches.close()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the same step eager, launch by launch, split by CUDA events
     split, metrics = [], []
-    for batch in batches:
+    for batch in batches[:DET_STEPS]:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         total, m = step.forward(tr.state, batch)
@@ -2493,15 +2679,39 @@ def phase_det_demo(card):
         torch.cuda.synchronize()
         split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
         metrics.append({name: float(v) for name, v in m.items()})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # a live eager graph keeps the parameters' AccumulateGrad nodes on this
+    # stream, which the compiled step's capture below cannot depend on
+    del total
+    terms = {"rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box", "loss_pose", "loss", "lr"}
     for i, m in enumerate(metrics):
-        if not np.isfinite(list(m.values())).all() or set(m) != {
-                "rpn_cls", "rpn_box", "rcnn_cls", "rcnn_box", "loss_pose", "loss", "lr"}:
+        if not np.isfinite(list(m.values())).all() or set(m) != terms:
             raise AssertionError(f"det train step {i}: {m}")
+    # a step's FLOPs on the eager step (the compiled one's first call would
+    # run it and then capture it, counting the work twice)
     with FlopCounterMode(display=False) as counter:
-        step(tr.state, batches[-1])
+        TrainStep.__call__(step, tr.state, batches[-1])
     flops = counter.get_total_flops()
-    # the RPN's proposal layer and its NMS alone, on the last batch's RPN
+    # the compiled step as train_net runs it: the first call is the batch's
+    # real step and the capture, then DET_STEPS replays, every count set to
+    # 0 just before them, the launches counted on the device
+    step(tr.state, batches[0])
+    (c_ms, c_launches, c_metrics, _, _), c_calls, _ = device_counted(
+        lambda: timed_steps(step, tr.state, batches[:DET_STEPS]))
+    (program,) = step.compiled.programs.values()
+    if (c_launches != {k: DET_STEP[k] * DET_STEPS for k in COUNTED} or c_calls["scan"]
+            or program.launches != DET_STEP):
+        raise AssertionError(f"{DET_STEPS} replayed det steps launched {c_launches} on the device "
+                             f"({c_calls} wrapper calls; {program.launches} captured), not "
+                             f"{DET_STEP} a step")
+    for i, m in enumerate(c_metrics):
+        m = {name: float(v) for name, v in m.items()}
+        if not np.isfinite(list(m.values())).all() or set(m) != terms:
+            raise AssertionError(f"compiled det train step {i}: {m}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    gate = equality_gate(step, tr.state, batches[:GATE_STEPS], "phase 11 lov_det.yaml (momentum)",
+                         DET_STEP)
+    # the RPN's proposal layer and its NMS alone, on the last batch's RPN;
+    # the scan kernel against its plain version on its real (1, 2000) matrix
     h_im, w_im = batches[-1]["data"].shape[1:3]
     with torch.no_grad():
         _, rpn_cls, rpn_bbox, cls_prob = model.rpn(batches[-1]["data"])
@@ -2513,6 +2723,12 @@ def phase_det_demo(card):
                            h_im, w_im)
         size_ok = ((boxes[:, 2] - boxes[:, 0] + 1 >= pkw["min_size"])
                    & (boxes[:, 3] - boxes[:, 1] + 1 >= pkw["min_size"]))
+        sup = box_suppression(boxes, scores, pkw["nms_threshold"], size_ok)
+        rpn_kept = greedy_scan(sup.kill[None], sup.sorted_valid[None])
+        rpn_err, same = exact(rpn_kept, greedy_scan_plain(sup.kill[None], sup.sorted_valid[None]))
+        if not same:
+            raise AssertionError(f"{SCAN_KERNEL} disagrees with its plain version on the RPN's "
+                                 f"{tuple(sup.kill.shape)} matrix of a lov_det forward")
 
         def host_ms(fn, n=5):
             fn()
@@ -2525,6 +2741,8 @@ def phase_det_demo(card):
 
         propose_ms = host_ms(lambda: model.propose(cls_prob, rpn_bbox, h_im, w_im))
         nms_ms = host_ms(lambda: nms(boxes, scores, pkw["nms_threshold"], valid=size_ok))
+        host_scan_ms = host_ms(lambda: greedy_keep(box_suppression(
+            boxes, scores, pkw["nms_threshold"], size_ok)))
         kept = int(nms(boxes, scores, pkw["nms_threshold"], valid=size_ok).sum())
         proposals = model.propose(cls_prob, rpn_bbox, h_im, w_im)
     rel, small_valid = det_card_vs_cpu(device)
@@ -2533,16 +2751,63 @@ def phase_det_demo(card):
         trained = tr.state.step
         snapshot = os.path.join(tmp, "det", f"det_iter_{trained}.npz")
         save_params(snapshot, model, step=trained)  # what train_net's snapshot writes
-        del tr, model, step, batches
+        del tr, model, step, program, batches
         torch.cuda.empty_cache()
-        # 11.2: test_net on the snapshot
+        # 11.2: test_net on the snapshot, compiled: recorded (every compiled
+        # call held to its eager run, the launches counted on the device),
+        # then timed, then with its programs eager; the two summaries equal
+        det_eval = ["--cfg", DET_CFG, "--ckpt", snapshot, "--num_images", str(DET_EVAL_IMAGES)]
+        result, run_eval = compiled_run(lambda: test_net.main(
+            [*det_eval, "--output", os.path.join(tmp, "eval")]), [test_net],
+            "test_net on lov_det.yaml")
         t0 = time.perf_counter()
-        result = test_net.main(["--cfg", DET_CFG, "--ckpt", snapshot, "--num_images",
-                                str(DET_EVAL_IMAGES), "--output", os.path.join(tmp, "eval")])
+        timed = test_net.main([*det_eval, "--output", os.path.join(tmp, "eval_timed")])
         eval_s = time.perf_counter() - t0
+        compiled = test_net.compile_static
+        test_net.compile_static = Eager
+        try:
+            eager_eval = test_net.main([*det_eval, "--output", os.path.join(tmp, "eval_eager")])
+        finally:
+            test_net.compile_static = compiled
         if not os.path.exists(os.path.join(tmp, "eval", "eval_det.json")) or not np.isfinite(
-                result["map"]) or result["run"]["images_per_s"] <= 0:
+                result["map"]) or timed["run"]["images_per_s"] <= 0:
             raise AssertionError(f"test_net on lov_det.yaml: {result}")
+        summaries = [{k: v for k, v in json.load(open(os.path.join(tmp, d, "eval_det.json"))
+                                              ).items() if k != "run"}
+                     for d in ("eval", "eval_eager")]
+        if summaries[0] != summaries[1]:
+            raise AssertionError("test_net on lov_det.yaml: the compiled run's eval_det.json "
+                                 "differs from the eager run's")
+        infer_bodies = run_eval["bodies"].get("det_infer", [])
+        if (infer_bodies != [DET_INFER_BODY]
+                or run_eval["replayed"] != {k: DET_INFER_BODY[k] * DET_EVAL_IMAGES for k in COUNTED}
+                or run_eval["calls"] != DET_INFER_BODY):
+            raise AssertionError(f"test_net on lov_det.yaml: the captured det_infer launched "
+                                 f"{infer_bodies}, its {DET_EVAL_IMAGES} frames' replays "
+                                 f"{run_eval['replayed']} (the eager warm-up {run_eval['calls']})")
+        # det_pose as test_net compiles it, at detection counts a frame may
+        # have (random weights may leave the run none): each replay of a
+        # padded size equal to the eager call bit for bit
+        pose = compile_static(test_net.det_pose)
+        points = torch.from_numpy(synthetic_class_library(t.num_classes, 256).points).to(device)
+        k_det = torch.tensor([[500.0, 0, w_im / 2], [0, 500.0, h_im / 2], [0, 0, 1]],
+                             device=device)
+        draw = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for n in (3, 5, 3, 17):
+                rows = test_net.padded_rows(n)
+                xy = torch.rand((rows, 2), generator=draw) * torch.tensor([w_im - 120.0,
+                                                                           h_im - 120.0])
+                wh = 20.0 + torch.rand((rows, 2), generator=draw) * 100.0
+                pose_args = ((torch.rand((rows, 4), generator=draw) * 2 - 1).to(device),
+                             torch.cat([xy, xy + wh], 1).to(device),
+                             points[torch.arange(rows) % (t.num_classes - 1) + 1], k_det)
+                got = [x.clone() for x in pose(*pose_args)]
+                tree_exact(got, test_net.det_pose(*pose_args), f"det_pose at {n} detections")
+        pose_rows = sorted(p.args[0].shape[0] for p in pose.programs.values())
+        if pose_rows != [4, 8, 32]:
+            raise AssertionError(f"det_pose at 3, 5, 3, 17 detections captured {pose_rows} rows")
+        del pose
         torch.cuda.empty_cache()
 
         # 11.3: the demo on rendered frames with --refine, recording each
@@ -2577,47 +2842,71 @@ def phase_det_demo(card):
         shapes.update(sh)
         errs = {k: max(errs.get(k, 0.0), v) for k, v in er.items()}
     steady = np.mean(split[1:], 0)
-    run, sec = result["run"], result["run"]["seconds"]
+    compiled_ms = float(np.mean(c_ms))
+    run, sec = timed["run"], timed["run"]["seconds"]
     frame_ms = ", ".join(f"{1e3 * f['seconds']:.1f}" for f in results)
     print(f"phase 11 detection family and demo on {card}: train_net on lov_det.yaml "
           f"({t.num_classes} classes, {t.syn_height}x{t.syn_width}, batch 1, {a} anchors a "
           f"cell, pre_nms {t.rpn_pre_nms_top_n}, post_nms {t.rpn_post_nms_top_n}, "
           f"{t.batch_size} RoIs sampled, fc_dim {t.fc_dim}, {t.optimizer}, {dtype}), "
-          f"set-up {setup_s:.1f} s; {DET_STEPS} steps, ms forward / backward / optimizer (CUDA "
-          f"events; the first builds cuDNN plans): "
+          f"set-up {setup_s:.1f} s; its step compiled (one CUDA graph, launches a replay "
+          f"{DET_STEP}): {DET_STEPS} replays "
+          + "/".join(f"{x:.2f}" for x in c_ms)
+          + f" ms (CUDA events; mean {compiled_ms:.2f}, {1e3 / compiled_ms:.2f} images/s, MFU "
+          f"{100 * flops / (compiled_ms / 1e3) / PEAK_BF16_FLOPS:.2f}%), launches counted on "
+          f"the device {c_launches}; the same step eager, {DET_STEPS} steps, ms forward / "
+          f"backward / optimizer (the first builds cuDNN plans): "
           + "; ".join("/".join(f"{x:.2f}" for x in row) for row in split)
-          + f" (steps 2-{DET_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}, "
-          f"{1e3 / steady.sum():.2f} images/s on the step's device time), peak memory "
-          f"{peak_gb:.2f} GB, {flops / 1e12:.3f} TFLOP a step (FlopCounterMode), MFU "
-          f"{100 * flops / (steady.sum() / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16; "
-          f"losses of the last step "
+          + f" (steps 2-{DET_STEPS} mean {'/'.join(f'{x:.2f}' for x in steady)}, sum "
+          f"{steady.sum():.2f} ms, {1e3 / steady.sum():.2f} images/s), peak memory "
+          f"{peak_gb:.2f} GB, {flops / 1e12:.3f} TFLOP a step (FlopCounterMode on the eager "
+          f"step), MFU eager {100 * flops / (steady.sum() / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 "
+          f"TFLOP/s bf16; losses of the last eager step "
           + ", ".join(f"{k} {v:.4f}" for k, v in metrics[-1].items())
-          + f"; proposal_layer {propose_ms:.2f} ms (host clock to a synchronise, mean of 5: "
-          f"top-{pkw['pre_nms_topk']} of {anchors.shape[0]} anchors, decode, NMS, top-"
-          f"{pkw['post_nms_topk']}), of which NMS {nms_ms:.2f} ms ({kept} of "
-          f"{int(size_ok.sum())} boxes kept, {int(proposals.valid.sum())} valid proposals); "
+          + f"; {gate['line']}; proposal_layer {propose_ms:.2f} ms (host clock to a "
+          f"synchronise, mean of 5: top-{pkw['pre_nms_topk']} of {anchors.shape[0]} anchors, "
+          f"decode, NMS, top-{pkw['post_nms_topk']}), of which NMS {nms_ms:.2f} ms on the "
+          f"device scan against {host_scan_ms:.2f} ms with the host scan ({kept} of "
+          f"{int(size_ok.sum())} boxes kept, {int(proposals.valid.sum())} valid proposals; "
+          f"{SCAN_KERNEL} == plain bit for bit on that {tuple(sup.kill.shape)} matrix); "
           f"a small fp32 PoseCNNDet on the card == the CPU (proposals, anchor and RoI labels "
           f"equal, {small_valid} valid proposals; losses within {rel:.2e} relative) | "
-          f"test_net on its {trained}-step snapshot, {DET_EVAL_IMAGES} held-out renders: "
-          f"{run['images_per_s']:.2f} images/s ({eval_s:.1f} s with set-up), seconds render / "
-          f"forward / extract / evaluate {sec['render']:.3f} / {sec['forward']:.3f} / "
-          f"{sec['extract']:.3f} / {sec['evaluate']:.3f}, {run['detections']} detections, "
-          f"mAP@0.5 {result['map']:.4f} over {len(result['per_class'])} classes | demo "
+          f"test_net on its {trained}-step snapshot, {DET_EVAL_IMAGES} held-out renders, "
+          f"compiled: det_infer {timed['run']['graphs']['det_infer']} graph, det_pose "
+          f"{timed['run']['graphs']['det_pose']} graphs; {run['images_per_s']:.2f} images/s "
+          f"({eval_s:.1f} s with set-up) against {eager_eval['run']['images_per_s']:.2f} with "
+          f"its programs eager, eval_det.json equal; seconds render / forward / extract / "
+          f"evaluate {sec['render']:.3f} / {sec['forward']:.3f} / {sec['extract']:.3f} / "
+          f"{sec['evaluate']:.3f} (eager "
+          + " / ".join(f"{eager_eval['run']['seconds'][k]:.3f}" for k in
+                       ("render", "forward", "extract", "evaluate"))
+          + f"), {run['detections']} detections, mAP@0.5 {result['map']:.4f} over "
+          f"{len(result['per_class'])} classes; recorded run: launches counted on the device "
+          f"{run_eval['device']} (eager warm-up {run_eval['calls']}, replays "
+          f"{run_eval['replayed']}), {run_eval['checked']} compiled calls == their eager runs "
+          f"bit for bit; det_pose alone at 3, 5, 3, 17 detections: graphs at {pose_rows} rows, "
+          f"each replay == its eager call bit for bit | demo "
           f"--refine on {DEMO_FRAMES} rendered 480x640 frames (written in {frames_s:.1f} s; the "
           f"flagship yaml's widths, seeded random weights; compiled calls recorded): ms a frame "
           f"{frame_ms}, detections "
           f"{[len(f['detections']) for f in results]} (classes "
           f"{[[d['class'] for d in f['detections']] for f in results]}), compiled: the forward "
           f"one graph ({demo_forwards[0]} a replay), ICP "
-          f"{len(run_demo['bodies'].get('icp_refine_batch', []))} graphs, launches counted on the device "
-          f"{launches} (eager warm-ups {run_demo['calls']}, graph replays {replayed}), "
-          f"{run_demo['checked']} compiled calls "
+          f"{len(run_demo['bodies'].get('icp_refine_batch', []))} graphs, launches counted on "
+          f"the device {launches} (eager warm-ups {run_demo['calls']}, graph replays "
+          f"{replayed}), {run_demo['checked']} compiled calls "
           f"(forwards and ICP) == their eager runs bit for bit; "
           f"flat, window and tile == plain bit for bit on each of the {len(recorded)} forwards "
           f"(slots, live, samples, peak coarse vote: "
           f"{max(shapes.values(), key=lambda v: v[1])} at the liveliest), max_abs_err {errs}",
           flush=True)
-    return launches, demo_forwards[0]
+    det = {"train_launches": c_launches, "per_replayed_step": DET_STEP["scan"],
+           "gate_per_replay": gate["launches_per_replay"]["scan"], "rpn_max_abs_err": rpn_err,
+           "test_net_launches": run_eval["device"]["scan"],
+           "per_test_net_frame": run_eval["replayed"]["scan"] / DET_EVAL_IMAGES,
+           "per_captured_det_infer": infer_bodies[0]["scan"], "compiled_ms": compiled_ms,
+           "eager_ms": float(steady.sum())}
+    return launches, demo_forwards[0], det
 
 
 def split_steps(step, state, batches):
@@ -4135,14 +4424,16 @@ def main() -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(1) as pool:
         native_future = pool.submit(build_native)
-        _cuda.library()
+        _cuda.build_all()  # one nvcc a source, started together
         cuda_s = time.perf_counter() - t0
         native_s = native_future.result()  # raises what the build raised
-    print(f"phase 1 card {card}; kernels built and loaded in {cuda_s:.1f} s, the data-path "
-          f"library (g++) beside them in {native_s:.2f} s; "
-          f"ptxas: {json.dumps(ptxas_lines(_cuda.build_report()))}", flush=True)
+    report = "".join(_cuda.build_report(name) for name in _cuda.LIBRARIES)
+    print(f"phase 1 card {card}; kernels ({', '.join(_cuda.LIBRARIES)}, one nvcc each) built "
+          f"and loaded in {cuda_s:.1f} s, the data-path library (g++) beside them in "
+          f"{native_s:.2f} s; ptxas: {json.dumps(ptxas_lines(report))}", flush=True)
 
     errs, times, bounds = phase_kernels(device)
+    scan = phase_scan(device)
     phase_planted(device)
     phase_small_model(device)
     launches, cli_bodies = phase_serve(card)
@@ -4151,7 +4442,7 @@ def main() -> int:
     train = phase_train(card)
     eval_launches, cli_bodies["test_net"] = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
-    demo_launches, cli_bodies["demo"] = phase_det_demo(card)
+    demo_launches, cli_bodies["demo"], det = phase_det_demo(card)
     seg_launches = phase_seg_video(device, card)
     switch_launches = phase_switches_gan(device, card)
     slice11_launches = phase_slice11(card, native_s)
@@ -4189,6 +4480,18 @@ def main() -> int:
          "train_gate_per_replay": {name: train[name]["launches_per_replay"][k]
                                    for name in ("flagship_gate", "momentum_gate")}}
         for k in ("tile", "flat", "window")
+    ] + [
+        {"name": SCAN_KERNEL, "route": "cuda", "source": "posecnn_torch/csrc/nms_scan.cu",
+         "replaces": "posecnn_tpu/ops/nms.py:34", "launches": det["train_launches"]["scan"],
+         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"], "call_ms": scan["call_ms"],
+         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
+         "bound_by": scan["bound_by"], "library_ms": None, "shape": list(scan["shape"]),
+         "per_class": {k: scan["per_class"][k] for k in
+                       ("shape", "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
+                        "bound_by")},
+         **{k: det[k] for k in ("per_replayed_step", "gate_per_replay", "rpn_max_abs_err",
+                                "test_net_launches", "per_test_net_frame",
+                                "per_captured_det_infer")}}
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -32,7 +32,8 @@ optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
 On the card the posecnn forward with NMS's device part runs compiled, one
 CUDA graph per input signature (RGB, or RGBD with its depth blob), and so
 does ICP, one graph per object count (`utils/graph.compile_static`; JAX
-jits both); `--device cpu` runs them eagerly.
+jits both); their NMS's scan (`ops/nms.greedy_keep`) stays on the host.
+`--device cpu` runs every program eagerly.
 
 `<output>/eval.json` holds the evaluator's summary, as the JAX test_net
 writes it, and under "run" the device, the images/s of the loop and the
@@ -55,9 +56,19 @@ classes in one call), the 0.05 score threshold, each detection's own
 class quaternion and its translation from the box
 (`ops/rpn.estimate_translation_from_box`, batched over the frame's
 detections), then AP@0.5 (`detection_ap`) and `PoseEvaluator` with
-instance matching. It writes `<output>/eval_det.json`: the JAX summary,
-plus a "run" block of images/s and stage seconds (render, forward,
-extract = decode, NMS and the depth fit, evaluate).
+instance matching. JAX jits two programs there, and on the card both run
+compiled (`compile_static`): `det_infer` (the forward, scores, decode and
+clip, and the per-class NMS on the device scan `ops/nms.greedy_scan`
+inside the same graph, up to the detections' mask) as one graph, and
+`det_pose` (the quaternions' normalisation and the depth fit) with the
+frame's detections padded to the next power of two rows, one graph per
+power (the padded rows repeat the last and are dropped); a line prints
+the graphs a run captured. The score gate's `torch.nonzero` and the host
+lists run between the two, outside any graph, as JAX's loop runs outside
+`jit`. It writes `<output>/eval_det.json`: the JAX summary, plus a "run"
+block of images/s, stage seconds (render, forward, extract = the
+detections, the depth fit and their fetch, evaluate) and the graph
+counts.
 
 The segmentation and video families raise here: the JAX `test_net`
 has no branch for them and builds a `PoseCNN` whatever `network` says
@@ -211,6 +222,44 @@ DET_STAGES = ("render", "forward", "extract", "evaluate")
 DET_SCORE_THRESH = 0.05
 
 
+def det_infer(model, data, *, means, stds, bbox_reg: bool, nms_threshold: float):
+    """The detection forward as JAX's `infer` (`posecnn_tpu/cli/test_net.py:478-490`):
+    the model on data (1, H, W, 3), the softmax scores (R, C), the box
+    deltas un-normalised by `means` and `stds` (None: as trained, raw)
+    and decoded (`bbox_reg`) or the proposals, clipped to the image,
+    (R, C, 4); then one NMS per foreground class on the device scan, and
+    the detections' mask hit (C-1, R): kept, scored above
+    DET_SCORE_THRESH and a valid proposal. Returns (scores, boxes, tanh
+    quaternions (R, 4C), hit)."""
+    c = model.num_classes
+    height, width = data.shape[1], data.shape[2]
+    out = model(data)
+    scores = torch.softmax(out.cls_logits, dim=-1)
+    deltas = out.bbox_pred * stds + means if means is not None else out.bbox_pred
+    rois = out.proposals.rois[:, 1:5]
+    boxes = bbox_transform_inv(rois, deltas) if bbox_reg else rois.repeat(1, c)
+    boxes = clip_boxes(boxes, height, width).reshape(-1, c, 4)
+    valid = out.proposals.valid
+    keep = nms(boxes[:, 1:].transpose(0, 1), scores[:, 1:].t(), nms_threshold, valid=valid)
+    hit = keep & (scores[:, 1:].t() > DET_SCORE_THRESH) & valid
+    return scores, boxes, out.poses_pred, hit
+
+
+def det_pose(quats, boxes, points, k):
+    """JAX's `det_pose` (`posecnn_tpu/cli/test_net.py:497-501`) batched
+    over detections: each tanh quaternion (N, 4) normalised, and its
+    translation from its box (N, 4) and class points (N, P, 3)
+    (`ops/rpn.estimate_translation_from_box`). Returns (quats, trans)."""
+    q = quats / torch.clamp(torch.linalg.vector_norm(quats, dim=1, keepdim=True), min=1e-12)
+    return q, estimate_translation_from_box(q, boxes, points, k)
+
+
+def padded_rows(n: int) -> int:
+    """The row count `det_pose` runs at for n detections: the next power of
+    two, so that a run captures one graph per power and not per count."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
 def detection_eval(args, cfg, device) -> dict:
     """The detection family's evaluation (see the module's docstring);
     returns what it writes to eval_det.json."""
@@ -232,14 +281,21 @@ def detection_eval(args, cfg, device) -> dict:
         init_weights(model, cfg.rng_seed)
     model = model.to(device).eval()
     # trained deltas are standardised (BBOX_NORMALIZE_TARGETS_PRECOMPUTED)
-    norm_on = cfg.train.bbox_normalize_targets
-    means = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_means, np.float32), c),
-                         device=device)
-    stds = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_stds, np.float32), c),
-                        device=device)
+    means = stds = None
+    if cfg.train.bbox_normalize_targets:
+        means = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_means, np.float32), c),
+                             device=device)
+        stds = torch.tensor(np.tile(np.asarray(cfg.train.bbox_normalize_stds, np.float32), c),
+                            device=device)
     points_sub = torch.from_numpy(np.ascontiguousarray(
         proc.points[:, :: max(1, proc.points.shape[1] // 256)])).to(device)
     k_t = torch.from_numpy(k).to(device)
+    # the two programs JAX jits, each one CUDA graph per input signature on
+    # the card: infer one, det_pose one per padded detection count
+    infer = compile_static(partial(det_infer, model, means=means, stds=stds,
+                                   bbox_reg=cfg.test.bbox_reg,
+                                   nms_threshold=cfg.test.nms_threshold))
+    pose = compile_static(det_pose)
     pose_eval = PoseEvaluator(num_classes=c, points=proc.points, extents=proc.extents,
                               instance_matching=True, device=str(device))
     all_dets, all_gts, pose_errs = [], [], []
@@ -251,37 +307,32 @@ def detection_eval(args, cfg, device) -> dict:
         sample = gen.render()
         t.append(time.perf_counter())
         with torch.no_grad():
-            out = model(torch.from_numpy(sample.image[None]).to(device))
-            scores = torch.softmax(out.cls_logits, dim=-1)  # (R, C)
-            deltas = out.bbox_pred * stds + means if norm_on else out.bbox_pred
-            rois = out.proposals.rois[:, 1:5]
-            boxes = (bbox_transform_inv(rois, deltas) if cfg.test.bbox_reg
-                     else rois.repeat(1, c))
-            boxes = clip_boxes(boxes, height, width).reshape(-1, c, 4)  # (R, C, 4)
+            scores, boxes, poses_tanh, hit = infer(torch.from_numpy(sample.image[None]).to(device))
         _sync(device)
         t.append(time.perf_counter())
         with torch.no_grad():
-            # one NMS per foreground class, in one call; then the score gate
-            keep = nms(boxes[:, 1:].transpose(0, 1), scores[:, 1:].t(),
-                       cfg.test.nms_threshold, valid=out.proposals.valid)  # (C-1, R)
-            hit = keep & (scores[:, 1:].t() > DET_SCORE_THRESH) & out.proposals.valid
+            # the score gate's count depends on the data: on the host, as in JAX
             cls_i, roi_i = (x.cpu() for x in torch.nonzero(hit, as_tuple=True))  # class-major
             cls_i = cls_i + 1
+            n = len(cls_i)
             det_boxes = boxes[roi_i, cls_i]  # (N, 4)
-            q = out.poses_pred.reshape(-1, c, 4)[roi_i, cls_i]
-            q = q / torch.clamp(torch.linalg.vector_norm(q, dim=1, keepdim=True), min=1e-12)
-            trans = estimate_translation_from_box(q, det_boxes, points_sub[cls_i], k_t)
             det_scores = scores[roi_i, cls_i].cpu().numpy()
-            det_boxes, q, trans = det_boxes.cpu().numpy(), q.cpu().numpy(), trans.cpu().numpy()
+            q, trans = np.zeros((0, 4), np.float32), np.zeros((0, 3), np.float32)
+            if n:
+                rows = torch.arange(padded_rows(n)).clamp(max=n - 1)  # padding repeats row n-1
+                q, trans = pose(poses_tanh.reshape(-1, c, 4)[roi_i, cls_i][rows],
+                                det_boxes[rows], points_sub[cls_i[rows]], k_t)
+                q, trans = q[:n].cpu().numpy(), trans[:n].cpu().numpy()
+            det_boxes = det_boxes.cpu().numpy()
         dets = [(int(cls), float(det_scores[j]), tuple(det_boxes[j]), q[j], trans[j])
                 for j, cls in enumerate(cls_i.tolist())]
         n_dets += len(dets)
         t.append(time.perf_counter())
         # translation error of each detection against the first GT of its class
         for cls, _, _, _, t_i in dets:
-            for pose in sample.poses:
-                if int(pose[1]) == cls:
-                    pose_errs.append(float(np.linalg.norm(t_i - pose[10:13])))
+            for pose_row in sample.poses:
+                if int(pose_row[1]) == cls:
+                    pose_errs.append(float(np.linalg.norm(t_i - pose_row[10:13])))
                     break
         pose_eval.add_image([(cls, q_i, t_i) for cls, _, _, q_i, t_i in dets],
                             [(int(p[1]), p[6:10], p[10:13]) for p in sample.poses])
@@ -292,6 +343,11 @@ def detection_eval(args, cfg, device) -> dict:
         for name, a, b in zip(DET_STAGES, t, t[1:]):
             seconds[name] += b - a
     wall = time.perf_counter() - wall0
+    graphs = {"det_infer": len(infer.programs), "det_pose": len(pose.programs)}
+    if device.type == "cuda":
+        print(f"compiled programs: det_infer {graphs['det_infer']} CUDA graph(s), det_pose "
+              f"{graphs['det_pose']} (at "
+              f"{sorted(p.args[0].shape[0] for p in pose.programs.values())} rows)")
 
     result = detection_ap(all_dets, all_gts, c, iou_threshold=0.5)
     result["mean_trans_err_m"] = float(np.mean(pose_errs)) if pose_errs else None
@@ -300,7 +356,7 @@ def detection_eval(args, cfg, device) -> dict:
     result["run"] = {
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "images_per_s": args.num_images / wall if args.num_images else 0.0,
-        "seconds": seconds, "detections": n_dets,
+        "seconds": seconds, "detections": n_dets, "graphs": graphs,
     }
     os.makedirs(args.output, exist_ok=True)
     with open(os.path.join(args.output, "eval_det.json"), "w") as f:

@@ -29,13 +29,14 @@ NORMAL). Every `display` iterations a line goes to stdout and
 `<output>/metrics.jsonl`; snapshots in the JAX `.npz` layout go to
 `<output>` every `snapshot_iters` and at the end.
 
-The posecnn family's step is compiled, as the JAX trainer's is jitted
-(`engine/train.CompiledTrainStep`, no flag): on a card each batch
-signature's first step runs eagerly and captures a CUDA graph of the
-forward, backward and update, which every later step replays; with
-`--device cpu` the step runs eagerly. The data-parallel step
-(`--num_data` > 1) and the GAN, detection, segmentation and video steps
-run eagerly.
+The posecnn and detection families' steps are compiled, as the JAX
+trainers' are jitted (`engine/train.CompiledTrainStep`,
+`CompiledDetTrainStep`; no flag): on a card each batch signature's first
+step runs eagerly and captures a CUDA graph of the forward, backward and
+update, which every later step replays (the detection step's RPN NMS on
+the device scan inside it); with `--device cpu` the step runs eagerly.
+The data-parallel step (`--num_data` > 1) and the GAN, segmentation and
+video steps run eagerly.
 
 `--ckpt` (or `--resume`, the newest snapshot under `--output`) restores
 the parameters and the step; `fastforward_opt_counts` sets the fresh
@@ -210,7 +211,7 @@ class Trainer(NamedTuple):
     symmetry: torch.Tensor  # (C,) (the three unused by the seg and video steps)
     head_meta: dict
     make_batch_factory: Callable  # worker id → a producer of host batches (the feed's)
-    step: TrainStep  # the family's train step (the posecnn one compiled)
+    step: TrainStep  # the family's train step (the posecnn and det ones compiled)
 
 
 def newest_snapshot(output_dir: str):

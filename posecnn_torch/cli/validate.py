@@ -182,7 +182,7 @@ def run_checks(device, height=480, width=640, cfg=None):
               "height": height, "width": width, "num_classes": NUM_CLASSES}
     t0 = time.perf_counter()
     if device.type == "cuda":
-        _cuda.library()
+        _cuda.library("hough_vote")
         result["kernels_built_s"] = round(time.perf_counter() - t0, 3)
     gen, extents, batch = scene(height, width)
     ext = torch.from_numpy(extents).to(device)

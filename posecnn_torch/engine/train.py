@@ -26,20 +26,24 @@ none). Dropout streams come from (seed, step), as
 `jax.random.fold_in(PRNGKey(seed), step)` gives the JAX step its key.
 The inputs are COLOR, DEPTH or NORMAL blobs in `data`, or RGBD's colour
 in `data` and depth in `data_p`. `TrainStep` runs eagerly, one launch at
-a time. `make_train_step` gives the posecnn family `CompiledTrainStep`,
-the counterpart of the JAX step's `jax.jit(step_fn, donate_argnums=(0,))`:
-on a card its call is one CUDA graph per batch signature
-(`utils/graph.compile_step`) holding forward, backward, update and the
-metrics; on the CPU it runs the same body eagerly. The data-parallel step
-(a mesh of several ranks) stays eager: its gloo collectives cannot be
-captured, and its `max_pose_rois` cap keeps a data-dependent number of
-rows (`torch.nonzero`, `models/posecnn.global_pose_row_cap`). The GAN,
-detection, segmentation and video steps are eager.
+a time. `make_train_step` gives the posecnn family `CompiledTrainStep`
+and `make_det_train_step` the detection family `CompiledDetTrainStep`,
+each the counterpart of its JAX step's `jax.jit(step_fn,
+donate_argnums=(0,))`: on a card its call is one CUDA graph per batch
+signature (`CompiledStep`, `utils/graph.compile_step`) holding forward,
+backward, update and the metrics; on the CPU it runs the same body
+eagerly. The data-parallel step (a mesh of several ranks) stays eager:
+its gloo collectives cannot be captured, and its `max_pose_rois` cap
+keeps a data-dependent number of rows (`torch.nonzero`,
+`models/posecnn.global_pose_row_cap`). The GAN, segmentation and video
+steps are eager.
 
 The detection step (`DetTrainStep`) is train_net_det's: the
 `models.detection.detection_losses` terms with the ADD pose term, on one
 COLOR image a step, with the same optimizer; its targets' sampling noise
-is drawn a step from a generator seeded by (seed, step).
+is drawn a step from a generator seeded by (seed, step) (`det_noise_seed`).
+The RPN's NMS scan runs on the device (`ops/nms.greedy_scan`), so the
+step has no host read and its graph holds all of it.
 
 The segmentation step (`SegTrainStep`, `make_seg_train_step` `:686-725`)
 trains `FCN8` and `ResNet50Seg` on the normalised cross-entropy of their
@@ -575,18 +579,25 @@ class TrainStep:
         return metrics
 
 
-def _compiled_body(cfg: Config, model, points, extents, symmetry, keep_prob: float,
-                   generators: Sequence[torch.Generator], carry: Optional[torch.Tensor],
-                   batch: dict, opt: Optimizer, is_symmetric: bool) -> dict:
-    """The device work of one posecnn step, which `CompiledTrainStep`
-    captures: the losses, the backward, the update at the rate the host
-    set, the metrics. With `carry` the step reads data + carry·1e-20 and
-    writes its loss into carry. A function, not a method, so that what the
-    compiled step keeps holds no reference back to the step."""
+def _posecnn_losses(cfg: Config, model, points, extents, symmetry, keep_prob: float,
+                    generators: Sequence[torch.Generator], batch: dict, is_symmetric: bool):
+    """`step_losses` on the persistent dropout generators: the losses that
+    `CompiledTrainStep` captures."""
+    return step_losses(cfg, model, points, extents, symmetry, batch, generators, is_symmetric,
+                       keep_prob=keep_prob)
+
+
+def _compiled_body(losses: Callable, model, carry: Optional[torch.Tensor], batch: dict,
+                   opt: Optimizer, *static) -> dict:
+    """The device work of one step, which `CompiledStep` captures: the
+    family's losses (`losses(batch, *static)` → (total, metrics)), the
+    backward, the update at the rate the host set, the metrics. With
+    `carry` the step reads data + carry·1e-20 and writes its loss into
+    carry. A function, not a method, so that what the compiled step keeps
+    holds no reference back to the step."""
     if carry is not None:
         batch = {**batch, "data": batch["data"] + carry * 1e-20}
-    total, metrics = step_losses(cfg, model, points, extents, symmetry, batch, generators,
-                                 is_symmetric, keep_prob=keep_prob)
+    total, metrics = losses(batch, *static)
     model.zero_grad(set_to_none=True)
     total.backward()
     opt.apply()
@@ -595,40 +606,39 @@ def _compiled_body(cfg: Config, model, points, extents, symmetry, keep_prob: flo
     return metrics
 
 
-class CompiledTrainStep(TrainStep):
-    """The posecnn step as the JAX step's `jax.jit(step_fn,
-    donate_argnums=(0,))` (`posecnn_tpu/engine/train.py:349-400`): calling
-    it on a card runs forward, backward, update and the metrics as one
-    CUDA graph per batch signature (`utils/graph.compile_step`: the batch's
-    keys, shapes and dtypes, the optimizer, and whether the SYMSIZE
-    curriculum has switched symmetry on, which makes at most two graphs;
-    the feed pads the GT rows to `max_gt`, so one signature serves a run).
-    The first call of a signature is its batch's real step, run eagerly;
-    later calls copy the batch in and replay. Before each call the host
-    seeds the five dropout generators, which every graph registers, with
-    `dropout_seeds` of the state's step, and writes the learning rate into
+class CompiledStep:
+    """A family's training step as the JAX step's `jax.jit(step_fn,
+    donate_argnums=(0,))`: calling it on a card runs forward, backward,
+    update and the metrics as one CUDA graph per batch signature
+    (`utils/graph.compile_step`: the batch's keys, shapes and dtypes, the
+    optimizer, and the family's `static(state)`). The first call of a
+    signature is its batch's real step, run eagerly; later calls copy the
+    batch in and replay. Before each call the host seeds the family's
+    persistent generators, which every graph registers, with
+    `noise_seeds(state)` (the same words that seed the eager step's fresh
+    generators, so both draw the same), and writes the learning rate into
     the optimizer's `lr`; after it, it counts the update and the step. The
     metrics are fresh tensors (the eager step's contract), `lr` the host's
     float. On the CPU the call runs the same body eagerly.
 
-    After a call each parameter's `.grad` is the gradient its update used
-    (conditioned in place), as after the eager step: the graph's gradient
-    tensors after a replay, the eager step's after a signature's first call.
-    `forward`, `backward` and `update` stay the eager step's and may be
-    called between replays: they read and write the same parameters and
-    optimizer state, and a replay reads those at their addresses. With
-    `feedback` the body reads data + `carry`·1e-20 and writes its loss into
-    the device scalar `carry`: the benches' chain of data-dependent steps.
-    No mesh: the data-parallel step is `TrainStep`'s."""
+    A family mixes this into its eager step class and calls `_compile`
+    with its losses on the persistent generators: a function of (batch,
+    *static) that holds no reference to the step. After a call each
+    parameter's `.grad` is the gradient its update used (conditioned in
+    place), as after the eager step: the graph's gradient tensors after a
+    replay, the eager step's after a signature's first call. The eager
+    step's `forward`, `backward` and `update` may be called between
+    replays: they read and write the same parameters and optimizer state,
+    and a replay reads those at their addresses; `TrainStep.__call__(step,
+    state, batch)` is the eager step. With `feedback` the body reads data
+    + `carry`·1e-20 and writes its loss into the device scalar `carry`: the
+    benches' chain of data-dependent steps."""
 
-    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5,
-                 feedback: bool = False):
-        super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob)
-        device = extents.device
-        self.generators = [torch.Generator(device=device) for _ in range(5)]
+    def _compile(self, losses: Callable, generators: Sequence[torch.Generator], device, *,
+                 feedback: bool = False) -> None:
+        model = self.model
+        self.generators = list(generators)
         self.carry = torch.zeros((), dtype=torch.float32, device=device) if feedback else None
-        body = partial(_compiled_body, cfg, model, points, extents, symmetry, keep_prob,
-                       self.generators, self.carry)
         params, held = list(model.parameters()), {}
 
         def drop_gradients():  # before a capture: its backward allocates the graph's own
@@ -636,15 +646,22 @@ class CompiledTrainStep(TrainStep):
             model.zero_grad(set_to_none=True)
 
         self._params, self._held, self._graph_grads = params, held, {}
-        self.compiled = compile_step(body, generators=self.generators,
-                                     before_capture=drop_gradients)
+        self.compiled = compile_step(partial(_compiled_body, losses, model, self.carry),
+                                     generators=self.generators, before_capture=drop_gradients)
+
+    def noise_seeds(self, state: TrainState) -> list[int]:
+        """The seeds of the generators for the state's step."""
+        raise NotImplementedError
+
+    def static(self, state: TrainState) -> tuple:
+        """The losses' arguments after the batch, which the signature holds."""
+        return ()
 
     def __call__(self, state: TrainState, batch: dict) -> dict:
-        cfg = self.cfg
-        for g, seed in zip(self.generators, dropout_seeds(cfg.rng_seed, state.step)):
+        for g, seed in zip(self.generators, self.noise_seeds(state)):
             g.manual_seed(seed)
         lr = state.opt.prepare()
-        metrics = self.compiled(batch, state.opt, state.step >= cfg.train.symsize)
+        metrics = self.compiled(batch, state.opt, *self.static(state))
         program = self.compiled.last
         if program is not None:
             grads = self._graph_grads.get(program)
@@ -657,6 +674,30 @@ class CompiledTrainStep(TrainStep):
         state.step += 1
         metrics["lr"] = lr
         return metrics
+
+
+class CompiledTrainStep(CompiledStep, TrainStep):
+    """The posecnn step compiled (`CompiledStep`;
+    `posecnn_tpu/engine/train.py:349-400`): its generators are the five
+    dropout streams, seeded with `dropout_seeds` of the state's step; its
+    static argument is whether the SYMSIZE curriculum has switched
+    symmetry on, which makes at most two graphs (the feed pads the GT rows
+    to `max_gt`, so one batch signature serves a run). No mesh: the
+    data-parallel step is `TrainStep`'s."""
+
+    def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5,
+                 feedback: bool = False):
+        TrainStep.__init__(self, cfg, model, points, extents, symmetry, keep_prob=keep_prob)
+        device = extents.device
+        generators = [torch.Generator(device=device) for _ in range(5)]
+        self._compile(partial(_posecnn_losses, cfg, model, points, extents, symmetry, keep_prob,
+                              generators), generators, device, feedback=feedback)
+
+    def noise_seeds(self, state: TrainState) -> list[int]:
+        return dropout_seeds(self.cfg.rng_seed, state.step)
+
+    def static(self, state: TrainState) -> tuple:
+        return (state.step >= self.cfg.train.symsize,)
 
 
 def make_train_step(cfg: Config, model, points, extents, symmetry, *,
@@ -779,10 +820,27 @@ def make_gan_train_step(cfg: Config, model, disc, points, extents, symmetry, *,
                         mesh=mesh)
 
 
+def det_noise_seed(seed: int, step: int) -> int:
+    """The seed of the detection step's sampling stream: the first word of
+    `SeedSequence([seed, step])`."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1)[0])
+
+
 def det_noise_generator(seed: int, step: int, device) -> torch.Generator:
     """The detection step's sampling stream, seeded from (seed, step)."""
-    state = np.random.SeedSequence([seed, step]).generate_state(1)
-    return torch.Generator(device=device).manual_seed(int(state[0]))
+    return torch.Generator(device=device).manual_seed(det_noise_seed(seed, step))
+
+
+def _det_losses(model, points, symmetry, generator: torch.Generator, batch: dict):
+    """(total loss, metrics) of the detection step on `batch`, the targets'
+    noise drawn from `generator`."""
+    data = batch["data"]
+    noise = target_noise(*model.noise_shapes(data.shape[1], data.shape[2],
+                                             batch["gt_boxes"].shape[0]), generator, data.device)
+    out = model(data, batch["gt_boxes"], batch["gt_poses"], batch["gt_valid"], train=True,
+                noise=noise)
+    metrics = detection_losses(out, model.num_classes, points, symmetry)
+    return metrics["loss"], {k: v.detach() for k, v in metrics.items()}
 
 
 class DetTrainStep(TrainStep):
@@ -798,20 +856,33 @@ class DetTrainStep(TrainStep):
         super().__init__(cfg, model, points, None, symmetry)
 
     def forward(self, state: TrainState, batch: dict):
-        data = batch["data"]
-        gen = det_noise_generator(self.cfg.rng_seed, state.step, data.device)
-        noise = target_noise(*self.model.noise_shapes(data.shape[1], data.shape[2],
-                                                      batch["gt_boxes"].shape[0]),
-                             gen, data.device)
-        out = self.model(data, batch["gt_boxes"], batch["gt_poses"], batch["gt_valid"],
-                         train=True, noise=noise)
-        metrics = detection_losses(out, self.model.num_classes, self.points, self.symmetry)
-        return metrics["loss"], {k: v.detach() for k, v in metrics.items()}
+        gen = det_noise_generator(self.cfg.rng_seed, state.step, batch["data"].device)
+        return _det_losses(self.model, self.points, self.symmetry, gen, batch)
 
 
-def make_det_train_step(cfg: Config, model, points=None, symmetry=None) -> DetTrainStep:
+class CompiledDetTrainStep(CompiledStep, DetTrainStep):
+    """The detection step compiled (`CompiledStep`; JAX's
+    `make_det_train_step` returns `jax.jit(step_fn, donate_argnums=(0,))`,
+    `posecnn_tpu/engine/train.py:647-680`): its one generator is the
+    targets' sampling stream, seeded with `det_noise_seed` of the state's
+    step. `det_targets` pads the GT rows to 8, so one graph serves a run;
+    the RPN's NMS runs inside it on the device scan (`ops/nms.greedy_scan`)."""
+
+    def __init__(self, cfg: Config, model, points=None, symmetry=None):
+        DetTrainStep.__init__(self, cfg, model, points, symmetry)
+        device = next(model.parameters()).device
+        generator = torch.Generator(device=device)
+        self._compile(partial(_det_losses, model, points, symmetry, generator), [generator],
+                      device)
+
+    def noise_seeds(self, state: TrainState) -> list[int]:
+        return [det_noise_seed(self.cfg.rng_seed, state.step)]
+
+
+def make_det_train_step(cfg: Config, model, points=None, symmetry=None) -> CompiledDetTrainStep:
+    """The detection step, compiled (`CompiledDetTrainStep`)."""
     check_supported(cfg)
-    return DetTrainStep(cfg, model, points, symmetry)
+    return CompiledDetTrainStep(cfg, model, points, symmetry)
 
 
 def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extents, symmetry, *,

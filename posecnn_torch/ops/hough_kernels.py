@@ -15,7 +15,8 @@ Each wrapper launches its kernel for a CUDA tensor and counts the launch
 in `LAUNCHES`; a call made while its stream is being captured into a CUDA
 graph launches nothing and is counted in `CAPTURED` instead. The kernels
 also count their own launches on the device (`device_launches`): eager
-calls and a graph's replays, which call no wrapper. A failed build or
+calls and a graph's replays, which call no wrapper. The counts are
+`ops/_cuda`'s, shared with the NMS scan (`ops/nms.py`). A failed build or
 launch raises. Only a tensor on the CPU
 takes the plain version (`*_plain`), which is also what the tests and
 `chip_smoke.py` hold the kernels against. The plain versions accumulate
@@ -34,65 +35,18 @@ from __future__ import annotations
 import torch
 
 from posecnn_torch.ops import _cuda
+from posecnn_torch.ops._cuda import (  # noqa: F401 — the counts, read here by their callers
+    CAPTURED,
+    LAUNCHES,
+    device_launches,
+    reset_device_launches,
+)
 
 TILE_H, TILE_W = 8, 128  # a Pallas tile of the exhaustive vote
 TILE = TILE_H * TILE_W  # cells in one Pallas tile, and in one window
 WINDOW = 32  # refine-window side (WINDOW² == TILE)
 TOP_T = 4  # refine windows per slot (hough_pallas.hough_votes_c2f default)
 COARSE = 4  # coarse-pass cell stride, in fine cells
-
-# kernel launches since the last reset, by kernel; chip_smoke.py reads
-# them to show that each path went through its kernels. A graph's replays
-# call no wrapper: the kernels a wrapper call records into a graph under
-# capture count in CAPTURED (utils/graph reads them per captured body)
-LAUNCHES = {"tile": 0, "flat": 0, "window": 0}
-CAPTURED = {"tile": 0, "flat": 0, "window": 0}
-
-
-def _count(kernel: str) -> None:
-    """One launch of `kernel`, or one kernel recorded into a graph when
-    the current stream is capturing."""
-    (CAPTURED if torch.cuda.is_current_stream_capturing() else LAUNCHES)[kernel] += 1
-
-
-# each kernel's launches as the kernel counts them on the device, by
-# device index: int32 (tile, flat, window), made outside any capture
-_DEVICE_COUNTS: dict[int, torch.Tensor] = {}
-_SLOT = {"tile": 0, "flat": 1, "window": 2}
-
-
-def _device_counter(device: torch.device, kernel: str) -> int:
-    """The address of `kernel`'s launch counter on `device`."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    counts = _DEVICE_COUNTS.get(index)
-    if counts is None:
-        if torch.cuda.is_current_stream_capturing():
-            # zeros made under capture would be zeroed again by every replay
-            raise RuntimeError(f"{kernel}_vote_kernel: its first call on cuda:{index} is under "
-                               "graph capture; call it eagerly first")
-        with torch.inference_mode(False):  # a normal tensor: resettable outside inference
-            counts = _DEVICE_COUNTS[index] = torch.zeros(3, dtype=torch.int32,
-                                                         device=f"cuda:{index}")
-    return counts.data_ptr() + counts.element_size() * _SLOT[kernel]
-
-
-def reset_device_launches() -> None:
-    """Set every device's launch counters to 0 and wait for it."""
-    for index, counts in _DEVICE_COUNTS.items():
-        counts.zero_()
-        torch.cuda.synchronize(index)
-
-
-def device_launches() -> dict:
-    """Each kernel's launches since the last `reset_device_launches`, as
-    the kernels counted them on the device, summed over devices: the
-    wrappers' eager launches and every graph replay's. Synchronises."""
-    total = dict.fromkeys(_SLOT, 0)
-    for counts in _DEVICE_COUNTS.values():
-        for kernel, n in zip(_SLOT, counts.tolist()):
-            total[kernel] += n
-    return total
-
 
 def votes_at(samples, cell_y, cell_x, in_grid, hit, group):
     """Plain vote accumulation at arbitrary cells, sample by sample.
@@ -257,15 +211,15 @@ def hough_votes_exhaustive(samples, bboxes, *, cell_stride: int, grid_h: int, gr
     _require(bboxes, "bboxes", torch.float32, (k, 4))
     votes = torch.empty((k, grid_h, grid_w), dtype=torch.float32, device=samples.device)
     dsum = torch.empty_like(votes)
-    lib = _cuda.library()
+    lib = _cuda.library("hough_vote")
     with torch.cuda.device(samples.device):
         status = lib.hough_tile_votes(
             samples.data_ptr(), bboxes.data_ptr(), votes.data_ptr(), dsum.data_ptr(),
-            k, s, cell_stride, grid_h, grid_w, _device_counter(samples.device, "tile"),
+            k, s, cell_stride, grid_h, grid_w, _cuda.device_counter(samples.device, "tile"),
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(status, "tile_vote_kernel")
-    _count("tile")
+    _cuda.count("tile")
     return votes, dsum
 
 
@@ -284,15 +238,15 @@ def hough_votes_flat(samples, bboxes, *, cell_stride: int, grid_h: int, grid_w: 
     _require(bboxes, "bboxes", torch.float32, (k, 4))
     votes = torch.empty((k, grid_h * grid_w), dtype=torch.float32, device=samples.device)
     dsum = torch.empty_like(votes)
-    lib = _cuda.library()
+    lib = _cuda.library("hough_vote")
     with torch.cuda.device(samples.device):
         status = lib.hough_flat_votes(
             samples.data_ptr(), bboxes.data_ptr(), votes.data_ptr(), dsum.data_ptr(),
-            k, s, cell_stride, grid_h, grid_w, _device_counter(samples.device, "flat"),
+            k, s, cell_stride, grid_h, grid_w, _cuda.device_counter(samples.device, "flat"),
             torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(status, "flat_vote_kernel")
-    _count("flat")
+    _cuda.count("flat")
     return votes, dsum
 
 
@@ -315,15 +269,16 @@ def hough_votes_windows(samples, origins, *, cell_stride: int, grid_h: int, grid
     _require(origins, "origins", torch.int32, (k * top_t, 3))
     votes = torch.empty((k * top_t, TILE), dtype=torch.float32, device=samples.device)
     dsum = torch.empty_like(votes)
-    lib = _cuda.library()
+    lib = _cuda.library("hough_vote")
     with torch.cuda.device(samples.device):
         status = lib.hough_window_votes(
             samples.data_ptr(), origins.data_ptr(), votes.data_ptr(), dsum.data_ptr(),
             k * top_t, s, cell_stride, grid_h, grid_w, top_t,
-            _device_counter(samples.device, "window"), torch.cuda.current_stream().cuda_stream,
+            _cuda.device_counter(samples.device, "window"),
+            torch.cuda.current_stream().cuda_stream,
         )
     _cuda.check(status, "window_vote_kernel")
-    _count("window")
+    _cuda.count("window")
     return votes, dsum
 
 

@@ -6,14 +6,21 @@ mask aligned with the input rows. `nms` is class-agnostic (the RPN's
 proposals, the detection head's per-class boxes); `nms_per_class`
 suppresses only within each (batch, class) pair of Hough RoIs.
 
-The (N, N) suppression matrix is built on the device in one pass; the
-greedy scan over the score-sorted rows, which JAX runs as a `lax.scan`,
-runs on the host over that matrix, fetched once: a row that is still
-alive suppresses the later rows it overlaps. Equal scores keep their
-input order (a stable sort, as `jnp.argsort`). `per_class_suppression`
-is the device part of `nms_per_class`, with no host read, so that a
-CUDA graph can capture it (the serving, demo and `test_net` forwards);
-`greedy_keep` is the host scan after it.
+The (N, N) suppression matrix is built on the device in one pass. The
+greedy scan over the score-sorted rows, which JAX runs as a `lax.scan`
+(`posecnn_tpu/ops/nms.py:34-40`), runs where the matrix is:
+`greedy_scan` launches the CUDA kernel `nms_scan_kernel`
+(`csrc/nms_scan.cu`) for a CUDA tensor, with no host read, so that a
+CUDA graph captures it (the detection family's compiled training step
+and `test_net` programs), and takes its plain PyTorch version,
+`greedy_scan_plain`, for a tensor on the CPU; the two agree bit for bit.
+Nothing falls back: a failed build or launch raises. `nms` runs the
+scan so. A row that is still alive suppresses the later rows it
+overlaps; equal scores keep their input order (a stable sort, as
+`jnp.argsort`). `per_class_suppression` is the device part of
+`nms_per_class`, which the serving, demo and posecnn `test_net`
+forwards capture; `greedy_keep`, their scan after it, still runs on the
+host over the matrix, fetched once.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from posecnn_torch.ops import _cuda
 from posecnn_torch.utils.bbox import box_iou
 
 
@@ -55,6 +63,52 @@ def greedy_keep(suppression: Suppression) -> torch.Tensor:
     return torch.zeros_like(kept_t).scatter(-1, order, kept_t)
 
 
+def greedy_scan_plain(kill: torch.Tensor, sorted_valid: torch.Tensor) -> torch.Tensor:
+    """`greedy_scan` in PyTorch ops, one sorted row at a time, on any
+    device: kill (…, N, N) bool, sorted_valid (…, N) bool → kept_sorted
+    (…, N) bool (`lax.scan`'s `step`, `posecnn_tpu/ops/nms.py:34-37`)."""
+    suppressed = ~sorted_valid
+    kept = torch.zeros_like(sorted_valid)
+    for i in range(kill.shape[-1]):
+        alive = ~suppressed[..., i]
+        kept[..., i] = alive
+        suppressed = suppressed | (kill[..., i, :] & alive[..., None])
+    return kept
+
+
+def greedy_scan(kill: torch.Tensor, sorted_valid: torch.Tensor) -> torch.Tensor:
+    """The greedy scan over the score-sorted rows, each leading index its
+    own: a valid row not yet suppressed is kept and suppresses the later
+    rows it kills. kill (…, N, N) bool (`Suppression.kill`), sorted_valid
+    (…, N) bool → kept_sorted (…, N) bool, in sorted order. On a CUDA
+    tensor one launch of `nms_scan_kernel`; on the CPU `greedy_scan_plain`."""
+    if kill.device.type == "cpu":
+        return greedy_scan_plain(kill, sorted_valid)
+    n = kill.shape[-1]
+    batch = sorted_valid.numel() // n if n else 0
+    if kill.shape[-2:] != (n, n) or sorted_valid.shape != kill.shape[:-1]:
+        raise ValueError(f"greedy_scan: kill (…, N, N) and sorted_valid (…, N), got "
+                         f"{tuple(kill.shape)} and {tuple(sorted_valid.shape)}")
+    for name, t in (("kill", kill), ("sorted_valid", sorted_valid)):
+        if t.dtype != torch.bool or not t.is_contiguous() or t.device != kill.device:
+            raise ValueError(f"greedy_scan: {name} must be a contiguous bool tensor on "
+                             f"{kill.device}, got {t.dtype} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    kept = torch.empty_like(sorted_valid)
+    if kept.numel() == 0:
+        return kept
+    packed = torch.empty((batch, n, -(-n // 32)), dtype=torch.int32, device=kill.device)
+    lib = _cuda.library("nms_scan")
+    with torch.cuda.device(kill.device):
+        status = lib.nms_scan(kill.data_ptr(), sorted_valid.data_ptr(), kept.data_ptr(),
+                              packed.data_ptr(), batch, n,
+                              _cuda.device_counter(kill.device, "scan"),
+                              torch.cuda.current_stream().cuda_stream)
+    _cuda.check(status, "nms_scan_kernel")
+    _cuda.count("scan")
+    return kept
+
+
 def _sorted(scores: torch.Tensor, valid: torch.Tensor):
     """Descending-score order with invalid rows last; stable on ties."""
     return torch.argsort(-torch.where(valid, scores, float("-inf")), dim=-1, stable=True)
@@ -65,11 +119,10 @@ def _later(n: int, device) -> torch.Tensor:
 
 
 @torch.no_grad()
-def nms(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
-        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """boxes (…, N, 4) xyxy, scores (…, N), valid (…, N) bool. Returns the
-    (…, N) bool keep mask, each leading index an independent NMS
-    (`posecnn_tpu/ops/nms.py:20`; the detection head runs one per class)."""
+def box_suppression(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
+                    valid: Optional[torch.Tensor] = None) -> Suppression:
+    """The device part of `nms`: boxes (…, N, 4) xyxy, scores (…, N), valid
+    (…, N) bool; each leading index its own rows."""
     n = boxes.shape[-2]
     if valid is None:
         valid = torch.ones(scores.shape, dtype=torch.bool, device=boxes.device)
@@ -77,7 +130,20 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
     order = _sorted(scores, valid)
     sb = boxes.gather(-2, order[..., None].expand(*order.shape, 4))
     kill = (box_iou(sb, sb) > threshold) & _later(n, boxes.device)
-    return greedy_keep(Suppression(order, kill, valid.gather(-1, order)))
+    return Suppression(order, kill, valid.gather(-1, order))
+
+
+@torch.no_grad()
+def nms(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
+        valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """boxes (…, N, 4) xyxy, scores (…, N), valid (…, N) bool. Returns the
+    (…, N) bool keep mask, each leading index an independent NMS
+    (`posecnn_tpu/ops/nms.py:20`; the detection head runs one per class),
+    on the device of `boxes`, with no host read: `box_suppression`, then
+    `greedy_scan`."""
+    order, kill, sorted_valid = box_suppression(boxes, scores, threshold, valid)
+    kept = greedy_scan(kill, sorted_valid)
+    return torch.zeros_like(kept).scatter(-1, order, kept)
 
 
 @torch.no_grad()

@@ -18,6 +18,7 @@ takes the first maximum in both.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -27,6 +28,7 @@ import torch.nn.functional as F
 
 from posecnn_torch.ops.nms import nms
 from posecnn_torch.utils.bbox import bbox_transform, bbox_transform_inv, box_iou, clip_boxes
+from posecnn_torch.utils.graph import device_constant
 from posecnn_torch.utils.quaternion import quat_to_mat
 
 
@@ -103,10 +105,17 @@ def proposal_layer(rpn_cls_prob: torch.Tensor, rpn_bbox_pred: torch.Tensor,
 
 def _random_keep(mask: torch.Tensor, max_keep, noise: torch.Tensor) -> torch.Tensor:
     """Keep at most `max_keep` True entries of `mask`, those with the
-    largest `noise` (`rpn.py:109`)."""
+    largest `noise` (`rpn.py:109`). `max_keep` is an int or a 0-d device
+    tensor; neither reads the device from the host (a CUDA graph captures
+    the call)."""
     key = torch.where(mask, noise, -1.0)
-    kth_idx = torch.clamp(torch.as_tensor(max_keep, device=mask.device) - 1, 0, mask.shape[0] - 1)
-    kth = torch.sort(key, descending=True).values[kth_idx]
+    last = mask.shape[0] - 1
+    ranked = torch.sort(key, descending=True).values
+    if isinstance(max_keep, torch.Tensor):
+        # a gather: indexing with a 0-d tensor would read it on the host
+        kth = ranked.gather(0, torch.clamp(max_keep - 1, 0, last).reshape(1))[0]
+    else:
+        kth = ranked[min(max(max_keep - 1, 0), last)]
     cut = torch.where(mask.sum() > max_keep, kth, -0.5)
     return mask & (key >= cut)
 
@@ -230,8 +239,8 @@ def proposal_target_layer(proposals: Proposals, gt_boxes: torch.Tensor, gt_poses
     labels = torch.where(sel_is_fg, gt_cls[sel], 0)
     tgt4 = bbox_transform(rois[:, 1:5], gt_boxes[gt_idx[sel], :4])
     if bbox_normalize_means is not None and bbox_normalize_stds is not None:
-        means = torch.tensor(bbox_normalize_means, dtype=torch.float32, device=dev)[None, :]
-        stds = torch.tensor(bbox_normalize_stds, dtype=torch.float32, device=dev)[None, :]
+        means = device_constant(bbox_normalize_means, dev)[None, :]
+        stds = device_constant(bbox_normalize_stds, dev)[None, :]
         tgt4 = (tgt4 - means) / stds
     fg_f = sel_is_fg[:, None].to(tgt4.dtype)
     cols = 4 * labels[:, None] + torch.arange(4, device=dev)[None, :]
@@ -243,17 +252,25 @@ def proposal_target_layer(proposals: Proposals, gt_boxes: torch.Tensor, gt_poses
                            inside_w, sel_valid)
 
 
-def log_depth_grid(d_near: float, d_far: float, num: int, device=None) -> torch.Tensor:
-    """exp(linspace(log d_near, log d_far, num)) in fp32, by
-    `jnp.linspace`'s formula (start·(1 − i/div) + stop·i/div, then the end
-    point). XLA:CPU fuses it differently, and jitted and eager JAX differ
-    from each other in the last ulp of some cells; a cell's ulp moves the
-    fitted depth by ~1e-7 relative."""
+@functools.lru_cache(maxsize=None)
+def _log_depth_values(d_near: float, d_far: float, num: int) -> tuple:
+    """`log_depth_grid`'s values, computed once on the CPU."""
     start = torch.log(torch.tensor(d_near, dtype=torch.float32))
     stop = torch.log(torch.tensor(d_far, dtype=torch.float32))
     step = torch.arange(num - 1, dtype=torch.float32) / float(num - 1)
     grid = torch.cat([start * (1 - step) + stop * step, stop[None]])
-    return torch.exp(grid).to(device)
+    return tuple(torch.exp(grid).tolist())
+
+
+def log_depth_grid(d_near: float, d_far: float, num: int, device="cpu") -> torch.Tensor:
+    """exp(linspace(log d_near, log d_far, num)) in fp32, by
+    `jnp.linspace`'s formula (start·(1 − i/div) + stop·i/div, then the end
+    point), computed on the CPU once and kept on `device`
+    (`utils/graph.device_constant`, which a captured program reads; do not
+    write to it). XLA:CPU fuses it differently, and jitted and eager JAX
+    differ from each other in the last ulp of some cells; a cell's ulp
+    moves the fitted depth by ~1e-7 relative."""
+    return device_constant(_log_depth_values(float(d_near), float(d_far), int(num)), device)
 
 
 def estimate_translation_from_box(quats: torch.Tensor, boxes: torch.Tensor,

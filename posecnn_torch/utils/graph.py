@@ -4,7 +4,7 @@
 captured CUDA graph per input signature (each tensor argument's shape,
 dtype and device, and the value of every other argument, which plays
 JAX's static arguments). The first call of a signature runs `fn` once
-eagerly, outside the capture, so that the vote kernels' library loads,
+eagerly, outside the capture, so that the kernels' libraries load,
 cuDNN picks its algorithms and the caching allocator fills; then it
 synchronises and captures one call of `fn` on static copies of the
 arguments. Every call copies its arguments into those buffers, replays
@@ -24,12 +24,12 @@ sum(poses_pred)·1e-6`, a head the model does not build left out. The
 perturbation is far below half an ulp of the inputs, so every body
 computes the forward of `data` itself.
 
-Both share `_capture`. A replay calls no Python, so the vote kernels'
-wrappers never see it: they count the kernels they record into a graph
-under capture in `hough_kernels.CAPTURED`, not in `LAUNCHES`, and each
-captured program keeps its body's count (`launches`). The launches that
-replays make show only on the device, where the kernels count them
-(`hough_kernels.device_launches`).
+Both share `_capture`. A replay calls no Python, so the CUDA kernels'
+wrappers (the vote kernels, the NMS scan) never see it: they count the
+kernels they record into a graph under capture in `_cuda.CAPTURED`, not
+in `_cuda.LAUNCHES`, and each captured program keeps its body's count
+(`launches`). The launches that replays make show only on the device,
+where the kernels count them (`_cuda.device_launches`).
 
 `compile_step(fn)` is `jax.jit(step_fn, donate_argnums=(0,))` for a
 program that moves state in place: the training step, whose parameters
@@ -45,20 +45,20 @@ from typing import Callable, Sequence
 
 import torch
 
-from posecnn_torch.ops import hough_kernels
+from posecnn_torch.ops import _cuda
 
 
 def _capture(warm: Callable, body: Callable, device, pool=None):
     """Run `warm()` eagerly, synchronise, and capture `body()` into one
     CUDA graph (in `pool` when given). Returns (graph, what body returned,
-    each vote kernel's launches recorded into the graph)."""
+    each CUDA kernel's launches recorded into the graph)."""
     warm()
     torch.cuda.synchronize(device)
-    before = dict(hough_kernels.CAPTURED)
+    before = dict(_cuda.CAPTURED)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, pool=pool):
         out = body()
-    return graph, out, {k: hough_kernels.CAPTURED[k] - before[k] for k in before}
+    return graph, out, {k: _cuda.CAPTURED[k] - before[k] for k in before}
 
 
 def _key(a):
@@ -117,7 +117,7 @@ class compile_static:  # noqa: N801 — named and used as a function, as `jax.ji
     outputs. Every tensor argument lies on one device: a call that mixes
     devices raises ValueError.
     `programs` maps each signature to its program; a program's `launches`
-    are the vote kernels' launches in one replay. `fn` is the eager body."""
+    are the CUDA kernels' launches in one replay. `fn` is the eager body."""
 
     def __init__(self, fn: Callable):
         self.fn = fn
@@ -143,7 +143,7 @@ class compile_static:  # noqa: N801 — named and used as a function, as `jax.ji
 
 class _StepProgram:
     """One batch signature's graph: the static batch it reads, the metric
-    names and the stacked metrics it writes, its vote kernels' launches."""
+    names and the stacked metrics it writes, its CUDA kernels' launches."""
 
     def __init__(self, graph, batch, keys, stacked, launches):
         self.graph, self.batch, self.keys = graph, batch, keys
@@ -188,7 +188,7 @@ class compile_step:  # noqa: N801 — named and used as a function, as `jax.jit`
     not overwrite. On a CPU device `fn` runs as it is (the caller asked
     for the CPU). A capture that fails raises with its cause; nothing falls
     back to the eager call. The batch's tensors lie on one device.
-    `programs` maps each signature to its program (`launches`: the vote
+    `programs` maps each signature to its program (`launches`: the CUDA
     kernels' launches in one replay); `last` is the program of the last
     call on a card (the one it captured or replayed)."""
 
@@ -231,7 +231,7 @@ class compile_step:  # noqa: N801 — named and used as a function, as `jax.jit`
         for g in self.generators:
             graph.register_generator_state(g)
         torch.cuda.synchronize(device)
-        before = dict(hough_kernels.CAPTURED)
+        before = dict(_cuda.CAPTURED)
         # thread-local: a feed's threads may run beside the capture
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
             metrics = self.fn(copies, *static)
@@ -240,7 +240,7 @@ class compile_step:  # noqa: N801 — named and used as a function, as `jax.jit`
             if bad:
                 raise ValueError(f"compile_step: the metrics must be fp32 scalars: {bad}")
             stacked = torch.stack(list(metrics.values()))
-        launches = {k: hough_kernels.CAPTURED[k] - before[k] for k in before}
+        launches = {k: _cuda.CAPTURED[k] - before[k] for k in before}
         return _StepProgram(graph, copies, list(metrics), stacked, launches)
 
 
@@ -304,7 +304,7 @@ def capture_loop(fn: Callable, args: Sequence[torch.Tensor], n: int,
 
     Returns (replay, outputs, launches): replay() runs the graph and
     returns acc (no synchronise); outputs are the last body's outputs,
-    static tensors that each replay rewrites; launches maps each vote
+    static tensors that each replay rewrites; launches maps each CUDA
     kernel to its launches per body."""
     if n < 1:
         raise ValueError(f"capture_loop needs n >= 1, got {n}")

@@ -226,7 +226,7 @@ def test_engine_graph_equals_eager_on_the_card(cuda, batch):
                               want):
             assert exact(g, w), name
     (program,) = engine._compiled.programs.values()
-    assert program.launches == {"tile": 0, "flat": 1, "window": 1}
+    assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0}
 
 
 @pytest.mark.cuda

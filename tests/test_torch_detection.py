@@ -240,10 +240,11 @@ def test_three_det_train_steps_match_jax(tmp_path, monkeypatch):
                                            if k.startswith("init/")}), strict=True)
     noise = {}  # step → JAX's draw
 
-    def fed_noise(n_anchors, n_rois, step, device):
-        return noise[step]
+    def fed_noise(n_anchors, n_rois, generator, device):
+        return noise[generator.initial_seed()]
 
-    monkeypatch.setattr(ttrain, "det_noise_generator", lambda seed, step, device: step)
+    # the step seeds its noise generator with the step number itself
+    monkeypatch.setattr(ttrain, "det_noise_seed", lambda seed, step: step)
     monkeypatch.setattr(ttrain, "target_noise", fed_noise)
     state = ttrain.create_train_state(cfg, model)
     step = ttrain.make_det_train_step(cfg, model, torch.from_numpy(pts), torch.from_numpy(sym))

@@ -1,4 +1,5 @@
-"""The port's Hough vote kernels against their plain PyTorch versions.
+"""The port's Hough vote kernels and its NMS scan kernel against their
+plain PyTorch versions.
 
 No JAX here, so the file also runs on the GPU machine, where the
 `cuda`-marked tests hold each CUDA kernel to its plain version:
@@ -8,16 +9,28 @@ No JAX here, so the file also runs on the GPU machine, where the
 Each kernel is held to its plain version bit for bit (NaN where the
 plain version gives NaN), at small scenes and at `chip_smoke`'s edge
 cases (the exhaustive vote at stride 1, the c2f pair as c2f runs them)
-and at the four tunings of `bench c2f`. Without a card those skip; the
-CPU tests check the plain c2f path against the plain exhaustive vote and
-the launch bookkeeping.
+and at the four tunings of `bench c2f`; the scan kernel at `chip_smoke`'s
+scan cases (the RPN's (1, 2000) matrix, test_net's (21, 128), the edges).
+Without a card those skip; the CPU tests check the plain c2f path against
+the plain exhaustive vote, the plain scan against the host scan, and the
+launch bookkeeping.
 """
 
 import pytest
 import torch
 
-from chip_smoke import EDGE_CASES, intrinsics, planted_extents, planted_scene, vote_edge_case
+from chip_smoke import (
+    EDGE_CASES,
+    SCAN_CASES,
+    intrinsics,
+    planted_extents,
+    planted_scene,
+    scan_case,
+    vote_edge_case,
+)
+from posecnn_torch.ops import _cuda
 from posecnn_torch.ops import hough_kernels as hk
+from posecnn_torch.ops.nms import Suppression, greedy_keep, greedy_scan, greedy_scan_plain
 from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
 
 torch.set_num_threads(1)
@@ -286,6 +299,43 @@ def test_kernels_refuse_bad_inputs(cuda):
         hk.hough_votes_windows(samples, torch.zeros((samples.shape[0] + 1, 3),
                                dtype=torch.int32, device=cuda), cell_stride=1, grid_h=H,
                                grid_w=W)
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_plain_scan_equals_the_host_scan(case):
+    """`greedy_scan_plain` (the CPU's scan, and the kernel's plain version)
+    keeps the rows `greedy_keep`'s numpy loop keeps, with no launch."""
+    kill, valid = scan_case(case)
+    before = dict(_cuda.LAUNCHES)
+    kept = greedy_scan(kill, valid)
+    assert _cuda.LAUNCHES == before
+    order = torch.arange(kill.shape[-1]).expand(valid.shape)  # already in sorted order
+    assert torch.equal(kept, greedy_keep(Suppression(order, kill, valid)))
+    assert torch.equal(kept, greedy_scan_plain(kill, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_kernel_matches_plain(cuda, case):
+    kill, valid = scan_case(case)
+    want = greedy_scan_plain(kill, valid)
+    n0 = _cuda.LAUNCHES["scan"]
+    _cuda.reset_device_launches()
+    got = greedy_scan(kill.to(cuda), valid.to(cuda))
+    assert got.dtype == torch.bool and got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+    assert _cuda.LAUNCHES["scan"] == n0 + 1 and _cuda.device_launches()["scan"] == 1
+
+
+@pytest.mark.cuda
+def test_scan_kernel_refuses_bad_inputs(cuda):
+    kill, valid = (t.to(cuda) for t in scan_case("n33"))
+    with pytest.raises(ValueError):
+        greedy_scan(kill.int(), valid)
+    with pytest.raises(ValueError):
+        greedy_scan(kill.transpose(-1, -2), valid)
+    with pytest.raises(ValueError):
+        greedy_scan(kill, valid[:, :-1])
 
 
 def toy_train_step(device, batch, lib, model):
