@@ -154,24 +154,34 @@ that fails, with a non-zero exit:
      `network=resnet50_seg` (num_units 64) through
      `cli/train_net.build_trainer`, split into forward / backward /
      optimizer (CUDA events), every loss and gradient finite, peak memory,
-     FLOPs a step (FlopCounterMode) and MFU; small fp32 FCN8, ResNet50Seg
-     and RecurrentSegNet on the card against the CPU (log-probs within
-     1e-4); 4 steps of `lov_color_rnn.yaml` as written (RecurrentSegNet,
-     22 classes, T = 5, batch 1, 480×640, num_units 64, fp32) with the same
-     split, `compute_flow`'s ms a frame and peak memory, then 2 steps on a
-     fabricated YCB-Video tree with a moving camera (the real-video feed);
-     `test_video` on the video snapshot (2 sequences of 5 frames, TSDF grid
-     `test.grid_size` 256): the seconds of render, forward, fuse, track and
-     extract, IoU, surface points and `video_eval.json`; `test_fusion` at
-     its grid 64, and one `fuse_frame` at grid 512 with 10 classes (ms and
-     peak memory). No vote kernel launches in the phase.
+     FLOPs a step (FlopCounterMode) and MFU, then the same step compiled
+     as train_net runs it (`compiled_family`: its capture, 4 replays timed
+     with CUDA events, one graph, no CUDA kernel launched on the device,
+     peak memory; the equality gate over 5 replays across a step of the lr
+     staircase); small fp32 FCN8, ResNet50Seg and RecurrentSegNet on the
+     card against the CPU (log-probs within 1e-4); 4 steps of
+     `lov_color_rnn.yaml` as written (RecurrentSegNet, 22 classes, T = 5,
+     batch 1, 480×640, num_units 64, fp32) with the same split and the same
+     compiled step and gate, `compute_flow`'s ms a frame and peak memory,
+     then 2 steps on a fabricated YCB-Video tree with a moving camera (the
+     real-video feed); `test_video` on the video snapshot (3 sequences of 5
+     frames, TSDF grid `test.grid_size` 256), its forward compiled (one
+     graph, every call held to its eager body bit for bit, no launch on the
+     device) and again eager: the seconds of render, forward, fuse, track
+     and extract, the forward's seconds each way, IoU, surface points, and
+     `video_eval.json` equal between the two but for the seconds;
+     `test_fusion` at its grid 64, and one `fuse_frame` at grid 512 with 10
+     classes (ms and peak memory). No vote kernel launches in the phase.
  13. the head switches and the GAN step at full width, with seeded random
      weights: 4 steps of `shapenet_single_single_color_gan.yaml` as written
      (2 classes, 480×640, batch 4, num_units 64, seg + vertex, vertex_w 10,
      lr 2e-4) through `cli/train_net.build_trainer`, each split into the
      generator's forward / backward / optimizer and the discriminator's
      step (CUDA events), every loss and gradient finite
-     (`utils/debug.finite_check`), peak memory, FLOPs a step; one small
+     (`utils/debug.finite_check`), peak memory, FLOPs a step; the step
+     compiled as train_net runs it (both updates in one graph: 4 replays
+     timed, no launch on the device, the equality gate over 5 replays with
+     the discriminator and its Adam kept, restored and re-run); one small
      fp64 GAN step on the card against the CPU; 3 steps each of
      `lov_color_3d.yaml` on a fabricated YCB-Video tree (22 classes, batch
      2, real and synthetic 1:3), `linemod_ape_3d.yaml` on a fabricated
@@ -329,7 +339,7 @@ DET_STEPS, DET_EVAL_IMAGES, DEMO_FRAMES = 4, 8, 5
 # written; SEG_SET's runs on the fcn8 yaml
 SEG_CFG, RNN_CFG = "rgbd_scene_single_color_fcn8", "lov_color_rnn"
 SEG_SET = {"fcn8": [], "resnet50_seg": ["--set", "network=resnet50_seg"]}
-SEG_STEPS, RNN_STEPS, RNN_REAL_STEPS, VIDEO_SEQUENCES = 4, 4, 2, 2
+SEG_STEPS, RNN_STEPS, RNN_REAL_STEPS, VIDEO_SEQUENCES = 4, 4, 2, 3
 FUSE_GRID, FUSE_CLASSES = 512, 10
 # phase 13: the GAN step and the switched posecnn yamls, each as written;
 # the train and val frames of the fabricated YCB-Video tree, the scenes
@@ -1416,20 +1426,37 @@ GATE_STEPS, GATE_EAGER_RUNS, GRAD_TOL, LIVE_BIAS = 5, 4, 2e-2, 100.0
 
 
 def step_outputs(step, state, batch, compiled):
-    """One step of `step` (a CompiledTrainStep) on `batch`, compiled or
-    eagerly (`TrainStep.__call__`): ([its metrics, lr included, as one
-    fp64 tensor], [each parameter's gradient as the update used it],
-    [every parameter and buffer after it], [the optimizer's state tensors
-    after it])."""
+    """One step of `step` (a `CompiledStep`) on `batch`, compiled or
+    eagerly (`step.eager`): ([its metrics, lr included, as one fp64
+    tensor], [each parameter's gradient as the update used it], [every
+    parameter and buffer after it], [the optimizers' state tensors after
+    it]), over every module the step trains (the GAN's discriminator
+    too)."""
     import torch
 
-    from posecnn_torch.engine.train import TrainStep
-
-    m = step(state, batch) if compiled else TrainStep.__call__(step, state, batch)
+    m = step(state, batch) if compiled else step.eager(state, batch)
     return ([torch.tensor([float(m[k]) for k in sorted(m)], dtype=torch.float64)],
-            [p.grad.detach().clone() for p in step.model.parameters()],
-            [t.detach().clone() for t in step.model.state_dict().values()],
-            [t.detach().clone() for t in state.opt.state_tensors()])
+            [p.grad.detach().clone() for p in trained_parameters(step)],
+            [t.detach().clone() for mod in step.models() for t in mod.state_dict().values()],
+            [t.detach().clone() for t in state.state_tensors()])
+
+
+def trained_parameters(step):
+    """The parameters of every module `step` trains, in order."""
+    return [p for mod in step.models() for p in mod.parameters()]
+
+
+def descend_on(step, state, grads):
+    """The update alone, eagerly, on `grads` (one a trained parameter, as
+    the update used them): the step's optimizer's move at the rate of its
+    count (the gradient transforms already applied), then the GAN's
+    discriminator Adam."""
+    for p, g in zip(trained_parameters(step), grads):
+        p.grad = g.clone()
+    state.opt.prepare()
+    state.opt.descend()
+    if getattr(state, "d_opt", None) is not None:
+        state.d_opt.step()
 
 
 def distance(a, b) -> float:
@@ -1484,10 +1511,13 @@ def live_hough_inputs(step, state, batch, where):
 # the detection step the RPN's NMS scan
 C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0}
 DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1}
+# a replayed segmentation, video or GAN step's (the GAN yaml builds no
+# pose head, so no Hough), and a replay of test_video's forward
+NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0}
 
 
 def equality_gate(step, state, batches, where, per_replay, prepare=None):
-    """A compiled step (a `CompiledStep` of either family) against the same
+    """A compiled step (a `CompiledStep` of any family) against the same
     step eager over len(batches) consecutive steps from one state: the
     given state, readied by the family's `prepare(step, state, batch,
     where)` where it has one (the posecnn family's `live_hough_inputs`,
@@ -1502,15 +1532,17 @@ def equality_gate(step, state, batches, where, per_replay, prepare=None):
     entry, from the nearest eager step (GATE_EAGER_RUNS of them where two
     differ): the backward adds in a device-dependent order, and the update
     amplifies that in the parameters, where it cannot be told apart from a
-    fault. Its update: the optimizer run eagerly from the same state on the
-    compiled step's gradients equals the compiled step's parameters and
-    optimizer state (Adam's moments and steps, the momentum traces) bit for
-    bit. The parameters' and the optimizer state's distances from the
-    nearest eager step and between the eager steps are printed beside. The
-    CUDA kernels' launches of the compiled steps are counted on the device
-    and must be `per_replay` a step. The state is left restored to the one
-    given. Returns `prepare`'s result (or {}) with the rows, the launches
-    per replay and a line to print."""
+    fault. Its update: the optimizers run eagerly from the same state on
+    the compiled step's gradients (`descend_on`: the GAN's two) equal the
+    compiled step's parameters and optimizer state (Adam's moments and
+    steps, the momentum traces) bit for bit. The state kept and restored
+    covers every module the step trains and every optimizer (the GAN's
+    discriminator and its Adam too). The parameters' and the optimizer
+    state's distances from the nearest eager step and between the eager
+    steps are printed beside. The CUDA kernels' launches of the compiled
+    steps are counted on the device and must be `per_replay` a step. The
+    state is left restored to the one given. Returns `prepare`'s result
+    (or {}) with the rows, the launches per replay and a line to print."""
     from posecnn_torch.bench import snapshot
     from posecnn_torch.engine.train import fastforward_opt_counts
 
@@ -1541,12 +1573,9 @@ def equality_gate(step, state, batches, where, per_replay, prepare=None):
         after = snapshot(step, state)
         # the update, eagerly, on the compiled step's gradients
         at()
-        for p, g in zip(step.model.parameters(), got[1]):
-            p.grad = g.clone()
-        state.opt.prepare()
-        state.opt.descend()
-        update = distance([[t.detach() for t in step.model.state_dict().values()],
-                           [t.detach() for t in state.opt.state_tensors()]], got[2:])
+        descend_on(step, state, got[1])
+        update = distance([[t.detach() for mod in step.models() for t in mod.state_dict().values()],
+                           [t.detach() for t in state.state_tensors()]], got[2:])
         after()
         forward = distance(got[:1], runs[0][:1])
         bitwise = all(distance(e[:1], runs[0][:1]) == 0.0 for e in runs)
@@ -2938,6 +2967,53 @@ def split_steps(step, state, batches):
     return split, metrics
 
 
+def compiled_family(tr, batches, n, where):
+    """A trainer's compiled step (a `CompiledStep`) as train_net runs it:
+    the first call on batches[0] is the batch's real step and the capture,
+    then n replays on batches[:n] timed with CUDA events, every count set to
+    0 just before them; the capture records no CUDA kernel, the replays
+    launch none on the device and call no wrapper, every metric is finite;
+    one graph serves the run. Then the equality gate over GATE_STEPS
+    batches. Returns {"ms": ms a replay, "peak_gb", "per_replay": the
+    program's launches, "gate": the gate's result}."""
+    import torch
+
+    from posecnn_torch.engine.train import CompiledStep
+
+    step, state = tr.step, tr.state
+    if not isinstance(step, CompiledStep):
+        raise AssertionError(f"{where}: train_net's step is {type(step).__name__}, not compiled")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batches[0])
+    (ms, launches, metrics, _, _), calls, _ = device_counted(
+        lambda: timed_steps(step, state, batches[:n]))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    programs = list(step.compiled.programs.values())
+    if (len(programs) != 1 or programs[0].launches != NO_LAUNCH or launches != NO_LAUNCH
+            or any(calls.values())):
+        raise AssertionError(f"{where}: {len(programs)} graphs recording "
+                             f"{[p.launches for p in programs]}; {n} replays launched {launches} "
+                             f"on the device, {calls} through the wrappers; none expected")
+    for i, m in enumerate(metrics):
+        m = {name: float(v) for name, v in m.items()}
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"{where}: compiled step {i}: {m}")
+    gate = equality_gate(step, state, batches[:GATE_STEPS], where, NO_LAUNCH)
+    return {"ms": ms, "peak_gb": peak_gb, "per_replay": dict(programs[0].launches), "gate": gate}
+
+
+def describe_compiled(compiled, images, eager_ms):
+    """The line of a `compiled_family` result: ms a replay, its mean
+    beside the eager step's, images/s on it, peak memory, the gate."""
+    mean = float(np.mean(compiled["ms"]))
+    return (f"compiled (one CUDA graph, train_net's step): ms a replay (CUDA events) "
+            + ", ".join(f"{x:.2f}" for x in compiled["ms"])
+            + f" (mean {mean:.2f} against the eager step's {eager_ms:.2f}, "
+            f"{1e3 * images / mean:.2f} images/s), peak memory {compiled['peak_gb']:.2f} GB, "
+            f"launches a replay {compiled['per_replay']}; {compiled['gate']['line']}")
+
+
 def seg_card_vs_cpu(device):
     """Small fp32 FCN8, ResNet50Seg and RecurrentSegNet on the card against
     the CPU with the same weights and inputs: the largest log-prob
@@ -2977,9 +3053,12 @@ def seg_card_vs_cpu(device):
 
 
 def phase_seg_video(device, card):
-    """Phase 12: the segmentation and video families' training, the video
-    evaluation and fusion at full width. Returns the vote kernels' launches
-    in the phase (all must be 0)."""
+    """Phase 12: the segmentation and video families' training, eager and
+    compiled (each held to eager by the equality gate), the video
+    evaluation, compiled and eager, and fusion at full width. Returns (the
+    vote kernels' launches in the phase, all 0; the CUDA kernels' launches
+    a replay of each compiled step and of test_video's forward, by name,
+    all 0)."""
     import tempfile
 
     import torch
@@ -2991,30 +3070,38 @@ def phase_seg_video(device, card):
     from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.ops.flow import compute_flow
     from posecnn_torch.refine.fusion import create_volume, fuse_frame
+    from posecnn_torch.utils.graph import compile_static
 
     for key in hk.LAUNCHES:
         hk.LAUNCHES[key] = 0
-    parts = []
+    parts, families = [], {}
 
-    def run(argv, steps):
-        """build_trainer on argv, `steps` held batches through split_steps:
-        (trainer, split, metrics, peak GB, FLOPs of one more step, set-up s,
-        the batches)."""
+    def run(argv, steps, where=None):
+        """build_trainer on argv, `steps` held batches through split_steps
+        (the step eager, split); then, named by `where`, the compiled step
+        (`compiled_family`: timed replays, the equality gate): (trainer,
+        split, metrics, peak GB, FLOPs of one more eager step, set-up s, the
+        batches, the compiled step's results or None)."""
         args = train_net.make_parser().parse_args(argv)
         t0 = time.perf_counter()
         tr = train_net.build_trainer(args, train_net.load_config(args))
         try:
-            batches = [next(tr.batches) for _ in range(steps)]
+            batches = [next(tr.batches) for _ in range(max(steps, GATE_STEPS if where else 0))]
         finally:
             tr.batches.close()
         setup_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        split, metrics = split_steps(tr.step, tr.state, batches)
+        split, metrics = split_steps(tr.step, tr.state, batches[:steps])
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        # the eager step: the compiled one's first call would capture under the counter
         with FlopCounterMode(display=False) as counter:
-            tr.step(tr.state, batches[-1])
-        return tr, split, metrics, peak_gb, counter.get_total_flops(), setup_s, batches
+            tr.step.eager(tr.state, batches[steps - 1])
+        if any(hk.LAUNCHES.values()):  # compiled_family's counts start from 0
+            raise AssertionError(f"phase 12 launched a vote kernel: {dict(hk.LAUNCHES)}")
+        compiled = compiled_family(tr, batches, steps, where) if where else None
+        return (tr, split, metrics, peak_gb, counter.get_total_flops(), setup_s,
+                batches[:steps], compiled)
 
     def describe(split, flops, peak_gb, peak_flops, peak_name):
         steady = np.mean(split[1:], 0)
@@ -3026,15 +3113,17 @@ def phase_seg_video(device, card):
 
     # 12.1: the segmentation family on the fcn8 yaml, as FCN8 and ResNet50Seg
     for network, extra in SEG_SET.items():
-        tr, split, metrics, peak_gb, flops, setup_s, _ = run(
-            ["--cfg", cfg_path(SEG_CFG), *extra], SEG_STEPS)
+        tr, split, metrics, peak_gb, flops, setup_s, _, compiled = run(
+            ["--cfg", cfg_path(SEG_CFG), *extra], SEG_STEPS, f"phase 12 {network}")
+        families[network] = compiled["per_replay"]
         t = tr.cfg.train
         width = f"fc_dim {t.fc_dim}" if network == "fcn8" else f"num_units {t.num_units}"
         parts.append(f"{network} on {SEG_CFG}.yaml ({t.num_classes} classes, {t.syn_height}x"
                      f"{t.syn_width}, batch {t.ims_per_batch}, {width}, "
                      f"{str(tr.model.compute_dtype).removeprefix('torch.')}, set-up {setup_s:.1f}"
                      f" s): {describe(split, flops, peak_gb, PEAK_BF16_FLOPS, '989 TFLOP/s bf16')}"
-                     f", losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}")
+                     f", losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}; "
+                     + describe_compiled(compiled, t.ims_per_batch, np.mean(split[1:], 0).sum()))
         del tr
         torch.cuda.empty_cache()
     errs = seg_card_vs_cpu(device)
@@ -3043,8 +3132,9 @@ def phase_seg_video(device, card):
 
     with tempfile.TemporaryDirectory() as tmp:
         # 12.2: the video family on lov_color_rnn.yaml, synthetic sequences
-        tr, split, metrics, peak_gb, flops, setup_s, batches = run(["--cfg", cfg_path(RNN_CFG)],
-                                                                    RNN_STEPS)
+        tr, split, metrics, peak_gb, flops, setup_s, batches, compiled = run(
+            ["--cfg", cfg_path(RNN_CFG)], RNN_STEPS, "phase 12 recurrent_seg")
+        families["recurrent_seg"] = compiled["per_replay"]
         t, model, grid = tr.cfg.train, tr.model, tr.cfg.test.grid_size
         snapshot = os.path.join(tmp, "rnn", f"rnn_iter_{tr.state.step}.npz")
         save_params(snapshot, model, step=tr.state.step)  # what train_net's snapshot writes
@@ -3079,7 +3169,8 @@ def phase_seg_video(device, card):
                      f"{describe(split, flops, peak_gb, PEAK_FP32_OPS, '67 TFLOP/s fp32')}, "
                      f"losses {', '.join(f'{m['loss']:.4f}' for m in metrics)}; compute_flow "
                      f"{flow_f:.2f} ms a frame forward, {flow_fb:.2f} ms forward + backward "
-                     f"(CUDA events, mean of 5; {100 * matched:.1f}% of pixels matched)")
+                     f"(CUDA events, mean of 5; {100 * matched:.1f}% of pixels matched); "
+                     + describe_compiled(compiled, t.ims_per_batch, np.mean(split[1:], 0).sum()))
         del tr, model, state, weights, batches
         torch.cuda.empty_cache()
 
@@ -3088,7 +3179,7 @@ def phase_seg_video(device, card):
         t0 = time.perf_counter()
         write_ycb_tree(root, sets=(("train", 6),), video_length=6, moving_camera=True)
         fab_s = time.perf_counter() - t0
-        tr, split, metrics, peak_gb, _, setup_s, _ = run(
+        tr, split, metrics, peak_gb, _, setup_s, _, _ = run(
             ["--cfg", cfg_path(RNN_CFG), "--dataset", "ycb_video", "--data_root", root],
             RNN_REAL_STEPS)
         parts.append(f"recurrent_seg on a fabricated moving-camera YCB-Video tree (6 frames "
@@ -3100,21 +3191,57 @@ def phase_seg_video(device, card):
         del tr
         torch.cuda.empty_cache()
 
-        # 12.3: test_video on the video snapshot
-        out = os.path.join(tmp, "video")
-        t0 = time.perf_counter()
-        results = test_video.main(["--cfg", cfg_path(RNN_CFG), "--ckpt", snapshot,
-                                   "--num_sequences", str(VIDEO_SEQUENCES), "--num_steps",
-                                   str(t.num_steps), "--output", out])
-        video_s = time.perf_counter() - t0
-        if not os.path.exists(os.path.join(out, "video_eval.json")) or len(results) != (
-                VIDEO_SEQUENCES) or not all(np.isfinite(r["mean_iou"]) for r in results):
-            raise AssertionError(f"test_video: {results}")
+        # 12.3: test_video on the video snapshot, its forward compiled
+        # (recorded: every call held to its eager body, the launches counted
+        # on the device), then with its program eager; the two
+        # video_eval.json equal but for the seconds
+        video_argv = ["--cfg", cfg_path(RNN_CFG), "--ckpt", snapshot, "--num_sequences",
+                      str(VIDEO_SEQUENCES), "--num_steps", str(t.num_steps)]
+        runs = {}
+        for name in ("compiled", "eager"):
+            out = os.path.join(tmp, f"video_{name}")
+            t0 = time.perf_counter()
+            if name == "compiled":
+                results, video_run = compiled_run(
+                    lambda: test_video.main([*video_argv, "--output", out]), [test_video],
+                    "test_video")
+            else:
+                test_video.compile_static = Eager
+                try:
+                    results = test_video.main([*video_argv, "--output", out])
+                finally:
+                    test_video.compile_static = compile_static
+            with open(os.path.join(out, "video_eval.json")) as f:
+                written = json.load(f)
+            runs[name] = (results, written, time.perf_counter() - t0)
+        results, written, video_s = runs["compiled"]
+        bodies = video_run["bodies"].get("video_labels", [])
+        if (len(results) != VIDEO_SEQUENCES or not all(np.isfinite(r["mean_iou"]) for r in results)
+                or bodies != [NO_LAUNCH] or video_run["device"] != NO_LAUNCH
+                or video_run["checked"] != VIDEO_SEQUENCES):
+            raise AssertionError(f"test_video compiled: {results}; graphs {bodies}, device "
+                                 f"launches {video_run['device']}, {video_run['checked']} calls "
+                                 "held to eager")
+
+        def without_seconds(rows):
+            return [{k: v for k, v in r.items() if k != "seconds"} for r in rows]
+
+        if without_seconds(written) != without_seconds(runs["eager"][1]):
+            raise AssertionError(f"test_video: the compiled video_eval.json {written} differs "
+                                 f"from the eager one {runs['eager'][1]}")
         sec = {k: sum(r["seconds"][k] for r in results) for k in test_video.STAGES}
+        forward_s = {name: [r["seconds"]["forward"] for r in runs[name][0]] for name in runs}
         parts.append(f"test_video on its snapshot ({VIDEO_SEQUENCES} sequences of {t.num_steps} "
                      f"frames, grid {grid}, {video_s:.1f} s with set-up): seconds "
                      + " / ".join(f"{k} {v:.3f}" for k, v in sec.items())
-                     + "; IoU " + ", ".join(f"{r['mean_iou']:.4f}" for r in results)
+                     + "; forward s a sequence (host clock to the labels' fetch) compiled "
+                     + ", ".join(f"{x:.4f}" for x in forward_s["compiled"])
+                     + " (the first its eager run and capture), eager "
+                     + ", ".join(f"{x:.4f}" for x in forward_s["eager"])
+                     + f"; one graph, {video_run['checked']} calls equal to the eager body bit "
+                     f"for bit, launches on the device {video_run['device']}; video_eval.json "
+                     "equal to the eager run's but for the seconds; IoU "
+                     + ", ".join(f"{r['mean_iou']:.4f}" for r in results)
                      + "; surface points " + ", ".join(str(r["surface_points"]) for r in results)
                      + "; tracked motion m " + ", ".join(
                          "/".join(f"{x:.4f}" for x in r["tracked_motion_m"]) for r in results))
@@ -3162,7 +3289,8 @@ def phase_seg_video(device, card):
         raise AssertionError(f"phase 12 launched a vote kernel: {launches}")
     print(f"phase 12 segmentation, video and fusion on {card}: " + " | ".join(parts)
           + f" | vote kernel launches {launches}", flush=True)
-    return launches
+    families["test_video"] = bodies[0]
+    return launches, families
 
 
 def gan_card_vs_cpu(device):
@@ -3208,7 +3336,8 @@ def gan_card_vs_cpu(device):
         state = create_gan_train_state(cfg, m, d)
         step = make_gan_train_step(cfg, m, d, *(torch.from_numpy(a).to(dev).double() for a in (
             lib.points[:, :32], lib.extents, lib.symmetry)), keep_prob=1.0)
-        metrics = step(state, {key: v.to(dev) for key, v in batch.items()})
+        # the eager twin: compile_step holds fp32 metrics, this step's are fp64
+        metrics = step.eager(state, {key: v.to(dev) for key, v in batch.items()})
         grads = {f"{side}.{name}": p.grad.cpu() for side, mod in (("g", m), ("d", d))
                  for name, p in mod.named_parameters()}
         runs.append(({key: float(v) for key, v in metrics.items()}, grads))
@@ -3259,9 +3388,11 @@ def switched_steps(tr, steps, want):
 
 
 def phase_switches_gan(device, card):
-    """Phase 13: the GAN step at full width, the switched posecnn yamls on
-    fabricated trees, the evaluation of a switched snapshot and the
-    inspection CLIs. Returns the kernels' launches in that test_net run."""
+    """Phase 13: the GAN step at full width, eager and compiled (held to
+    eager by the equality gate), the switched posecnn yamls on fabricated
+    trees, the evaluation of a switched snapshot and the inspection CLIs.
+    Returns (the kernels' launches in that test_net run, the CUDA kernels'
+    launches a replay of the compiled GAN step, all 0)."""
     import contextlib
     import io
     import tempfile
@@ -3284,38 +3415,45 @@ def phase_switches_gan(device, card):
     setup_s = time.perf_counter() - t0
     t, step, state = tr.cfg.train, finite_check(tr.step), tr.state
     try:
-        batches = [next(tr.batches) for _ in range(GAN_STEPS)]
+        batches = [next(tr.batches) for _ in range(max(GAN_STEPS, GATE_STEPS))]
     finally:
         tr.batches.close()
     for key in hk.LAUNCHES:
         hk.LAUNCHES[key] = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # the step eager, split by CUDA events
     split, metrics = [], []
-    for batch in batches:
+    for batch in batches[:GAN_STEPS]:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
-        total, m = step.forward(state, batch)
+        total, m, fake = step.forward(state, batch)
         ev[1].record()
         step.backward(total)
         ev[2].record()
         m["lr"] = step.update(state)
         ev[3].record()
-        m["loss_d"] = step.discriminator(state, batch)
+        m["loss_d"] = step.discriminator(state, batch, fake)
         ev[4].record()
         torch.cuda.synchronize()
         split.append([ev[j].elapsed_time(ev[j + 1]) for j in range(4)])
         metrics.append({name: float(v) for name, v in m.items()})
+    # a live eager graph keeps the parameters' AccumulateGrad nodes on this
+    # stream, which the compiled step's capture cannot depend on
+    del total, fake
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     gan_launches = dict(hk.LAUNCHES)
     want = {"loss", "loss_cls", "loss_vertex", "loss_g_adv", "loss_d", "lr"}
     if any(gan_launches.values()) or not all(set(m) == want and np.isfinite(
             list(m.values())).all() for m in metrics):
         raise AssertionError(f"GAN steps: launches {gan_launches}, metrics {metrics}")
+    # the eager step: the compiled one's first call would capture under the counter
     with FlopCounterMode(display=False) as counter:
-        step(state, batches[-1])
+        step.eager(state, batches[GAN_STEPS - 1])
     flops = counter.get_total_flops()
     steady = np.mean(split[1:], 0)
+    # the compiled step as train_net runs it: both updates in one graph
+    compiled = compiled_family(tr, batches, GAN_STEPS, "phase 13 GAN")
     loss_rel, grad_rel = gan_card_vs_cpu(device)
     parts.append(
         f"GAN step on {GAN_CFG}.yaml ({t.num_classes} classes, {t.syn_height}x{t.syn_width}, "
@@ -3331,9 +3469,10 @@ def phase_switches_gan(device, card):
         f"MFU {100 * flops / (steady.sum() / 1e3) / PEAK_BF16_FLOPS:.2f}% of 989 TFLOP/s bf16; "
         f"loss_d {', '.join(f'{m['loss_d']:.4f}' for m in metrics)}, loss_g_adv "
         f"{', '.join(f'{m['loss_g_adv']:.4g}' for m in metrics)}, every loss and gradient "
-        f"finite (utils/debug.finite_check), vote launches {gan_launches}; a small fp64 GAN "
-        f"step on the card == the CPU (losses within {loss_rel:.2e} relative, gradients within "
-        f"{grad_rel:.2e} of their largest entry)")
+        f"finite (utils/debug.finite_check), vote launches {gan_launches}; "
+        + describe_compiled(compiled, t.ims_per_batch, steady.sum())
+        + f"; a small fp64 GAN step on the card == the CPU (losses within {loss_rel:.2e} "
+        f"relative, gradients within {grad_rel:.2e} of their largest entry)")
     del tr, step, state, batches
     torch.cuda.empty_cache()
 
@@ -3462,7 +3601,7 @@ def phase_switches_gan(device, card):
                     f"frames at 480x640, LINEMOD's indexes and extents) in {fab_s:.1f} s")
     print(f"phase 13 head switches, GAN step and inspection CLIs on {card}: {fab_line} | "
           + " | ".join(parts), flush=True)
-    return launches
+    return launches, {"gan": compiled["per_replay"]}
 
 
 def textured_generator(cfg, seed, native=True):
@@ -4443,8 +4582,8 @@ def main() -> int:
     eval_launches, cli_bodies["test_net"] = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
     demo_launches, cli_bodies["demo"], det = phase_det_demo(card)
-    seg_launches = phase_seg_video(device, card)
-    switch_launches = phase_switches_gan(device, card)
+    seg_launches, seg_replays = phase_seg_video(device, card)
+    switch_launches, gan_replays = phase_switches_gan(device, card)
     slice11_launches = phase_slice11(card, native_s)
     dp_launches = phase_data_parallel(card)
     entry_launches, entry_per_body = phase_entry_bench(card)
@@ -4455,6 +4594,9 @@ def main() -> int:
     # test_net run (phase 9, recorded) and of phase 10's training steps and
     # test_net run, each counted from 0
     launches["tile"] = runs["exhaustive"]["tile"]
+    # phases 12-13: each compiled family step's and test_video's launches a
+    # replay (counted on the device, all 0)
+    families = {**seg_replays, **gan_replays}
 
     replaces = {"tile": "posecnn_tpu/ops/hough_pallas.py:39",
                 "flat": "posecnn_tpu/ops/hough_pallas.py:191",
@@ -4478,7 +4620,8 @@ def main() -> int:
          "phase17_at_tunings": p17_tunings[k],
          "per_replayed_train_step": train["per_replayed_step"][k],
          "train_gate_per_replay": {name: train[name]["launches_per_replay"][k]
-                                   for name in ("flagship_gate", "momentum_gate")}}
+                                   for name in ("flagship_gate", "momentum_gate")},
+         "per_replayed_family_program": {name: counts[k] for name, counts in families.items()}}
         for k in ("tile", "flat", "window")
     ] + [
         {"name": SCAN_KERNEL, "route": "cuda", "source": "posecnn_torch/csrc/nms_scan.cu",
@@ -4491,7 +4634,8 @@ def main() -> int:
                         "bound_by")},
          **{k: det[k] for k in ("per_replayed_step", "gate_per_replay", "rpn_max_abs_err",
                                 "test_net_launches", "per_test_net_frame",
-                                "per_captured_det_infer")}}
+                                "per_captured_det_infer")},
+         "per_replayed_family_program": {name: counts["scan"] for name, counts in families.items()}}
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

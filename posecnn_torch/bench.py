@@ -376,12 +376,15 @@ def compiled_steps(step, state, batch: dict, n: int) -> torch.Tensor:
 
 
 def snapshot(step, state):
-    """A restore() that puts the model's parameters and buffers, the
-    optimizer's state tensors and count, and the global step (which seeds
-    the dropout streams) back to what they are now, in place: each tensor
-    keeps its address, which a compiled step's graph reads (an optimizer's
-    `load_state_dict` would put new tensors in its state)."""
-    tensors = [*step.model.state_dict(keep_vars=True).values(), *state.opt.state_tensors()]
+    """A restore() that puts the parameters and buffers of the modules the
+    step trains (the GAN's discriminator too), every optimizer's state
+    tensors (the discriminator's Adam too), the optimizer's count and the
+    global step (which seeds the dropout streams) back to what they are
+    now, in place: each tensor keeps its address, which a compiled step's
+    graph reads (an optimizer's `load_state_dict` would put new tensors in
+    its state)."""
+    tensors = [*(t for m in step.models() for t in m.state_dict(keep_vars=True).values()),
+               *state.state_tensors()]
     saved = [t.detach().clone() for t in tensors]
     count, at = state.opt.count, state.step
 

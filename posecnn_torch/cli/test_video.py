@@ -15,7 +15,11 @@ library of `train.num_classes` classes, f = 500 px at
 `train.syn_height` × `train.syn_width`), or with `--dataset <registered
 name>` `get_real_video_minibatch` sequences of the image set's frames at
 their size times `test.scales_base`. The model runs in fp32, as the JAX
-CLI builds it.
+CLI builds it. Its forward is compiled (`video_labels` through
+`utils/graph.compile_static`, the counterpart of the JAX CLI's
+`jax.jit(model.apply)`): on a card one CUDA graph per sequence signature,
+its labels fetched before the next call; with `--device cpu` it runs
+eagerly. Fusion, tracking and extraction run eagerly.
 
 Writes `<output>/video_eval.json`: per sequence the mean IoU, the surface
 point count and the tracked motion of each frame (metres), the JAX CLI's
@@ -27,6 +31,7 @@ from __future__ import annotations
 import json
 import os
 import time
+from functools import partial
 
 import numpy as np
 import torch
@@ -42,9 +47,17 @@ from posecnn_torch.engine.evaluate import fast_hist, iou_from_hist
 from posecnn_torch.models.posecnn import init_weights
 from posecnn_torch.models.recurrent import RecurrentSegNet
 from posecnn_torch.refine.fusion import create_volume, extract_surface, fuse_frame, track_camera
+from posecnn_torch.utils.graph import compile_static
 
 STAGES = ("render", "forward", "fuse", "track", "extract")
 EYE34 = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
+
+
+def video_labels(model: RecurrentSegNet, frames: torch.Tensor, depths: torch.Tensor,
+                 metas: torch.Tensor) -> torch.Tensor:
+    """The recurrent net's labels (T, B, H, W) of a sequence: the program
+    `main` compiles."""
+    return model(frames, depths, metas)[1]
 
 
 def make_parser():
@@ -112,6 +125,7 @@ def main(argv=None):
     if args.ckpt:
         restore_params(args.ckpt, model)
     model = model.to(device).eval()
+    forward = compile_static(partial(video_labels, model))
 
     os.makedirs(args.output, exist_ok=True)
     eye = torch.from_numpy(EYE34).to(device)
@@ -128,7 +142,8 @@ def main(argv=None):
         blobs = [torch.from_numpy(np.ascontiguousarray(seq[key])).to(device)
                  for key in ("image", "depth", "meta")]
         with torch.no_grad():
-            _, labels, _ = model(*blobs)
+            # the graph's output: read (fetched, fused) before the next call overwrites it
+            labels = forward(*blobs)
         labels_pred = labels[:, 0].cpu().numpy()
         sec["forward"] = time.perf_counter() - t0
         gt = seq["label"][:, 0]

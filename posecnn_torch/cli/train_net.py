@@ -29,17 +29,20 @@ NORMAL). Every `display` iterations a line goes to stdout and
 `<output>/metrics.jsonl`; snapshots in the JAX `.npz` layout go to
 `<output>` every `snapshot_iters` and at the end.
 
-The posecnn and detection families' steps are compiled, as the JAX
-trainers' are jitted (`engine/train.CompiledTrainStep`,
-`CompiledDetTrainStep`; no flag): on a card each batch signature's first
-step runs eagerly and captures a CUDA graph of the forward, backward and
-update, which every later step replays (the detection step's RPN NMS on
-the device scan inside it); with `--device cpu` the step runs eagerly.
-The data-parallel step (`--num_data` > 1) and the GAN, segmentation and
-video steps run eagerly.
+Every family's step is compiled, as the JAX trainers' are jitted
+(`engine/train.CompiledTrainStep`, `CompiledDetTrainStep`,
+`CompiledSegTrainStep`, `CompiledVideoTrainStep`, `CompiledGanTrainStep`;
+no flag): on a card each batch signature's first step runs eagerly and
+captures a CUDA graph of the forward, backward and update (the GAN's
+both updates, the detection step's RPN NMS on the device scan), which
+every later step replays; with `--device cpu` the step runs eagerly. The
+data-parallel steps (`--num_data` > 1) run eagerly.
 
 `--ckpt` (or `--resume`, the newest snapshot under `--output`) restores
-the parameters and the step; `fastforward_opt_counts` sets the fresh
+the parameters and the step before the step is built, so the first
+capture reads them where they stay (`fastforward_opt_counts` writes in
+place, and the discriminator's Adam is made fresh after the restore);
+`fastforward_opt_counts` sets the fresh
 optimizer's update count (and Adam's `step`) to that step, so the
 staircase follows the global step. The moments start at zero. (The JAX
 CLI instead keeps the count at 0 and offsets the schedule by

@@ -26,17 +26,19 @@ none). Dropout streams come from (seed, step), as
 `jax.random.fold_in(PRNGKey(seed), step)` gives the JAX step its key.
 The inputs are COLOR, DEPTH or NORMAL blobs in `data`, or RGBD's colour
 in `data` and depth in `data_p`. `TrainStep` runs eagerly, one launch at
-a time. `make_train_step` gives the posecnn family `CompiledTrainStep`
-and `make_det_train_step` the detection family `CompiledDetTrainStep`,
-each the counterpart of its JAX step's `jax.jit(step_fn,
-donate_argnums=(0,))`: on a card its call is one CUDA graph per batch
-signature (`CompiledStep`, `utils/graph.compile_step`) holding forward,
-backward, update and the metrics; on the CPU it runs the same body
-eagerly. The data-parallel step (a mesh of several ranks) stays eager:
-its gloo collectives cannot be captured, and its `max_pose_rois` cap
-keeps a data-dependent number of rows (`torch.nonzero`,
-`models/posecnn.global_pose_row_cap`). The GAN, segmentation and video
-steps are eager.
+a time (`eager`). Every family's `make_*_train_step` gives its compiled
+step, the counterpart of its JAX step's `jax.jit(step_fn,
+donate_argnums=(0,))`: `CompiledTrainStep` (posecnn),
+`CompiledDetTrainStep` (detection), `CompiledSegTrainStep` (fcn8,
+resnet50_seg), `CompiledVideoTrainStep` (recurrent_seg) and
+`CompiledGanTrainStep` (the GAN, both updates in one program, as JAX
+fuses them). On a card its call is one CUDA graph per batch signature
+(`CompiledStep`, `utils/graph.compile_step`) holding forward, backward,
+update and the metrics; on the CPU it runs the same body eagerly. The
+data-parallel steps (the posecnn and GAN steps with a mesh of several
+ranks) stay eager: their gloo collectives cannot be captured, and the
+posecnn step's `max_pose_rois` cap keeps a data-dependent number of rows
+(`torch.nonzero`, `models/posecnn.global_pose_row_cap`).
 
 The detection step (`DetTrainStep`) is train_net_det's: the
 `models.detection.detection_losses` terms with the ADD pose term, on one
@@ -64,8 +66,8 @@ PoseCNN as a generator against a `models.gan.FeatureDiscriminator` on
 plus `gan_weight · E softplus(−D(fake))` under the cfg's optimizer; then
 the discriminator's takes `gan_losses` of the real (the vertex targets)
 and the detached fake maps under a constant-rate Adam (optax.adam: no
-decay, no clip), both scored by the discriminator as it was before the
-step.
+decay, no clip; fused and capturable on a card), both scored by the
+discriminator as it was before the step.
 
 The posecnn loop hands off when the host's resident memory passes
 `train.max_host_rss_gb`: at a display iteration it snapshots and returns,
@@ -254,7 +256,7 @@ class Optimizer:
         writes (Adam's made now where no update has made them yet)."""
         if self.trace is not None:
             return list(self.trace)
-        return [t for p in self.params for t in _adam_state(self.opt, p).values()]
+        return adam_state_tensors(self.opt)
 
     def apply(self) -> None:
         """The update's device work, at the rate `prepare` set."""
@@ -325,6 +327,13 @@ def _adam_state(adam: torch.optim.Adam, p: torch.Tensor) -> dict:
     return state
 
 
+def adam_state_tensors(adam: torch.optim.Adam) -> list[torch.Tensor]:
+    """Every tensor of `adam`'s state, parameter by parameter, at the
+    address its update writes (made now where no update has made them)."""
+    return [t for group in adam.param_groups for p in group["params"]
+            for t in _adam_state(adam, p).values()]
+
+
 def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
     """Set the optimizer's update count, which the schedule reads, and
     every parameter's `step` in the `torch.optim` state to `step`
@@ -355,6 +364,11 @@ class TrainState:
 
     opt: Optimizer
     step: int = 0
+
+    def state_tensors(self) -> list[torch.Tensor]:
+        """Every tensor of the optimizers' state, at the address an update
+        writes."""
+        return self.opt.state_tensors()
 
 
 def create_train_state(cfg: Config, model: torch.nn.Module,
@@ -524,9 +538,9 @@ def step_losses(cfg: Config, model, points, extents, symmetry, batch: dict,
 
 class TrainStep:
     """One training step: `forward` (losses), `backward`, `update`;
-    calling it runs the three and returns the metrics (tensors on the
-    device, plus `lr`), one launch at a time. With a `mesh` it is one
-    rank's part of the data-parallel step: `backward` also sums the
+    calling it (`eager`) runs the three and returns the metrics (tensors
+    on the device, plus `lr`), one launch at a time. With a `mesh` it is
+    one rank's part of the data-parallel step: `backward` also sums the
     gradients over the data group (`parallel/mesh.reduce_gradients`)."""
 
     # train_loop's host-RSS handoff: the posecnn step's alone, as in JAX
@@ -545,6 +559,10 @@ class TrainStep:
     @property
     def data_rank(self) -> int:
         return self.mesh.data_index if self.mesh is not None else 0
+
+    def models(self) -> tuple:
+        """The modules the step trains, the model first."""
+        return (self.model,)
 
     def forward(self, state: TrainState, batch: dict):
         """(total loss, metrics) of `batch` at the state's step."""
@@ -573,6 +591,10 @@ class TrainStep:
         return lr
 
     def __call__(self, state: TrainState, batch: dict) -> dict:
+        return self.eager(state, batch)
+
+    def eager(self, state: TrainState, batch: dict) -> dict:
+        """The step, one launch at a time (a compiled step's eager twin)."""
         total, metrics = self.forward(state, batch)
         self.backward(total)
         metrics["lr"] = self.update(state)
@@ -587,20 +609,24 @@ def _posecnn_losses(cfg: Config, model, points, extents, symmetry, keep_prob: fl
                        keep_prob=keep_prob)
 
 
-def _compiled_body(losses: Callable, model, carry: Optional[torch.Tensor], batch: dict,
-                   opt: Optimizer, *static) -> dict:
+def _compiled_body(losses: Callable, model, carry: Optional[torch.Tensor],
+                   tail: Optional[Callable], batch: dict, opts: tuple, *static) -> dict:
     """The device work of one step, which `CompiledStep` captures: the
-    family's losses (`losses(batch, *static)` → (total, metrics)), the
-    backward, the update at the rate the host set, the metrics. With
-    `carry` the step reads data + carry·1e-20 and writes its loss into
-    carry. A function, not a method, so that what the compiled step keeps
-    holds no reference back to the step."""
+    family's losses (`losses(batch, *static)` → (total, metrics, *aux)),
+    the backward, the update of `opts[0]` at the rate the host set, the
+    family's `tail` where it has one (the GAN's discriminator update,
+    `tail(batch, *aux, *opts[1:])` → its metrics, which join the step's),
+    the metrics. With `carry` the step reads data + carry·1e-20 and writes
+    its loss into carry. A function, not a method, so that what the
+    compiled step keeps holds no reference back to the step."""
     if carry is not None:
         batch = {**batch, "data": batch["data"] + carry * 1e-20}
-    total, metrics = losses(batch, *static)
+    total, metrics, *aux = losses(batch, *static)
     model.zero_grad(set_to_none=True)
     total.backward()
-    opt.apply()
+    opts[0].apply()
+    if tail is not None:
+        metrics.update(tail(batch, *aux, *opts[1:]))
     if carry is not None:
         carry.copy_(metrics["loss"])
     return metrics
@@ -611,7 +637,7 @@ class CompiledStep:
     donate_argnums=(0,))`: calling it on a card runs forward, backward,
     update and the metrics as one CUDA graph per batch signature
     (`utils/graph.compile_step`: the batch's keys, shapes and dtypes, the
-    optimizer, and the family's `static(state)`). The first call of a
+    optimizers, and the family's `static(state)`). The first call of a
     signature is its batch's real step, run eagerly; later calls copy the
     batch in and replay. Before each call the host seeds the family's
     persistent generators, which every graph registers, with
@@ -623,45 +649,53 @@ class CompiledStep:
 
     A family mixes this into its eager step class and calls `_compile`
     with its losses on the persistent generators: a function of (batch,
-    *static) that holds no reference to the step. After a call each
-    parameter's `.grad` is the gradient its update used (conditioned in
-    place), as after the eager step: the graph's gradient tensors after a
-    replay, the eager step's after a signature's first call. The eager
-    step's `forward`, `backward` and `update` may be called between
-    replays: they read and write the same parameters and optimizer state,
-    and a replay reads those at their addresses; `TrainStep.__call__(step,
-    state, batch)` is the eager step. With `feedback` the body reads data
-    + `carry`·1e-20 and writes its loss into the device scalar `carry`: the
-    benches' chain of data-dependent steps."""
+    *static) that holds no reference to the step; a family with a second
+    update (the GAN's discriminator) also passes its `tail` and names its
+    optimizer in `optimizers(state)`. After a call each parameter of
+    `models()` has as `.grad` the gradient its update used (the model's
+    conditioned in place), as after the eager step: the graph's gradient
+    tensors after a replay, the eager step's after a signature's first
+    call. The eager step's `forward`, `backward` and `update` may be
+    called between replays: they read and write the same parameters and
+    optimizer state, and a replay reads those at their addresses;
+    `step.eager(state, batch)` is the eager step. With `feedback` the body
+    reads data + `carry`·1e-20 and writes its loss into the device scalar
+    `carry`: the benches' chain of data-dependent steps."""
 
     def _compile(self, losses: Callable, generators: Sequence[torch.Generator], device, *,
-                 feedback: bool = False) -> None:
-        model = self.model
+                 tail: Optional[Callable] = None, feedback: bool = False) -> None:
+        modules = self.models()
         self.generators = list(generators)
         self.carry = torch.zeros((), dtype=torch.float32, device=device) if feedback else None
-        params, held = list(model.parameters()), {}
+        params, held = [p for m in modules for p in m.parameters()], {}
 
         def drop_gradients():  # before a capture: its backward allocates the graph's own
             held["eager"] = [p.grad for p in params]
-            model.zero_grad(set_to_none=True)
+            for m in modules:
+                m.zero_grad(set_to_none=True)
 
         self._params, self._held, self._graph_grads = params, held, {}
-        self.compiled = compile_step(partial(_compiled_body, losses, model, self.carry),
+        self.compiled = compile_step(partial(_compiled_body, losses, modules[0], self.carry, tail),
                                      generators=self.generators, before_capture=drop_gradients)
 
     def noise_seeds(self, state: TrainState) -> list[int]:
         """The seeds of the generators for the state's step."""
-        raise NotImplementedError
+        return []
 
     def static(self, state: TrainState) -> tuple:
         """The losses' arguments after the batch, which the signature holds."""
         return ()
 
+    def optimizers(self, state: TrainState) -> tuple:
+        """The optimizers the body updates: the state's first, then the
+        tail's."""
+        return (state.opt,)
+
     def __call__(self, state: TrainState, batch: dict) -> dict:
         for g, seed in zip(self.generators, self.noise_seeds(state)):
             g.manual_seed(seed)
         lr = state.opt.prepare()
-        metrics = self.compiled(batch, state.opt, *self.static(state))
+        metrics = self.compiled(batch, self.optimizers(state), *self.static(state))
         program = self.compiled.last
         if program is not None:
             grads = self._graph_grads.get(program)
@@ -718,13 +752,19 @@ class GanTrainState(TrainState):
 
     d_opt: Optional[torch.optim.Optimizer] = None
 
+    def state_tensors(self) -> list[torch.Tensor]:
+        return [*self.opt.state_tensors(), *adam_state_tensors(self.d_opt)]
+
 
 def discriminator_optimizer(cfg: Config, disc: torch.nn.Module) -> torch.optim.Adam:
     """optax.adam(learning_rate) over the discriminator: a constant rate,
-    no decay, no clip (`engine/train.py:513`)."""
+    no decay, no clip (`engine/train.py:513`); on a card fused and
+    capturable (its `step` on the device), as the compiled GAN step's
+    graph needs it and the eager step uses it too."""
     d_params = list(disc.parameters())
+    on_card = d_params[0].is_cuda
     return torch.optim.Adam(d_params, lr=cfg.train.learning_rate, betas=(ADAM_B1, ADAM_B2),
-                            eps=ADAM_EPS, fused=d_params[0].is_cuda)
+                            eps=ADAM_EPS, fused=on_card, capturable=on_card)
 
 
 def create_gan_train_state(cfg: Config, model: torch.nn.Module,
@@ -740,15 +780,65 @@ def discriminator_input(vertex_map: torch.Tensor, data: torch.Tensor) -> torch.T
     return torch.cat([255.0 * vertex_map, data], dim=-1)
 
 
+def _global_mean(local_mean: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """A mean over this rank's images as its share of the mean over the
+    global batch: the ranks' batches are equal, so 1/N of it."""
+    return local_mean if loss_reduce(mesh) is None else local_mean / mesh.data_size
+
+
+def _gan_metric(value: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    reduce = loss_reduce(mesh)
+    return value.detach() if reduce is None else reduce(value.detach())
+
+
+def _gan_losses(cfg: Config, model, disc, points, extents, symmetry, keep_prob: float,
+                mesh: Optional[Mesh], generators: Sequence[torch.Generator], batch: dict):
+    """(the generator's loss, metrics, the detached vertex map) of the GAN
+    step: the task losses on the raw class points, as the JAX step passes
+    them, plus `gan_weight` times the non-saturating adversarial term of
+    the discriminator as it is, which takes no weight gradient."""
+    batch = decompress_feed(batch, cfg)
+    out = model.train_forward(batch["data"], extents, batch["meta"], batch["gt_poses"],
+                              batch.get("gt_valid"), data_p=batch.get("data_p"),
+                              keep_prob=keep_prob, generators=generators, mesh=mesh)
+    total, metrics = _compose_losses_from_outputs(out, batch, cfg, points, extents, symmetry,
+                                                  loss_reduce(mesh))
+    disc.requires_grad_(False)
+    fake_logits = disc(discriminator_input(out.vertex_pred, batch["data"]))
+    disc.requires_grad_(True)
+    g_adv = _global_mean(torch.nn.functional.softplus(-fake_logits).mean(), mesh)
+    metrics["loss_g_adv"] = _gan_metric(g_adv, mesh)
+    return total + cfg.train.gan_weight * g_adv, metrics, out.vertex_pred.detach()
+
+
+def _discriminator_update(cfg: Config, disc, mesh: Optional[Mesh], batch: dict,
+                          fake: torch.Tensor, d_opt: torch.optim.Optimizer) -> dict:
+    """The discriminator's update on `batch`'s real vertex maps and the
+    fake ones: {"loss_d": its loss} (over the global batch with a mesh,
+    whose data group sums the gradients)."""
+    batch = decompress_feed(batch, cfg)
+    real, _ = vertex_targets(batch, cfg)
+    real_logits = disc(discriminator_input(real, batch["data"]))
+    fake_logits = disc(discriminator_input(fake, batch["data"]))
+    d_loss = _global_mean(gan_losses(real_logits, fake_logits)[0], mesh)
+    d_opt.zero_grad(set_to_none=True)
+    d_loss.backward()
+    if mesh is not None:
+        reduce_gradients(list(disc.parameters()), mesh)
+    d_opt.step()
+    return {"loss_d": _gan_metric(d_loss, mesh)}
+
+
 class GanTrainStep(TrainStep):
     """One adversarial vertex-map step (`make_gan_train_step`,
-    `engine/train.py:485-577`): `forward` gives the generator's loss (the
-    task losses on the raw class points, as the JAX step passes them, plus
-    `gan_weight` times the non-saturating adversarial term), `backward`
-    and `update` move the generator, and `discriminator` moves the
-    discriminator on the real and the detached fake maps. Both sides see
-    the discriminator as it was before the step. Metrics: the task terms,
-    `loss_g_adv`, `loss_d`, `lr`."""
+    `engine/train.py:485-577`), eager: `forward` gives the generator's
+    loss, its metrics and the detached vertex map (`_gan_losses`),
+    `backward` and `update` move the generator, and `discriminator` moves
+    the discriminator on the real and that fake map. Both sides see the
+    discriminator as it was before the step. Metrics: the task terms,
+    `loss_g_adv`, `loss_d`, `lr`. The data-parallel GAN step (a mesh of
+    several ranks) is this one; `CompiledGanTrainStep` is the step on one
+    card."""
 
     host_rss_handoff = False
 
@@ -756,68 +846,68 @@ class GanTrainStep(TrainStep):
                  keep_prob: float = 0.5, mesh: Optional[Mesh] = None):
         super().__init__(cfg, model, points, extents, symmetry, keep_prob=keep_prob, mesh=mesh)
         self.disc = disc
-        self.fake = None  # the last forward's vertex map, for the discriminator
 
-    def _global_mean(self, local_mean: torch.Tensor) -> torch.Tensor:
-        """A mean over this rank's images as its share of the mean over the
-        global batch: the ranks' batches are equal, so 1/N of it."""
-        return local_mean if loss_reduce(self.mesh) is None else local_mean / self.mesh.data_size
-
-    def _metric(self, value: torch.Tensor) -> torch.Tensor:
-        reduce = loss_reduce(self.mesh)
-        return value.detach() if reduce is None else reduce(value.detach())
+    def models(self) -> tuple:
+        return (self.model, self.disc)
 
     def forward(self, state: GanTrainState, batch: dict):
-        cfg = self.cfg
-        batch = decompress_feed(batch, cfg)
-        gens = dropout_generators(cfg.rng_seed, state.step, self.extents.device, self.data_rank)
-        out = self.model.train_forward(batch["data"], self.extents, batch["meta"],
-                                       batch["gt_poses"], batch.get("gt_valid"),
-                                       data_p=batch.get("data_p"), keep_prob=self.keep_prob,
-                                       generators=gens, mesh=self.mesh)
-        total, metrics = _compose_losses_from_outputs(out, batch, cfg, self.points,
-                                                      self.extents, self.symmetry,
-                                                      loss_reduce(self.mesh))
-        # the generator's gradient only: no discriminator weight gradient
-        self.disc.requires_grad_(False)
-        fake_logits = self.disc(discriminator_input(out.vertex_pred, batch["data"]))
-        self.disc.requires_grad_(True)
-        g_adv = self._global_mean(torch.nn.functional.softplus(-fake_logits).mean())
-        metrics["loss_g_adv"] = self._metric(g_adv)
-        self.fake = out.vertex_pred.detach()
-        return total + cfg.train.gan_weight * g_adv, metrics
+        gens = dropout_generators(self.cfg.rng_seed, state.step, self.extents.device,
+                                  self.data_rank)
+        return _gan_losses(self.cfg, self.model, self.disc, self.points, self.extents,
+                           self.symmetry, self.keep_prob, self.mesh, gens, batch)
 
-    def discriminator(self, state: GanTrainState, batch: dict) -> torch.Tensor:
-        """The discriminator's update on `batch` and the last forward's
-        vertex map; returns its loss (over the global batch with a mesh,
-        whose data group sums the gradients)."""
-        batch = decompress_feed(batch, self.cfg)
-        real, _ = vertex_targets(batch, self.cfg)
-        real_logits = self.disc(discriminator_input(real, batch["data"]))
-        fake_logits = self.disc(discriminator_input(self.fake, batch["data"]))
-        d_loss = self._global_mean(gan_losses(real_logits, fake_logits)[0])
-        state.d_opt.zero_grad(set_to_none=True)
-        d_loss.backward()
-        if self.mesh is not None:
-            reduce_gradients(list(self.disc.parameters()), self.mesh)
-        state.d_opt.step()
-        self.fake = None
-        return self._metric(d_loss)
+    def discriminator(self, state: GanTrainState, batch: dict, fake: torch.Tensor):
+        """The discriminator's update on `batch` and `forward`'s vertex
+        map; returns its loss."""
+        return _discriminator_update(self.cfg, self.disc, self.mesh, batch, fake,
+                                     state.d_opt)["loss_d"]
 
-    def __call__(self, state: GanTrainState, batch: dict) -> dict:
-        total, metrics = self.forward(state, batch)
+    def eager(self, state: GanTrainState, batch: dict) -> dict:
+        total, metrics, fake = self.forward(state, batch)
         self.backward(total)
         lr = self.update(state)
-        metrics["loss_d"] = self.discriminator(state, batch)
+        metrics["loss_d"] = self.discriminator(state, batch, fake)
         metrics["lr"] = lr
         return metrics
 
 
+class CompiledGanTrainStep(CompiledStep, GanTrainStep):
+    """The GAN step compiled (`CompiledStep`; JAX fuses both updates into
+    one `jax.jit(step_fn, donate_argnums=(0,))`,
+    `posecnn_tpu/engine/train.py:485-577`): one graph holds the
+    generator's forward on the five dropout streams (seeded with
+    `dropout_seeds`, as `CompiledTrainStep` seeds them), the adversarial
+    term, the backward and the generator's update, then as the tail the
+    discriminator's real and fake passes, its backward and its Adam
+    update, and the metrics. No mesh."""
+
+    def __init__(self, cfg: Config, model, disc, points, extents, symmetry, *,
+                 keep_prob: float = 0.5):
+        GanTrainStep.__init__(self, cfg, model, disc, points, extents, symmetry,
+                              keep_prob=keep_prob)
+        device = extents.device
+        generators = [torch.Generator(device=device) for _ in range(5)]
+        self._compile(partial(_gan_losses, cfg, model, disc, points, extents, symmetry,
+                              keep_prob, None, generators), generators, device,
+                      tail=partial(_discriminator_update, cfg, disc, None))
+
+    def noise_seeds(self, state: TrainState) -> list[int]:
+        return dropout_seeds(self.cfg.rng_seed, state.step)
+
+    def optimizers(self, state: GanTrainState) -> tuple:
+        return (state.opt, state.d_opt)
+
+
 def make_gan_train_step(cfg: Config, model, disc, points, extents, symmetry, *,
                         keep_prob: float = 0.5, mesh: Optional[Mesh] = None) -> GanTrainStep:
+    """The GAN step: compiled (`CompiledGanTrainStep`), or with a mesh of
+    several ranks the eager data-parallel `GanTrainStep`."""
     check_supported(cfg)
-    return GanTrainStep(cfg, model, disc, points, extents, symmetry, keep_prob=keep_prob,
-                        mesh=mesh)
+    if mesh is not None and mesh.grid.size > 1:
+        return GanTrainStep(cfg, model, disc, points, extents, symmetry, keep_prob=keep_prob,
+                            mesh=mesh)
+    return CompiledGanTrainStep(cfg, model, disc, points, extents, symmetry,
+                                keep_prob=keep_prob)
 
 
 def det_noise_seed(seed: int, step: int) -> int:
@@ -962,6 +1052,14 @@ def seg_cross_entropy(log_prob: torch.Tensor, label: torch.Tensor) -> torch.Tens
     return -(picked * inside).sum() / (inside.sum() + 1e-10)
 
 
+def _seg_losses(model, batch: dict):
+    """(loss, metrics) of the segmentation step: the normalised
+    cross-entropy of the model's log-probs on `data` against `label`."""
+    log_prob, _ = model(batch["data"])
+    loss = seg_cross_entropy(log_prob, batch["label"])
+    return loss, {"loss": loss.detach(), "loss_cls": loss.detach()}
+
+
 class SegTrainStep(TrainStep):
     """One segmentation step (`engine/train.py:686-725`): the model's
     log-probs on `data` (B, H, W, 3), the normalised cross-entropy against
@@ -973,14 +1071,24 @@ class SegTrainStep(TrainStep):
         super().__init__(cfg, model, None, None, None)
 
     def forward(self, state: TrainState, batch: dict):
-        log_prob, _ = self.model(batch["data"])
-        loss = seg_cross_entropy(log_prob, batch["label"])
-        return loss, {"loss": loss.detach(), "loss_cls": loss.detach()}
+        return _seg_losses(self.model, batch)
 
 
-def make_seg_train_step(cfg: Config, model) -> SegTrainStep:
+class CompiledSegTrainStep(CompiledStep, SegTrainStep):
+    """The segmentation step compiled (`CompiledStep`; JAX's
+    `make_seg_train_step` returns `jax.jit(step_fn, donate_argnums=(0,))`,
+    `posecnn_tpu/engine/train.py:683-725`): one graph per batch signature,
+    data (B, H, W, 3) and label (B, H, W). No generator: no dropout."""
+
+    def __init__(self, cfg: Config, model):
+        SegTrainStep.__init__(self, cfg, model)
+        self._compile(partial(_seg_losses, model), [], next(model.parameters()).device)
+
+
+def make_seg_train_step(cfg: Config, model) -> CompiledSegTrainStep:
+    """The segmentation step (fcn8, resnet50_seg), compiled."""
     check_supported(cfg)
-    return SegTrainStep(cfg, model)
+    return CompiledSegTrainStep(cfg, model)
 
 
 def compute_video_losses(model, frames, depths, metas, gt_labels):
@@ -994,6 +1102,14 @@ def compute_video_losses(model, frames, depths, metas, gt_labels):
     return loss, {"loss": loss, "per_step": per_step, "labels_pred": labels_pred}
 
 
+def _video_losses(model, batch: dict):
+    """(loss, metrics) of the video step: `compute_video_losses` on a
+    batch of sequences."""
+    loss, _ = compute_video_losses(model, batch["image"], batch["depth"], batch["meta"],
+                                   batch["label"])
+    return loss, {"loss": loss.detach()}
+
+
 class VideoTrainStep(TrainStep):
     """One video step (`engine/train.py:728-757`): `compute_video_losses`
     on a batch of sequences {image, depth, meta, label}, time-major."""
@@ -1004,11 +1120,22 @@ class VideoTrainStep(TrainStep):
         super().__init__(cfg, model, None, None, None)
 
     def forward(self, state: TrainState, batch: dict):
-        loss, _ = compute_video_losses(self.model, batch["image"], batch["depth"],
-                                       batch["meta"], batch["label"])
-        return loss, {"loss": loss.detach()}
+        return _video_losses(self.model, batch)
 
 
-def make_video_train_step(cfg: Config, model) -> VideoTrainStep:
+class CompiledVideoTrainStep(CompiledStep, VideoTrainStep):
+    """The video step compiled (`CompiledStep`; JAX's
+    `make_video_train_step` returns `jax.jit(step_fn,
+    donate_argnums=(0,))`, `posecnn_tpu/engine/train.py:728-757`): one
+    graph per (T, B, H, W) of image / depth / meta / label, the whole
+    unrolled sequence with its backward through time."""
+
+    def __init__(self, cfg: Config, model):
+        VideoTrainStep.__init__(self, cfg, model)
+        self._compile(partial(_video_losses, model), [], next(model.parameters()).device)
+
+
+def make_video_train_step(cfg: Config, model) -> CompiledVideoTrainStep:
+    """The video step (recurrent_seg), compiled."""
     check_supported(cfg)
-    return VideoTrainStep(cfg, model)
+    return CompiledVideoTrainStep(cfg, model)

@@ -112,13 +112,13 @@ def step_once(case: StepCase, device, mesh: Optional[Mesh] = None) -> StepResult
     else:
         step = make_train_step(cfg, model, pts, ext, sym, keep_prob=case.keep_prob, mesh=mesh)
     batch = make_sharded_device_put(mesh, device=device)(case.batch)
-    total, metrics = step.forward(state, batch)
+    total, metrics, *fake = step.forward(state, batch)  # the GAN's forward gives its vertex map
     step.backward(total)
     grads = _cpu({n: p.grad for n, p in model.named_parameters()})
     step.update(state)
     params = _cpu(model.state_dict())
     if disc is not None:
-        metrics["loss_d"] = step.discriminator(state, batch)
+        metrics["loss_d"] = step.discriminator(state, batch, *fake)
         grads.update(_cpu({f"disc.{n}": p.grad for n, p in disc.named_parameters()}))
         params.update({f"disc.{k}": v for k, v in _cpu(disc.state_dict()).items()})
     return StepResult({k: float(v) for k, v in metrics.items()}, grads, params)

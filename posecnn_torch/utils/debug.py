@@ -60,9 +60,9 @@ def finite_check(step):
     forward, backward = step.forward, step.backward
 
     def checked_forward(state, batch):
-        total, metrics = forward(state, batch)
+        total, metrics, *aux = forward(state, batch)  # the GAN's also its vertex map
         require_finite({"loss": total, **metrics})
-        return total, metrics
+        return total, metrics, *aux
 
     def checked_backward(total):
         backward(total)
@@ -72,8 +72,8 @@ def finite_check(step):
     if hasattr(step, "discriminator"):
         discriminator = step.discriminator
 
-        def checked_discriminator(state, batch):
-            d_loss = discriminator(state, batch)
+        def checked_discriminator(state, batch, fake):
+            d_loss = discriminator(state, batch, fake)
             require_finite({"discriminator loss": d_loss, **_gradients(step.disc)})
             return d_loss
 

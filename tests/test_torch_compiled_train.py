@@ -90,8 +90,10 @@ def port_step(kind, lib, cls=None, keep_prob=0.5, state_dict=None, device="cpu")
 
 
 def state_of(step, state):
-    return [t.detach().clone() for t in (*step.model.state_dict().values(),
-                                         *state.opt.state_tensors())]
+    """Every parameter and buffer of the modules the step trains and every
+    optimizer state tensor, copied."""
+    return [t.detach().clone() for t in (
+        *(t for m in step.models() for t in m.state_dict().values()), *state.state_tensors())]
 
 
 @pytest.mark.parametrize("kind", list(KINDS))
@@ -274,12 +276,12 @@ def max_distance(a, b) -> float:
 
 
 def one_step(step, state, batch, eager: bool):
-    """One step (eagerly through `TrainStep.__call__`): (its metrics, each
-    gradient as the update used it, the state after it)."""
-    m = ttrain.TrainStep.__call__(step, state, batch) if eager else step(state, batch)
+    """One step (eagerly through `step.eager`): (its metrics, each gradient
+    of the trained modules as the update used it, the state after it)."""
+    m = step.eager(state, batch) if eager else step(state, batch)
     metrics = [torch.as_tensor(m[k], dtype=torch.float64, device="cpu").reshape(1)
                for k in sorted(m)]
-    grads = [p.grad.detach().clone() for p in step.model.parameters()]
+    grads = [p.grad.detach().clone() for mod in step.models() for p in mod.parameters()]
     return metrics, grads, state_of(step, state)
 
 
