@@ -9,7 +9,8 @@ that fails, with a non-zero exit:
 
   1. the card's name and power limit; build the CUDA kernels, one nvcc a
      source started together (`csrc/hough_vote.cu`, the vote kernels;
-     `csrc/nms_scan.cu`, the NMS scan), and print `ptxas -v`'s registers,
+     `csrc/nms_scan.cu`, the NMS scan; `csrc/kabsch.cu`, the Kabsch
+     rotation), and print `ptxas -v`'s registers,
      shared memory and spills per kernel, with the data-path library
      (`data/native.py`, g++) built beside them;
   2. each kernel against its plain PyTorch version, bit for bit, at the
@@ -83,12 +84,19 @@ that fails, with a non-zero exit:
      device's busy share (profiler), and FLOPs per step
      (FlopCounterMode) with MFU;
   9. the evaluation path at full width (the flagship yaml, seeded random
-     weights): `python -m posecnn_torch.cli.test_net --refine` in process
-     on 8 held-out frames, compiled (the forward one graph, ICP one graph
-     per object count), with images/s and the seconds of render,
-     forward, NMS + extraction, ICP and the evaluator (a run without the
+     weights): `python -m posecnn_torch.cli.test_net --refine --ransac` in
+     process on 8 held-out frames, compiled (the forward one graph, ICP
+     one graph per object count, RANSAC's `estimate_center` one graph at
+     (1024, 64), the evaluator's pose errors one graph per padded row
+     count), with images/s and the seconds of render, forward, NMS +
+     extraction (RANSAC inside), ICP and the evaluator (a run without the
      recording), then again recorded (`compiled_run`): every compiled
-     call (forward and ICP) equal to its eager run bit for bit, each
+     call (forward, ICP, RANSAC centre, pose errors) equal to its eager
+     run bit for bit, none of RANSAC's and the evaluator's graphs
+     launching a CUDA kernel, RANSAC's ms a detection compiled and eager,
+     the pose-error program on random pairs with a z-flip class (padded
+     rows == eager bit for bit, == the unpadded eager body within 1e-6
+     relative), each
      forward's flat and window kernels bit for bit against their plain
      versions on its own packed samples and window origins; `test_icp`'s
      drive at 480×640 with and without the rotation sweep (TE must fall),
@@ -98,7 +106,14 @@ that fails, with a non-zero exit:
      profile of one frame each way (device events, device busy time,
      wall, the host's costliest ops); RANSAC centres of the
      planted scene within 1 px, card against CPU; the evaluator on the
-     card against the CPU on the run's detections;
+     card against the CPU on the run's detections; `estimate_pose_3d` at
+     (4096 points, 256 hypotheses) compiled == eager bit for bit, three
+     Kabsch launches a replay counted on the device, both timed, the pose
+     against the truth and the CPU's; `kabsch_kernel` against its plain
+     version (the SVD on the card) at the program's shapes: R within 1e-4
+     where the singular values stand apart, trace(R·cov) within 1e-5
+     everywhere; its ms as a graph of launches, per call, the plain
+     version's and torch.linalg.svd's, and its bound;
  10. the real-frame family at full width: a YCB-Video tree written to a
      temporary directory in the reference's formats (22 classes, 8 train
      and 4 val frames at 480×640 rendered by the carried generator, PNG
@@ -111,7 +126,13 @@ that fails, with a non-zero exit:
      term reported, flat and window launched once and held bit for bit
      to plain on the step's own Hough inputs and on its batch's GT
      inputs; c2f == exhaustive on an RGBD step; the gradient reversal
-     exact on an adapt step; the matching term's device ms; `--resume`
+     exact on an adapt step; the matching term's device ms; each yaml's
+     step compiled as train_net builds it (`CompiledTrainStep`: a graph
+     per batch signature, captured and replayed) and held by the equality
+     gate over 5 replays across a step of the lr staircase (metrics and
+     the update bit for bit, each gradient within the eager spread or
+     2e-2, one flat and one window launch a replay on the device), the
+     yaml's loss terms among its metrics (`loss_match` for full); `--resume`
      restoring the RGBD snapshot and its step on the staircase, and the
      CLI training on from it; `test_net --dataset lov --refine` on the
      4 val frames with that snapshot and with seeded random weights
@@ -169,9 +190,16 @@ that fails, with a non-zero exit:
      graph, every call held to its eager body bit for bit, no launch on the
      device) and again eager: the seconds of render, forward, fuse, track
      and extract, the forward's seconds each way, IoU, surface points, and
-     `video_eval.json` equal between the two but for the seconds;
-     `test_fusion` at its grid 64, and one `fuse_frame` at grid 512 with 10
-     classes (ms and peak memory). No vote kernel launches in the phase.
+     `video_eval.json` equal between the two but for the seconds, its
+     `fuse_frame` (the volume bound in place) and `track_camera` compiled
+     too, every call held to its eager body; `test_fusion` at its grid 64
+     with its four programs compiled (`fuse_frame`, `raycast`,
+     `track_camera`, `extract_mesh`: every call held to its eager body bit
+     for bit, no launch on the device) and eager, the two reports equal;
+     `fuse_frame`, `raycast` and `track_camera` at grid 512 with 10 classes
+     on a 480×640 frame, compiled against eager on a twin volume (bit for
+     bit, ms a frame each way, peak memory), a call with another volume
+     refused. No vote kernel launches in the phase.
  13. the head switches and the GAN step at full width, with seeded random
      weights: 4 steps of `shapenet_single_single_color_gan.yaml` as written
      (2 classes, 480×640, batch 4, num_units 64, seg + vertex, vertex_w 10,
@@ -235,7 +263,11 @@ that fails, with a non-zero exit:
      --device cpu --iters 2` on a tiny cfg in a subprocess: one
      `metrics.jsonl`, one final snapshot, exit 0; (d) with two cards or more, `train_net --num_data -1` over
      NCCL on the flagship yaml (images/s beside phase 8's one-card step);
-     with one card a line says it did not run.
+     with one card a line says it did not run; (e) `python -m
+     posecnn_torch.bench scaling --ranks 2` in process (JAX's
+     `experiments/bench_scaling.py`: its lines at 1 and 2 ranks, finite,
+     the weak-scaling efficiency, and with one card the last line saying
+     it measured the mechanism, not scaling).
  16. the JAX repository's measurement entry points (`posecnn_torch/entry.py`,
      `bench.py`, `utils/graph.py`, `cli/eval_rotation_oracle.py`): (a)
      `entry()`'s forward (stride 4) and `bench infer`'s (stride 1), bf16 at
@@ -287,8 +319,10 @@ set to 0 just before the run; its times come from a pass without the
 recording where the phase prints them so.
 
 The line before the last is one JSON object with the kernels' results:
-the three vote kernels and the NMS scan, whose `launches` are those of
-phase 11's compiled training run; the last line is {"ok": true, "device":
+the three vote kernels, the NMS scan, whose `launches` are those of
+phase 11's compiled training run, and the Kabsch kernel, whose
+`launches` are those of phase 9's replayed `estimate_pose_3d` (three a
+replay); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device,
 or without the posecnn_torch package beside it, it prints no result
 and exits non-zero.
@@ -358,6 +392,7 @@ COCO_IMAGES, COCO_FRAMES = 8, 4
 # the steps each rank takes; the parity bars of tests/test_torch_parallel.py
 DP_RANKS, DP_STEPS, DP_DLOSS, DP_DPARAM = 2, 3, 1e-5, 1e-6
 DP_RSS_GB = 100  # the flagship recipe's host-RSS limit (experiments/run_r6c.sh)
+SCALING_RANKS = 2  # `bench scaling`'s sizes in phase 15: 1 and 2 ranks
 DP_TOY = ["--set", "train.syn_height=48", "train.syn_width=64", "train.num_classes=4",
           "train.fc_dim=32", "train.num_units=8", "train.ims_per_batch=2",
           "train.vertex_reg_2d=True", "train.pose_reg=True", "train.display=1",
@@ -439,8 +474,9 @@ KERNELS = {"tile": "tile_vote_kernel", "flat": "flat_vote_kernel",
            "window": "window_vote_kernel"}
 # every kernel the launch counts hold (ops/_cuda.KERNELS): the vote kernels
 # and the NMS scan, whose library also builds its packing kernel
-COUNTED = (*KERNELS, "scan")
+COUNTED = (*KERNELS, "scan", "kabsch")
 SCAN_KERNEL, PACK_KERNEL = "nms_scan_kernel", "pack_kill_kernel"
+KABSCH_KERNEL = "kabsch_kernel"  # refine/ransac.py's rotation kernel (csrc/kabsch.cu)
 EDGE_CASES = ("s1", "s37", "s300", "s1100", "inf_depth", "short", "dead", "multi")
 
 
@@ -565,9 +601,16 @@ def scan_case(name):
 
 def exact(got, want):
     """max |got - want| and whether got equals want element for element,
-    NaN where want is NaN (bit for bit but for NaN payloads)."""
+    NaN where want is NaN (bit for bit but for NaN payloads). Equal tensors
+    on one device are told so there, without a copy to the host."""
     import torch
 
+    if got.device == want.device and got.shape == want.shape and got.dtype == want.dtype:
+        same = got == want
+        if got.is_floating_point():
+            same |= torch.isnan(got) & torch.isnan(want)
+        if bool(same.all()):
+            return 0.0, True
     got, want = got.cpu().double(), want.cpu().double()
     same = (got == want) | (torch.isnan(got) & torch.isnan(want))
     if not same.numel():
@@ -626,7 +669,7 @@ def ptxas_lines(report):
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
-            name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL)
+            name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL, KABSCH_KERNEL)
                          if k in m.group(1)), None)
             continue
         if name is None:
@@ -951,7 +994,8 @@ def phase_small_model(device):
           + (", rois/poses_init/poses_pred within 1e-3" if agree == 1.0 else ""), flush=True)
 
 
-FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0}  # a captured forward's (c2f)
+# a captured forward's launches (c2f)
+FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
 # phase 5: requests a counted pass sends (batch 1: the five images in turn;
 # batch 4: twice the batch from as many clients), and requests a timed
 # pass sends, its clients as many as the batch
@@ -1509,11 +1553,11 @@ def live_hough_inputs(step, state, batch, where):
 
 # what one replayed training step launches: the posecnn step its c2f pair,
 # the detection step the RPN's NMS scan
-C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0}
-DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1}
+C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0}
 # a replayed segmentation, video or GAN step's (the GAN yaml builds no
 # pose head, so no Hough), and a replay of test_video's forward
-NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0}
+NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0}
 
 
 def equality_gate(step, state, batches, where, per_replay, prepare=None):
@@ -1952,31 +1996,227 @@ def icp_card_vs_cpu(scene, device, rot_perturb, num_iters):
     return step, share, pose
 
 
+# phase 9 (e): estimate_pose_3d's correspondences and hypotheses (the
+# JAX default hypothesis count at 4096 points: tests/test_torch_ransac.py's
+# scene, scaled), its inlier threshold, and the Kabsch kernel's bars
+# against its plain version (R where the singular values stand apart by
+# 1e-3 of the largest, as tests/test_torch_ransac.py compares R to JAX's;
+# trace(R·cov), which every maximiser attains, on every matrix)
+POSE_POINTS, POSE_HYPOTHESES, POSE_THRESHOLD = 4096, 256, 0.01
+KABSCH_GAP, KABSCH_R_TOL, KABSCH_TRACE_TOL = 1e-3, 1e-4, 1e-5
+
+
+def pose_scene(n, seed=0):
+    """n 3D-3D correspondences of one rigid pose (RandomState(seed)), 2 mm
+    noise, 30% gross outliers: (obj, cam, valid, R, t) as numpy."""
+    from posecnn_torch.utils.quaternion import quat_to_mat_np
+
+    rng = np.random.RandomState(seed)
+    q = rng.randn(4)
+    r = quat_to_mat_np(q / np.linalg.norm(q)).astype(np.float32)
+    t = np.array([0.1, -0.05, 0.9], np.float32)
+    obj = ((rng.rand(n, 3) - 0.5) * 0.2).astype(np.float32)
+    cam = obj @ r.T + t + rng.randn(n, 3).astype(np.float32) * 0.002
+    cam[: n * 3 // 10] += rng.rand(n * 3 // 10, 3).astype(np.float32) * 0.5
+    return obj, cam.astype(np.float32), np.ones(n, bool), r, t
+
+
+def kabsch_bound(sweeps):
+    """The least time of the Kabsch kernel on these inputs: its bytes (each
+    3x3 fp32 matrix read and its rotation written) over the memory rate,
+    against the fp32 operations its sweeps need over the fp32 peak: per
+    matrix the scaling (9), three column-pair tests a sweep (15 each: three
+    3-vector dots), one column rotation (46: the angle and two column pairs
+    of A and V) in each sweep but the last (a further sweep ran because one
+    rotated, at least), and the assembly of R (93). Returns (bound ms,
+    "bytes" or "operations", bytes, operations)."""
+    n = int(sweeps.numel())
+    total = float(sweeps.sum())
+    ops = n * (9 + 93) + 45 * total + 46 * (total - n)
+    bytes_ = 72 * n
+    t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
+    return (t_bytes, "bytes", bytes_, ops) if t_bytes >= t_ops else (t_ops, "operations", bytes_,
+                                                                      ops)
+
+
+def kabsch_vs_plain(cov, where):
+    """`kabsch_kernel` against its plain version (the SVD on the card) on
+    the covariances cov (n, 3, 3): R within KABSCH_R_TOL where the singular
+    values stand apart by KABSCH_GAP of the largest, trace(R·cov) within
+    KABSCH_TRACE_TOL of the singular values' sum everywhere. Returns (the
+    largest |ΔR| over those matrices, how many, the largest relative trace
+    difference, the kernel's sweeps)."""
+    import torch
+
+    from posecnn_torch.refine.ransac import kabsch_rotation, kabsch_rotation_plain
+
+    got, sweeps = kabsch_rotation(cov, sweeps=True)
+    want = kabsch_rotation_plain(cov)
+    sv = torch.linalg.svdvals(cov.double())
+    gap = torch.minimum(sv[:, 0] - sv[:, 1], sv[:, 1] - sv[:, 2]) / sv[:, 0].clamp(min=1e-30)
+    apart = gap > KABSCH_GAP
+    d_r = (got - want).abs().flatten(1).amax(1)
+    err = float(d_r[apart].max()) if bool(apart.any()) else 0.0
+    trace = (torch.einsum("nij,nji->n", got.double(), cov.double())
+             - torch.einsum("nij,nji->n", want.double(), cov.double())).abs()
+    rel = float((trace / sv.sum(1).clamp(min=1e-30)).max())
+    orth = float((got @ got.transpose(1, 2) - torch.eye(3, device=cov.device)).abs().max())
+    if err > KABSCH_R_TOL or rel > KABSCH_TRACE_TOL or orth > 1e-5 or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{KABSCH_KERNEL} disagrees with its plain version at {where}: "
+                             f"|dR| {err} on {int(apart.sum())} separated matrices, trace "
+                             f"{rel}, |R R^T - I| {orth}")
+    return err, int(apart.sum()), rel, sweeps
+
+
+def ransac_pose_check(device):
+    """Phase 9 (e): `estimate_pose_3d` at (POSE_POINTS, POSE_HYPOTHESES) as a
+    compiled program against its eager body (bit for bit; three replays
+    counted on the device: the Kabsch kernel three times a replay, the
+    hypotheses' and two refinements', and no other kernel), both timed;
+    the pose against the truth; then `kabsch_kernel` against its plain
+    version at the program's shapes (the hypotheses' (256, 3, 3) and a
+    refinement's (3, 3)), timed as a graph of launches, per wrapper call,
+    its plain version's and torch.linalg.svd's time. Returns (line, the
+    kernel's entries for the kernels line)."""
+    import torch
+
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.refine import ransac
+    from posecnn_torch.utils.graph import compile_static
+
+    obj_np, cam_np, valid_np, r_true, t_true = pose_scene(POSE_POINTS)
+    obj, cam, valid = (torch.from_numpy(a).to(device) for a in (obj_np, cam_np, valid_np))
+    triples = ransac.draw_hypotheses(valid, POSE_HYPOTHESES, 3, torch.Generator().manual_seed(0),
+                                     n_valid=POSE_POINTS)
+    kw = dict(inlier_threshold=POSE_THRESHOLD)
+    eager = partial(ransac.estimate_pose_3d, obj, cam, valid, triples, **kw)
+    compiled = partial(compile_static(ransac.estimate_pose_3d), obj, cam, valid, triples, **kw)
+    want = eager()
+    tree_exact(tree_map(lambda x: x.clone(), compiled()), want, "estimate_pose_3d compiled vs eager")
+    replays = 3
+    outs, calls, counted = device_counted(lambda: [tree_map(lambda x: x.clone(), compiled())
+                                                   for _ in range(replays)])
+    for out in outs:
+        tree_exact(out, want, "estimate_pose_3d replay vs eager")
+    per = {k: counted[k] / replays for k in COUNTED}
+    if any(calls.values()) or per != {**NO_LAUNCH, "kabsch": 3}:
+        raise AssertionError(f"estimate_pose_3d replays: wrapper calls {calls}, device "
+                             f"launches {counted} in {replays} replays")
+    rot = want.rotation.cpu().numpy()
+    r_err = float(np.degrees(np.arccos(np.clip(0.5 * (np.trace(rot @ r_true.T) - 1), -1, 1))))
+    t_err = float(np.linalg.norm(want.translation.cpu().numpy() - t_true))
+    if not (r_err < 3.0 and t_err < 0.01 and float(want.score) > 0.5):
+        raise AssertionError(f"estimate_pose_3d: {r_err} deg, {t_err} m, score "
+                             f"{float(want.score)}")
+    cpu = ransac.estimate_pose_3d(obj.cpu(), cam.cpu(), valid.cpu(), triples.cpu(), **kw)
+    vs_cpu = (float((want.rotation.cpu() - cpu.rotation).abs().max()),
+              float((want.translation.cpu() - cpu.translation).abs().max()),
+              float(want.inliers), float(cpu.inliers))
+    ms = (device_ms(eager, device, 5), device_ms(compiled, device, 5))
+
+    # the kernel at the program's shapes
+    w3 = valid[triples].float()
+    hyp_cov = ransac.weighted_covariance(obj[triples], cam[triples], w3)[0]
+    inl = ransac._inliers_3d(want.rotation, want.translation, obj, cam, valid,
+                             POSE_THRESHOLD).float()
+    ref_cov = ransac.weighted_covariance(obj, cam, inl)[0][None]
+    err, compared, rel, sweeps = kabsch_vs_plain(hyp_cov, "the hypotheses' covariances")
+    err1, _, rel1, _ = kabsch_vs_plain(ref_cov, "a refinement's covariance")
+    bound = kabsch_bound(sweeps)
+    k_ms = graph_ms(lambda: ransac.kabsch_rotation(hyp_cov), 200)
+    call_ms = device_ms(lambda: ransac.kabsch_rotation(hyp_cov), device, 50)
+    plain_ms = device_ms(lambda: ransac.kabsch_rotation_plain(hyp_cov), device, 20)
+    svd_ms = device_ms(lambda: torch.linalg.svd(hyp_cov), device, 20)
+    stats = dict(shape=list(hyp_cov.shape), launches=counted["kabsch"], max_abs_err=max(err, err1),
+                 trace_rel_err=max(rel, rel1), compared=compared, ms=k_ms, call_ms=call_ms,
+                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
+                 operations=bound[3], library_ms=svd_ms,
+                 sweeps=[int(sweeps.min()), float(sweeps.float().mean()), int(sweeps.max())])
+    line = (f"(e) estimate_pose_3d at ({POSE_POINTS} points, {POSE_HYPOTHESES} hypotheses, 30% "
+            f"outliers) compiled == eager bit for bit (first call and {replays} replays), "
+            f"{r_err:.3f} deg / {1e3 * t_err:.3f} mm from the truth, {float(want.inliers):.0f} "
+            f"inliers; the card vs the CPU (the SVD there): |dR| {vs_cpu[0]:.3g}, |dt| "
+            f"{vs_cpu[1]:.3g}, inliers {vs_cpu[2]:.0f} / {vs_cpu[3]:.0f}; ms eager / compiled "
+            f"{ms[0]:.3f} / {ms[1]:.3f} (CUDA events, mean of 5); launches a replay (device) "
+            f"{per}; {KABSCH_KERNEL} vs plain (torch.linalg.svd and the sign fix, on the card): "
+            f"max |dR| {err:.3g} on {compared} of {hyp_cov.shape[0]} hypothesis covariances with "
+            f"singular values apart (bar {KABSCH_R_TOL:g}), {err1:.3g} on a refinement's, "
+            f"trace(R cov) within {max(rel, rel1):.3g} of sum(sigma) on all (bar "
+            f"{KABSCH_TRACE_TOL:g}); sweeps min / mean / max {stats['sweeps']}; at "
+            f"{tuple(hyp_cov.shape)} ms graph / call / plain / torch.linalg.svd / bound "
+            f"{k_ms:.4f} / {call_ms:.4f} / {plain_ms:.4f} / {svd_ms:.4f} / {bound[0]:.3g} "
+            f"({bound[1]})")
+    return line, stats
+
+
+def pose_errors_check(device, points, pairs_n=5):
+    """The evaluator's compiled pose errors on `pairs_n` random pairs of the
+    classes of `points`, the first pair's class a z-flip class: the
+    padded program's rows (its first call and a replay) equal the eager
+    body on the same padded rows bit for bit, and the eager body on the
+    unpadded rows within 1e-6 relative. Returns the line."""
+    import torch
+
+    from posecnn_torch.engine.evaluate import PoseEvaluator, pair_errors
+
+    rng = np.random.RandomState(0)
+    c = points.shape[0]
+    classes = rng.randint(1, c, pairs_n)
+
+    def quat():
+        q = rng.randn(4).astype(np.float32)
+        return q / np.linalg.norm(q)
+
+    pairs = [(int(k), quat(), rng.randn(3).astype(np.float32) * 0.1 + [0, 0, 1], quat(),
+              rng.randn(3).astype(np.float32) * 0.1 + [0, 0, 1]) for k in classes]
+    k = np.array([[1066.8, 0, WIDTH / 2], [0, 1066.8, HEIGHT / 2], [0, 0, 1]], np.float32)
+    ev = PoseEvaluator(num_classes=c, points=points, extents=np.ones((c, 3), np.float32),
+                       z_flip_classes=(int(classes[0]),), intrinsics=k, device=str(device))
+    inputs = ev.pair_inputs(pairs)
+    want = pair_errors(*inputs)
+    got = [torch.from_numpy(ev._pair_errors(pairs)) for _ in range(2)]  # capture, replay
+    for g in got:
+        tree_exact(g, want[:pairs_n].cpu(), "the evaluator's pose errors, padded, vs eager")
+    unpadded = pair_errors(*(t[:pairs_n] for t in inputs[:6]), *inputs[6:]).cpu()
+    rel = float(((got[0] - unpadded).abs() / unpadded.abs().clamp(min=1e-30)).max())
+    if rel > 1e-6 or len(ev._errors.programs) != 1:
+        raise AssertionError(f"the evaluator's pose errors: padded vs unpadded eager {rel}, "
+                             f"{len(ev._errors.programs)} graphs")
+    return (f"the pose-error program on {pairs_n} random pairs (a z-flip class among them) "
+            f"padded to {inputs[0].shape[0]} rows == its eager body bit for bit (capture and "
+            f"replay), the unpadded eager body within {rel:.3g} relative")
+
+
 def phase_eval(device, card):
-    """Phase 9, the evaluation path at full width: `test_net` with ICP,
-    compiled, each forward and each ICP call held to its eager run bit for
-    bit; ICP through `test_icp`'s drive, compiled and eager; RANSAC
-    centres, and the evaluator, each on the card against the CPU. Returns
-    (each vote kernel's launches in the recorded test_net run, its captured
-    forward's launches)."""
+    """Phase 9, the evaluation path at full width: `test_net --refine
+    --ransac`, compiled, each forward, ICP, RANSAC centre and evaluator
+    call held to its eager run bit for bit; ICP through `test_icp`'s drive,
+    compiled and eager; RANSAC centres, and the evaluator, each on the card
+    against the CPU; `estimate_pose_3d` compiled and its Kabsch kernel
+    (`ransac_pose_check`). Returns (each vote kernel's launches in the
+    recorded test_net run, its captured forward's launches, the Kabsch
+    kernel's entries)."""
     import tempfile
 
     import torch
 
     from posecnn_torch.cli import test_icp, test_net
     from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.engine import evaluate as evaluate_module
     from posecnn_torch.engine.evaluate import PoseEvaluator
     from posecnn_torch.refine.icp import icp_refine_batch
     from posecnn_torch.refine.ransac import draw_hypotheses, estimate_center
     from posecnn_torch.utils.graph import compile_static
 
-    # 9.1: test_net in process on the flagship yaml, compiled: once as it
-    # is, for its images/s and stage seconds; then counted, recording what
-    # the evaluator is fed, then each forward's and each ICP call's eager
-    # run, which records the forward's Hough inputs
+    # 9.1: test_net --refine --ransac in process on the flagship yaml,
+    # compiled: once as it is, for its images/s and stage seconds; then
+    # counted, recording what the evaluator is fed, then each forward's,
+    # ICP call's, RANSAC centre's and pose-error call's eager run, which
+    # records the forward's Hough inputs
     with tempfile.TemporaryDirectory() as out:
         test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images", str(EVAL_IMAGES),
-                       "--refine", "--output", out])
+                       "--refine", "--ransac", "--output", out])
         with open(os.path.join(out, "eval.json")) as f:
             run = json.load(f)["run"]
     recorded = {"images": [], "seg": []}
@@ -1999,8 +2239,9 @@ def phase_eval(device, card):
         try:
             _, run_net = compiled_run(
                 lambda: test_net.main([*EVAL_ARGS, "--device", str(device), "--num_images",
-                                       str(EVAL_IMAGES), "--refine", "--output", out]),
-                [test_net], "test_net")
+                                       str(EVAL_IMAGES), "--refine", "--ransac", "--output",
+                                       out]),
+                [test_net, evaluate_module], "test_net")
         finally:
             test_net.PoseEvaluator = PoseEvaluator
         with open(os.path.join(out, "eval.json")) as f:
@@ -2020,6 +2261,29 @@ def phase_eval(device, card):
         raise AssertionError(f"test_net: replays launched {replayed} in {EVAL_IMAGES} frames, "
                              f"{len(hough_in)} forwards, captured forwards {forwards}")
     icp_graphs = len(run_net["bodies"].get("icp_refine_batch", []))
+    # RANSAC's centres and the pose errors: their graphs launch no kernel,
+    # and every call equals its eager body (compiled_run held them)
+    checks, bodies = run_net["checks"], run_net["bodies"]
+    n_ransac, n_errors = checks.get("estimate_center", 0), checks.get("pair_errors", 0)
+    matcher = PoseEvaluator(num_classes=c, points=ev.points, extents=ev.extents,
+                            instance_matching=ev.instance_matching)
+    with_pairs = sum(any(pair is not None for _, pair in matcher._match(dets, gts))
+                     for dets, gts in recorded["images"])
+    if (bodies.get("estimate_center") != [NO_LAUNCH] or not n_ransac
+            or any(b != NO_LAUNCH for b in bodies.get("pair_errors", []))
+            or n_errors != with_pairs):
+        raise AssertionError(f"test_net --ransac: RANSAC graphs {bodies.get('estimate_center')} "
+                             f"over {n_ransac} calls, pose-error graphs "
+                             f"{bodies.get('pair_errors')} over {n_errors} calls ({with_pairs} "
+                             "images with a matched pair)")
+    errors_line = pose_errors_check(device, ev.points)
+    # RANSAC's ms a detection, compiled and eager, on the run's first centre
+    ransac_args, ransac_kw, _ = run_net["programs"]["estimate_center"][0].calls[0]
+    eager = partial(estimate_center, *ransac_args, **ransac_kw)
+    compiled = partial(compile_static(estimate_center), *ransac_args, **ransac_kw)
+    tree_exact(tree_map(lambda x: x.clone(), compiled()), eager(), "estimate_center compiled")
+    ransac_ms = (device_ms(eager, device, 5), device_ms(compiled, device, 5))
+    pose_line, kabsch = ransac_pose_check(device)
     # flat and window bit for bit on each eval forward's Hough inputs
     extents, kw = hough_in.call
     meta = hough_in[0][2]
@@ -2098,7 +2362,7 @@ def phase_eval(device, card):
     print(f"phase 9 evaluation ({c} classes, {cfg.train.syn_height}x{cfg.train.syn_width}, "
           f"num_units {cfg.train.num_units}, fc_dim {cfg.train.fc_dim}, "
           f"{cfg.test.hough_num_samples} samples, seeded random weights) on {card}: test_net "
-          f"--refine "
+          f"--refine --ransac "
           f"{EVAL_IMAGES} images, {run['images_per_s']:.2f} images/s (a run without the recording), "
           f"seconds render "
           f"{sec['render']:.3f} / forward {sec['forward']:.3f} / NMS + extraction "
@@ -2122,8 +2386,14 @@ def phase_eval(device, card):
           f"ms): {'; '.join(icp_prof[0][3])} / {'; '.join(icp_prof[1][3])}); RANSAC centres of "
           f"{len(PLANTED)} planted objects within "
           f"{worst_px:.3f} px, card vs CPU {worst_gap:.3g} px; evaluator on the card == CPU "
-          f"(largest difference {ev_gap:.3g})", flush=True)
-    return launches, forwards[0]
+          f"(largest difference {ev_gap:.3g}); RANSAC in test_net --ransac: {n_ransac} centres "
+          f"through one graph at {ransac_args[0].shape[0], ransac_args[3].shape[0]} "
+          f"(points, hypotheses), == eager bit for bit, ms a detection eager / compiled "
+          f"{ransac_ms[0]:.3f} / {ransac_ms[1]:.3f} (CUDA events, mean of 5); the evaluator's "
+          f"pose errors: {n_errors} calls through {len(bodies.get('pair_errors', []))} graphs "
+          f"(rows padded to a power of two, at least 8), == eager bit for bit; {errors_line}; "
+          f"{pose_line}", flush=True)
+    return launches, forwards[0], kabsch
 
 
 def cfg_path(name):
@@ -2192,18 +2462,36 @@ def tree_exact(got, want, where):
 def recording_compile(made):
     """A stand-in for `utils/graph.compile_static` that appends each
     compiled call it makes to `made` and keeps a copy of every call's
-    arguments and outputs under the compiled call's `calls`."""
+    arguments (taken before the call) and outputs under the compiled
+    call's `calls`. A program with arguments bound in place (the fusion
+    volume: a copy of each call would fill the card) is held to its eager
+    body at once instead: the body runs on copies of the arguments taken
+    before the call, and its outputs and the copies after it must equal
+    the program's outputs and the bound tensors bit for bit; `checked`
+    counts those calls."""
+    import torch
+
     from posecnn_torch.utils.graph import compile_static
 
     class Recording(compile_static):
-        def __init__(self, fn):
-            super().__init__(fn)
-            self.calls = []
+        def __init__(self, fn, inplace=()):
+            super().__init__(fn, inplace=inplace)
+            self.calls, self.checked = [], 0
             made.append(self)
 
         def __call__(self, *args, **kwargs):
+            before = tree_map(lambda t: t.clone(), (args, kwargs))
             out = super().__call__(*args, **kwargs)
-            self.calls.append(tree_map(lambda t: t.clone(), (args, kwargs, out)))
+            if not self.inplace:
+                self.calls.append((*before, tree_map(lambda t: t.clone(), out)))
+                return out
+            with torch.no_grad():
+                want = self.fn(*before[0], **before[1])
+            name = getattr(self.fn, "func", self.fn).__name__
+            tree_exact(out, want, f"{name} (in place), call {self.checked}: graph vs eager")
+            tree_exact((args, kwargs), before, f"{name} (in place), call {self.checked}: the "
+                       "bound tensors after the graph vs after the eager body")
+            self.checked += 1
             return out
 
     return Recording
@@ -2216,14 +2504,16 @@ def compiled_run(call, modules, where):
     it);
     then every call of every compiled program run again eagerly on its own
     arguments, with the model's Hough recorded, and held to the graph's
-    outputs bit for bit. Returns (call's result, a dict: `calls`, the
-    wrappers' counts in the run (the eager warm-ups); `device`, each
+    outputs bit for bit (a program with in-place arguments is held so
+    during the run, call by call). Returns (call's result, a dict: `calls`,
+    the wrappers' counts in the run (the eager warm-ups); `device`, each
     kernel's launches counted on the device; `replayed`, those the graph
-    replays made (device less calls); `bodies`, each captured program's launches a
-    replay, by the compiled function's name; `forwards`, the calls of the
-    compiled forward; `recorded`, the eager reruns' Hough inputs and
-    launches (`counting_hough`, one a forward); `checked`, the calls held to
-    eager)."""
+    replays made (device less calls); `bodies`, each captured program's
+    launches a replay, by the compiled function's name; `forwards`, the
+    calls of the compiled forward; `recorded`, the eager reruns' Hough
+    inputs and launches (`counting_hough`, one a forward); `checked`, the
+    calls held to eager, and `checks` by name; `programs`, the recording
+    compiled calls by name, with their calls' copies)."""
     import torch
 
     from posecnn_torch.models import posecnn as posecnn_module
@@ -2239,27 +2529,30 @@ def compiled_run(call, modules, where):
         for m, original in zip(modules, originals):
             m.compile_static = original
     replayed = {k: counted[k] - calls[k] for k in COUNTED}
-    bodies, forwards = {}, 0
+    bodies, forwards, checks, programs = {}, 0, {}, {}
     for c in made:
         name = getattr(c.fn, "func", c.fn).__name__
         bodies.setdefault(name, []).extend(p.launches for p in c.programs.values())
+        programs.setdefault(name, []).append(c)
+        checks[name] = checks.get(name, 0) + c.checked
         if name == "forward_with_suppression":
             forwards += len(c.calls)
     recorded = Recorded()
     record, original = counting_hough(recorded)
     posecnn_module.hough_voting = record
-    checked = 0
     try:
         for c in made:
+            name = getattr(c.fn, "func", c.fn).__name__
             for args, kwargs, out in c.calls:
                 with torch.no_grad():
                     want = c.fn(*args, **kwargs)
-                tree_exact(out, want, f"{where}: graph vs eager, call {checked}")
-                checked += 1
+                tree_exact(out, want, f"{where}: {name} graph vs eager, call {checks[name]}")
+                checks[name] += 1
     finally:
         posecnn_module.hough_voting = original
     return result, dict(calls=calls, device=counted, replayed=replayed, bodies=bodies,
-                        forwards=forwards, recorded=recorded, checked=checked)
+                        forwards=forwards, recorded=recorded, checked=sum(checks.values()),
+                        checks=checks, programs=programs)
 
 
 def domain_reversal_check(tr, batches):
@@ -2339,6 +2632,40 @@ def adam_fastforward_check(step):
     return err
 
 
+def real_gate(step, state, batches, name):
+    """Phase 10's compiled step of one real-frame yaml (`CompiledTrainStep`,
+    as train_net builds it): each batch signature's graph captured first
+    (the full yaml's feed mixes real and synthetic batches), from one state
+    restored after, then the equality gate over `batches` (GATE_STEPS
+    consecutive replays across a step of the lr staircase; the seg head
+    biased so that the vote has live slots), one flat and one window launch
+    a replay. The yaml's loss terms must be among the graphs' metrics
+    (`loss_match`: the matching term runs inside the step). Returns the
+    gate's result, with the graphs' count and metric names in its line."""
+    from posecnn_torch.bench import snapshot
+    from posecnn_torch.engine.train import CompiledTrainStep
+
+    if not isinstance(step, CompiledTrainStep):
+        raise AssertionError(f"phase 10 {name}: the step is {type(step).__name__}, not compiled")
+    start = snapshot(step, state)
+    for batch in batches:
+        step(state, batch)
+    start()
+    gate = equality_gate(step, state, batches, f"phase 10 {name}", C2F_STEP, live_hough_inputs)
+    programs = list(step.compiled.programs.values())
+    keys = sorted(set().union(*(p.keys for p in programs)))
+    t = step.cfg.train
+    want = {"loss", "loss_cls", "loss_vertex", "loss_pose"}
+    want |= {"loss_domain"} if t.adapt else set()
+    want |= {"loss_match"} if t.matching else set()
+    if not want <= set(keys) or any(p.launches != C2F_STEP for p in programs):
+        raise AssertionError(f"phase 10 {name}: graphs' metrics {keys} (want {sorted(want)}), "
+                             f"launches {[p.launches for p in programs]}")
+    gate["line"] = (f"compiled step: {len(programs)} graphs (batch signatures), metrics "
+                    f"{keys}, launches a replay {C2F_STEP}; {gate['line']}")
+    return gate
+
+
 def phase_real(card):
     """Phase 10: the real-frame family on a fabricated YCB-Video tree at
     full width. Returns the kernel launches of its training steps and of
@@ -2410,6 +2737,12 @@ def phase_real(card):
                     metrics.append(values)
                     batches.append(batch)
                 peak_gb = torch.cuda.max_memory_allocated() / 1e9
+                # the last step's loss holds its autograd graph, whose
+                # AccumulateGrad nodes sit on the default stream: a capture
+                # (the gate's) then fails, so free it
+                del total, m
+                # the equality gate's batches: these steps' and the feed's next
+                gate_batches = batches + [next(tr.batches) for _ in range(GATE_STEPS - REAL_STEPS)]
             finally:
                 posecnn_module.hough_voting = original
                 tr.batches.close()
@@ -2471,7 +2804,9 @@ def phase_real(card):
                           f"{b['label'].shape[1] // 8}x{b['label'].shape[2] // 8} "
                           f"({int(n_match)} matched): forward {fwd_ms:.3f} ms, forward + "
                           f"backward {both_ms:.3f} ms device (CUDA events, mean of 5)")
-                del out_m, poses
+                del out_m, poses, h
+            gate = real_gate(step, tr.state, gate_batches, name)
+            extra += f"; {gate['line']}"
             split = np.asarray(per_step)  # feed wait, forward, backward, optimizer, wall
             steady = split[1:].mean(0)
             lines.append(
@@ -2492,7 +2827,7 @@ def phase_real(card):
                 f"{metrics[-1]['num_pose_rois']:.0f}; flat and window launched "
                 f"once a step, == plain bit for bit on each step's inputs and its GT inputs "
                 f"({len(shapes)} inputs, {live} live GT slots), max_abs_err {errs}" + extra)
-            del tr, step, batches, recorded
+            del tr, step, batches, recorded, gate_batches, gate
             torch.cuda.empty_cache()
 
         # --resume: the newest snapshot, its step, and the staircase on it
@@ -2645,7 +2980,7 @@ class Eager:
     """A stand-in for `utils/graph.compile_static` that calls the body as
     it is: a CLI's run with its programs eager."""
 
-    def __init__(self, fn):
+    def __init__(self, fn, inplace=()):
         self.fn, self.programs = fn, {}
 
     def __call__(self, *args, **kwargs):
@@ -2654,7 +2989,7 @@ class Eager:
 
 # a replay of test_net's captured det_infer: the scans of the RPN's NMS and
 # of the per-class NMS
-DET_INFER_BODY = {"tile": 0, "flat": 0, "window": 0, "scan": 2}
+DET_INFER_BODY = {"tile": 0, "flat": 0, "window": 0, "scan": 2, "kabsch": 0}
 
 
 def phase_det_demo(card):
@@ -3052,6 +3387,86 @@ def seg_card_vs_cpu(device):
     return errs
 
 
+def volumes_equal(a, b, slab=32) -> bool:
+    """Two TSDF volumes' tensors equal element for element, compared on
+    the device a slab of x at a time (a whole grid-512 probability volume
+    is 5.4 GB)."""
+    import torch
+
+    return all(torch.equal(x, y) if x.dim() == 0 else
+               all(torch.equal(x[i:i + slab], y[i:i + slab]) for i in range(0, x.shape[0], slab))
+               for x, y in zip(a, b))
+
+
+def fusion_programs_at_grid(device):
+    """Phase 12 (d): one frame (HEIGHT × WIDTH, FUSE_CLASSES classes) through
+    `fuse_frame` at grid FUSE_GRID, then `raycast` and `track_camera` on
+    it, each compiled (`compile_static`; the volume bound in place) and
+    eager on a twin volume, the two held bit for bit (outputs, and both
+    volumes after each call) at the compiled program's first call and a
+    replay, then each timed by CUDA events; a fuse call with another
+    volume must raise. Returns the line."""
+    import torch
+
+    from posecnn_torch.cli.validate import device_ms
+    from posecnn_torch.refine.fusion import create_volume, fuse_frame, raycast, track_camera
+    from posecnn_torch.utils.graph import compile_static
+
+    def volume():
+        return create_volume(FUSE_GRID, FUSE_CLASSES, origin=(-1.0, -1.0, 0.3),
+                             voxel_size=2.0 / FUSE_GRID, device=device)
+
+    vols = {"eager": volume(), "compiled": volume()}
+    vol_gb = sum(t.numel() * t.element_size() for t in vols["eager"]) / 1e9
+    gen = torch.Generator(device=device).manual_seed(1)
+    depth = 0.8 + torch.rand((HEIGHT, WIDTH), device=device, generator=gen)
+    prob = torch.softmax(torch.randn((HEIGHT, WIDTH, FUSE_CLASSES), device=device, generator=gen),
+                         -1)
+    kk = torch.tensor([[1066.8, 0, WIDTH / 2], [0, 1066.8, HEIGHT / 2], [0, 0, 1]], device=device)
+    pose = torch.eye(3, 4, device=device)
+    bodies = {"fuse_frame": fuse_frame, "raycast": raycast, "track_camera": track_camera}
+    programs = {"fuse_frame": compile_static(fuse_frame, inplace=("vol",)),
+                "raycast": compile_static(raycast, inplace=("vol",)),
+                "track_camera": compile_static(track_camera)}
+    calls = {"fuse_frame": lambda f, v: f(v, depth, prob, kk, pose),
+             "raycast": lambda f, v: f(v, kk, pose, height=HEIGHT, width=WIDTH),
+             "track_camera": lambda f, v: f(depth + 0.002, depth, kk, pose, num_iters=6)}
+    ms, peak, fuses = {}, 0.0, 0
+    for name, call in calls.items():
+        for _ in range(2):  # the program's first call (eager, then the capture), then a replay
+            want = call(bodies[name], vols["eager"])
+            got = call(programs[name], vols["compiled"])
+            if name != "fuse_frame":  # fuse_frame returns the volumes themselves
+                tree_exact(got, want, f"{name} at grid {FUSE_GRID}: graph vs eager")
+            if not volumes_equal(vols["compiled"], vols["eager"]):
+                raise AssertionError(f"the volumes after {name} at grid {FUSE_GRID} differ")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms[name] = tuple(device_ms(lambda: call(f, vols[which]), device, 3, warm=False)
+                         for f, which in ((bodies[name], "eager"), (programs[name], "compiled")))
+        peak = max(peak, torch.cuda.max_memory_allocated() / 1e9)
+        fuses += 5 if name == "fuse_frame" else 0
+    if not volumes_equal(vols["compiled"], vols["eager"]):
+        raise AssertionError(f"the volumes after the timed calls at grid {FUSE_GRID} differ")
+    updated = int((vols["compiled"].weight == fuses).sum())
+    try:
+        calls["fuse_frame"](programs["fuse_frame"], vols["eager"])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("fuse_frame compiled: a call with another volume did not raise")
+    graphs = {name: len(p.programs) for name, p in programs.items()}
+    del vols, programs
+    torch.cuda.empty_cache()
+    return (f"fuse_frame, raycast and track_camera at grid {FUSE_GRID} with {FUSE_CLASSES} "
+            f"classes ({HEIGHT}x{WIDTH} frame): compiled == eager bit for bit (outputs and "
+            f"volumes, first call and a replay), graphs {graphs}, a call with another volume "
+            f"refused; ms a frame eager / compiled (CUDA events, mean of 3): "
+            + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in ms.items())
+            + f"; peak memory {peak:.2f} GB with two volumes of {vol_gb:.2f} GB, {updated} "
+            f"voxels updated by all {fuses} fuses")
+
+
 def phase_seg_video(device, card):
     """Phase 12: the segmentation and video families' training, eager and
     compiled (each held to eager by the equality gate), the video
@@ -3069,7 +3484,6 @@ def phase_seg_video(device, card):
     from posecnn_torch.data.fabricate import write_ycb_tree
     from posecnn_torch.ops import hough_kernels as hk
     from posecnn_torch.ops.flow import compute_flow
-    from posecnn_torch.refine.fusion import create_volume, fuse_frame
     from posecnn_torch.utils.graph import compile_static
 
     for key in hk.LAUNCHES:
@@ -3216,12 +3630,15 @@ def phase_seg_video(device, card):
             runs[name] = (results, written, time.perf_counter() - t0)
         results, written, video_s = runs["compiled"]
         bodies = video_run["bodies"].get("video_labels", [])
+        steps = t.num_steps
+        want_checks = {"video_labels": VIDEO_SEQUENCES, "fuse_frame": VIDEO_SEQUENCES * steps,
+                       "track_camera": VIDEO_SEQUENCES * (steps - 1)}
         if (len(results) != VIDEO_SEQUENCES or not all(np.isfinite(r["mean_iou"]) for r in results)
-                or bodies != [NO_LAUNCH] or video_run["device"] != NO_LAUNCH
-                or video_run["checked"] != VIDEO_SEQUENCES):
-            raise AssertionError(f"test_video compiled: {results}; graphs {bodies}, device "
-                                 f"launches {video_run['device']}, {video_run['checked']} calls "
-                                 "held to eager")
+                or any(video_run["bodies"].get(name) != [NO_LAUNCH] for name in want_checks)
+                or video_run["device"] != NO_LAUNCH or video_run["checks"] != want_checks):
+            raise AssertionError(f"test_video compiled: {results}; graphs {video_run['bodies']}, "
+                                 f"device launches {video_run['device']}, calls held to eager "
+                                 f"{video_run['checks']} (want {want_checks})")
 
         def without_seconds(rows):
             return [{k: v for k, v in r.items() if k != "seconds"} for r in rows]
@@ -3238,52 +3655,59 @@ def phase_seg_video(device, card):
                      + ", ".join(f"{x:.4f}" for x in forward_s["compiled"])
                      + " (the first its eager run and capture), eager "
                      + ", ".join(f"{x:.4f}" for x in forward_s["eager"])
-                     + f"; one graph, {video_run['checked']} calls equal to the eager body bit "
-                     f"for bit, launches on the device {video_run['device']}; video_eval.json "
-                     "equal to the eager run's but for the seconds; IoU "
+                     + f"; one graph each for the forward, fuse_frame (the volume bound in "
+                     f"place) and track_camera, calls equal to their eager bodies bit for bit "
+                     f"{video_run['checks']}, launches on the device {video_run['device']}; "
+                     "video_eval.json equal to the eager run's but for the seconds; IoU "
                      + ", ".join(f"{r['mean_iou']:.4f}" for r in results)
                      + "; surface points " + ", ".join(str(r["surface_points"]) for r in results)
                      + "; tracked motion m " + ", ".join(
                          "/".join(f"{x:.4f}" for x in r["tracked_motion_m"]) for r in results))
         torch.cuda.empty_cache()
 
-        # 12.4: test_fusion at its grid 64, and one fuse_frame at grid 512
-        t0 = time.perf_counter()
-        report = test_fusion.main(["--output", os.path.join(tmp, "fusion")])
-        fusion_s = time.perf_counter() - t0
-        if not os.path.exists(os.path.join(tmp, "fusion", "model.ply")) or report[
-                "surface_points"] <= 0:
-            raise AssertionError(f"test_fusion: {report}")
+        # 12.4: test_fusion at its grid 64, its four programs compiled
+        # (recorded: each call held to its eager body, the launches counted
+        # on the device), then eager; the two reports equal
+        fusion = {}
+        for name in ("compiled", "eager"):
+            out = os.path.join(tmp, f"fusion_{name}")
+            t0 = time.perf_counter()
+            if name == "compiled":
+                report, fusion_run = compiled_run(lambda: test_fusion.main(["--output", out]),
+                                                  [test_fusion], "test_fusion")
+            else:
+                test_fusion.compile_static = Eager
+                try:
+                    report = test_fusion.main(["--output", out])
+                finally:
+                    test_fusion.compile_static = compile_static
+            fusion[name] = (report, time.perf_counter() - t0)
+            if not os.path.exists(os.path.join(out, "model.ply")) or report[
+                    "surface_points"] <= 0:
+                raise AssertionError(f"test_fusion ({name}): {report}")
+        report, fusion_s = fusion["compiled"]
+        n = report["num_steps"]
+        want_checks = {"fuse_frame": n, "raycast": 2 * n - 1, "track_camera": n - 1,
+                       "extract_mesh": 1}
+        if (report != fusion["eager"][0] or fusion_run["checks"] != want_checks
+                or any(fusion_run["bodies"].get(k) != [NO_LAUNCH] for k in want_checks)
+                or fusion_run["device"] != NO_LAUNCH):
+            raise AssertionError(f"test_fusion compiled: report {report} (eager "
+                                 f"{fusion['eager'][0]}), calls held to eager "
+                                 f"{fusion_run['checks']} (want {want_checks}), graphs "
+                                 f"{fusion_run['bodies']}, device launches {fusion_run['device']}")
     torch.cuda.empty_cache()
-    vol = create_volume(FUSE_GRID, FUSE_CLASSES, origin=(-1.0, -1.0, 0.3), voxel_size=2.0 / FUSE_GRID,
-                        device=device)
-    gen = torch.Generator(device=device).manual_seed(1)
-    depth = 0.8 + torch.rand((HEIGHT, WIDTH), device=device, generator=gen)
-    prob = torch.softmax(torch.randn((HEIGHT, WIDTH, FUSE_CLASSES), device=device, generator=gen),
-                         -1)
-    kk = torch.tensor([[1066.8, 0, WIDTH / 2], [0, 1066.8, HEIGHT / 2], [0, 0, 1]], device=device)
-    pose = torch.eye(3, 4, device=device)
-    fuse_frame(vol, depth, prob, kk, pose)  # warm-up
-    torch.cuda.synchronize()
-    base_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-    ev[0].record()
-    fuse_frame(vol, depth, prob, kk, pose)
-    ev[1].record()
-    torch.cuda.synchronize()
-    fuse_ms, fuse_peak = ev[0].elapsed_time(ev[1]), torch.cuda.max_memory_allocated() / 1e9
-    updated = int((vol.weight == 2).sum())
-    del vol
-    parts.append(f"test_fusion (grid {report['grid_size']}, {fusion_s:.1f} s): surface points "
+    grid_line = fusion_programs_at_grid(device)
+    parts.append(f"test_fusion (grid {report['grid_size']}, compiled {fusion_s:.1f} s, eager "
+                 f"{fusion['eager'][1]:.1f} s with set-up): the four programs one graph each, "
+                 f"calls equal to their eager bodies bit for bit {fusion_run['checks']}, launches "
+                 f"on the device {fusion_run['device']}, the report equal to the eager run's; "
+                 f"surface points "
                  f"{report['surface_points']}, classes {report['surface_classes']}, "
                  f"{report['mesh_triangles']} triangles, raycast depth MAE "
                  f"{report['raycast_depth_mae_m']:.4f} m, label accuracy "
                  f"{report['raycast_fg_label_acc']:.4f}, tracking errors deg "
-                 f"{[round(x, 3) for x in report['tracking_rot_err_deg']]}; fuse_frame at grid "
-                 f"{FUSE_GRID} with {FUSE_CLASSES} classes ({HEIGHT}x{WIDTH} frame): "
-                 f"{fuse_ms:.2f} ms (CUDA events), peak memory {fuse_peak:.2f} GB over the "
-                 f"volume's {base_gb:.2f} GB, {updated} voxels updated twice")
+                 f"{[round(x, 3) for x in report['tracking_rot_err_deg']]}; {grid_line}")
     launches = dict(hk.LAUNCHES)
     if any(launches.values()):
         raise AssertionError(f"phase 12 launched a vote kernel: {launches}")
@@ -4104,6 +4528,24 @@ def phase_data_parallel(card):
                                  f"{len(logged)} log lines; {cli.stderr[-2000:]}")
     parts.append(f"(c) train_net --num_data 2 --device cpu --iters 2 (48x64 toy): exit 0 in "
                  f"{cli_s:.1f} s, 2 log lines, one snapshot ({snaps[0]})")
+    # (e) `bench scaling` (JAX's experiments/bench_scaling.py) at 1 and 2
+    # ranks; on one card both ranks share it over gloo: the mechanism
+    from posecnn_torch import bench
+
+    t0 = time.perf_counter()
+    lines = bench.bench_scaling(torch.device("cuda"), ranks=SCALING_RANKS)
+    scaling_s = time.perf_counter() - t0
+    sizes = [line for line in lines if "s_per_iter" in line]
+    effs = [line for line in lines if "weak_scaling_efficiency" in line]
+    numbers = [line[k] for line in sizes for k in ("s_per_iter", "images_per_s", "loss")]
+    numbers += [line["weak_scaling_efficiency"] for line in effs]
+    one_card = torch.cuda.device_count() < SCALING_RANKS
+    if ([line["devices"] for line in sizes] != [1, SCALING_RANKS] or len(effs) != 1
+            or not all(np.isfinite(x) and x > 0 for x in numbers)
+            or one_card != (lines[-1].get("scaling") == "mechanism")):
+        raise AssertionError(f"phase 15 (e) bench scaling: {lines}")
+    parts.append(f"(e) python -m posecnn_torch.bench scaling --ranks {SCALING_RANKS} "
+                 f"({scaling_s:.1f} s): " + "; ".join(json.dumps(line) for line in lines))
     # (d) NCCL across cards, where the machine has them
     cards = torch.cuda.device_count()
     if cards < 2:
@@ -4579,7 +5021,7 @@ def main() -> int:
     phase_validate(device)
     runs = phase_full_width(device, card)
     train = phase_train(card)
-    eval_launches, cli_bodies["test_net"] = phase_eval(device, card)
+    eval_launches, cli_bodies["test_net"], kabsch = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
     demo_launches, cli_bodies["demo"], det = phase_det_demo(card)
     seg_launches, seg_replays = phase_seg_video(device, card)
@@ -4636,6 +5078,11 @@ def main() -> int:
                                 "test_net_launches", "per_test_net_frame",
                                 "per_captured_det_infer")},
          "per_replayed_family_program": {name: counts["scan"] for name, counts in families.items()}}
+    ] + [
+        {"name": KABSCH_KERNEL, "route": "cuda", "source": "posecnn_torch/csrc/kabsch.cu",
+         "replaces": "posecnn_tpu/refine/ransac.py:119", **kabsch,
+         "per_replayed_family_program": {name: counts["kabsch"]
+                                         for name, counts in families.items()}}
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

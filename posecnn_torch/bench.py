@@ -2,14 +2,16 @@
 
     python -m posecnn_torch.bench [infer|phases|train|c2f|components|hough|
                                    train_components|train_mfu|profile]
+    python -m posecnn_torch.bench scaling [--ranks N] [--device cpu]
 
 Counterpart of the JAX repository's `bench.py` (`infer`, the default),
 `experiments/bench_graph_phases.py` (`phases`, `c2f`),
 `experiments/bench_train.py` (`train`), `experiments/bench_components.py`
 (`components`), `experiments/bench_hough_phases.py` (`hough`),
 `experiments/bench_train_components.py` (`train_components`),
-`experiments/bench_train_mfu.py` (`train_mfu`) and
-`experiments/profile_train.py` (`profile`). Each keeps its script's
+`experiments/bench_train_mfu.py` (`train_mfu`),
+`experiments/profile_train.py` (`profile`) and
+`experiments/bench_scaling.py` (`scaling`). Each keeps its script's
 configuration, seeds and loop counts n1 / n2, and the protocol of
 `bench_graph_phases.py`'s `timed`: warm both counts, then the median of 3
 differenced pairs (t(n2) − t(n1)) / (n2 − n1), which removes the loop's
@@ -109,9 +111,29 @@ TPU's.
           compiled step (its s a step and MFU at a host read a step, the
           device kernels of 5 replayed steps). Written to
           `output/train_profile_torch.json`.
+  scaling `bench_scaling.py`'s weak-scaling check: 6 classes, 96×128,
+          num_units 16, fc_dim 64, 32 Hough samples, 2 objects, cell
+          stride 2, fp32, batch 1 a rank, so a global batch of N at N
+          ranks, for N in (1, 2, 4, 8) up to `--ranks` (default 8): the
+          posecnn step of `make_train_step` with a mesh of N data ranks
+          spawned by `parallel/mesh.spawn_ranks`, each on its share of one
+          global batch (RandomState(1) of the script's generator, seed 3),
+          one warm-up step, then 10 on the host clock after a synchronise,
+          the slowest rank's. Every size runs the eager step
+          (`TrainStep.__call__`): the data-parallel step is not compiled
+          (a capture cannot hold gloo's collectives), so the sizes compare
+          like programs. One line a size, `{"devices", "s_per_iter",
+          "images_per_s"}` with the device and backend beside, then
+          `weak_scaling_efficiency` a size past 1, as the script prints
+          them. Ranks run over NCCL one a card where the machine has N
+          cards; otherwise every rank shares `cuda:0` over gloo, its
+          tensors staged through the host (or, with `--device cpu`, the
+          host's cores), and the last line says that this measured the
+          mechanism, not scaling, as the script says of its virtual
+          devices.
 
-Without a CUDA device the command exits non-zero: it measures the card
-and has no CPU mode.
+Without a CUDA device every command but `scaling --device cpu` exits
+non-zero: they measure the card and have no CPU mode.
 """
 
 from __future__ import annotations
@@ -835,22 +857,140 @@ def bench_profile(device) -> list:
              "trace": trace, "compiled_trace": c_trace, "wrote": PROFILE_OUT, **card}]
 
 
+# bench_scaling.py:39-70: classes, frame, batch a rank, class points; the
+# sizes tried, the timed steps
+SCALING_CLASSES, SCALING_HW, SCALING_POINTS = 6, (96, 128), 64
+SCALING_MODEL = dict(num_units=16, fc_dim=64, hough_num_samples=32, max_objects=2,
+                     hough_cell_stride=2)
+SCALING_SIZES, SCALING_ITERS = (1, 2, 4, 8), 10
+
+
+def scaling_case(n: int):
+    """`bench_scaling.py`'s step at a global batch of n images: (cfg,
+    class points, extents, symmetry, the global host batch)."""
+    c, (h, w), p_pts = SCALING_CLASSES, SCALING_HW, SCALING_POINTS
+    rng = np.random.RandomState(0)
+    points = (rng.rand(c, p_pts, 3).astype(np.float32) - 0.5) * 0.12
+    points[0] = 0
+    extents = np.abs(points).max(1) * 2
+    k = np.array([[150.0, 0, w / 2], [0, 150.0, h / 2], [0, 0, 1]], np.float32)
+    gen = SyntheticSceneGenerator(points, extents, k, width=w, height=h, min_objects=1,
+                                  max_objects=2, t_near=0.6, t_far=1.2, seed=3)
+    gen.rng = np.random.RandomState(1)
+    cfg = cfg_from_dict({"train": {"num_classes": c, "vertex_reg_2d": True, "pose_reg": True,
+                                   "ims_per_batch": n, "hough_num_samples": 32,
+                                   "max_rois": 4 * n, "add_num_points": p_pts},
+                         "parallel": {"num_data": n}})
+    return (cfg, points, extents, np.zeros(c, np.float32),
+            gen.minibatch(n, dense_vertex_targets=False))
+
+
+def _scaling_rank(rank: int, device, n: int, out_dir: str) -> None:
+    """One rank of `bench scaling` at n ranks: the step on its share of the
+    global batch, a warm-up step, then SCALING_ITERS timed; writes its
+    seconds a step to `out_dir/<rank>.json`."""
+    from posecnn_torch.data.pipeline import make_sharded_device_put
+    from posecnn_torch.engine.train import TrainStep
+    from posecnn_torch.parallel.mesh import create_mesh
+
+    device = setup_device(str(device))
+    cfg, points, extents, symmetry, feed = scaling_case(n)
+    mesh = create_mesh(num_data=n)
+    model = PoseCNN(SCALING_CLASSES, compute_dtype=torch.float32, **SCALING_MODEL)
+    init_weights(model, 0)
+    model = model.to(device)
+    state = create_train_state(cfg, model, mesh)
+    step = make_train_step(cfg, model, *(torch.from_numpy(a).to(device)
+                                         for a in (points, extents, symmetry)), mesh=mesh)
+    batch = make_sharded_device_put(mesh, device=device)(feed)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    metrics = TrainStep.__call__(step, state, batch)  # the warm-up
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(SCALING_ITERS):
+        metrics = TrainStep.__call__(step, state, batch)
+    loss = float(metrics["loss"])  # waits for the last step
+    sync()
+    with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+        json.dump({"s_per_iter": (time.perf_counter() - t0) / SCALING_ITERS, "loss": loss}, f)
+
+
+def bench_scaling(device, ranks: int = SCALING_SIZES[-1]) -> list:
+    """`bench_scaling.py` (see the module's docstring): a line a size, the
+    efficiencies, and on one card or the CPU the mechanism's note."""
+    from posecnn_torch.parallel.mesh import spawn_ranks
+
+    sizes = [n for n in SCALING_SIZES if n <= ranks]
+    if not sizes:
+        raise ValueError(f"bench scaling: --ranks {ranks} leaves no size of {SCALING_SIZES}")
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    where = card_line() if device.type == "cuda" else {"device": "cpu"}
+    if device.type == "cuda" and device.index is None:  # a rank's device names its card
+        device = torch.device("cuda", torch.cuda.current_device())
+    lines, shared = [], False
+    for n in sizes:
+        if device.type == "cuda" and cards >= n > 1:
+            devices, backend = [f"cuda:{r}" for r in range(n)], "nccl"
+        else:
+            devices, backend = [str(device)] * n, "gloo"
+            shared |= n > 1
+        with tempfile.TemporaryDirectory(prefix="posecnn_scaling_") as out:
+            # on the host the ranks split its cores rather than oversubscribe them
+            threads = max(1, (os.cpu_count() or 1) // n) if device.type == "cpu" else 0
+            spawn_ranks(_scaling_rank, n, (n, out), devices=devices, backend=backend,
+                        rendezvous_dir=out, num_threads=threads)
+            rows = []
+            for r in range(n):
+                with open(os.path.join(out, f"{r}.json")) as f:
+                    rows.append(json.load(f))
+        s_per_iter = max(row["s_per_iter"] for row in rows)
+        lines.append({"devices": n, "s_per_iter": s_per_iter, "images_per_s": n / s_per_iter,
+                      "loss": rows[0]["loss"], "backend": backend, "ranks_on": devices[0]
+                      if len(set(devices)) == 1 else "one a card", **where})
+    base = lines[0]["images_per_s"] if sizes[0] == 1 else None
+    if base is not None:
+        lines += [{"devices": line["devices"],
+                   "weak_scaling_efficiency": line["images_per_s"] / (base * line["devices"])}
+                  for line in lines[1:]]
+    if shared:
+        lines.append({"scaling": "mechanism", "note": f"the ranks shared one "
+                      f"{'card' if device.type == 'cuda' else 'host'} ({lines[0]['device']}), so "
+                      "these lines check the data-parallel mechanism and its timing, not "
+                      "scaling"})
+    return lines
+
+
 COMMANDS = {"infer": bench_infer, "phases": bench_phases, "train": bench_train, "c2f": bench_c2f,
             "components": bench_components, "hough": bench_hough,
             "train_components": bench_train_components, "train_mfu": bench_train_mfu,
-            "profile": bench_profile}
+            "profile": bench_profile, "scaling": bench_scaling}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description="time the port's flagship forward and training "
                                 "step on one CUDA card, as the JAX repository's benches do")
     p.add_argument("command", nargs="?", default="infer", choices=tuple(COMMANDS))
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                   help="cpu: `scaling` only, its ranks on the host over gloo")
+    p.add_argument("--ranks", type=int, default=SCALING_SIZES[-1],
+                   help="scaling: the largest rank count tried")
     args = p.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("posecnn_torch.bench: no CUDA device; the bench times the card and has no CPU "
-              "mode", file=sys.stderr)
+    if args.device == "cpu" and args.command != "scaling":
+        print(f"posecnn_torch.bench {args.command}: times the card and has no CPU mode",
+              file=sys.stderr)
         return 2
-    for line in COMMANDS[args.command](setup_device("cuda")):
+    if args.device == "cuda" and not torch.cuda.is_available():
+        print("posecnn_torch.bench: no CUDA device; the bench times the card (only `scaling` "
+              "has a CPU mode, --device cpu)", file=sys.stderr)
+        return 2
+    device = setup_device(args.device)
+    lines = (bench_scaling(device, args.ranks) if args.command == "scaling"
+             else COMMANDS[args.command](device))
+    for line in lines:
         print(json.dumps(line), flush=True)
     return 0
 

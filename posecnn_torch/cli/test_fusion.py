@@ -16,7 +16,11 @@ sequence with known ground truth:
     python -m posecnn_torch.cli.test_fusion --output output/test_fusion [--grid_size 64]
 
 Writes `<output>/fusion_report.json`; `--visualize` also writes each
-frame's raycast label and depth images.
+frame's raycast label and depth images. On a card `fuse_frame`, `raycast`,
+`track_camera` and `extract_mesh` run compiled (`utils/graph.compile_static`,
+the counterpart of their `jax.jit`), one CUDA graph each, the volume bound
+in place; each output is fetched before the program's next call.
+`extract_surface` runs eagerly, as in JAX; with `--device cpu` all do.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from posecnn_torch.refine.fusion import (
     save_mesh_ply,
     track_camera,
 )
+from posecnn_torch.utils.graph import compile_static
 from posecnn_torch.utils.visualize import label_to_color, save_image
 
 EYE34 = np.concatenate([np.eye(3), np.zeros((3, 1))], 1).astype(np.float32)
@@ -83,6 +88,10 @@ def main(argv=None) -> dict:
     span = cfg.train.syn_tfar + 0.3
     vol = create_volume(args.grid_size, c, origin=(-span / 2, -span / 2, 0.2),
                         voxel_size=span / args.grid_size, device=device)
+    fuse = compile_static(fuse_frame, inplace=("vol",))
+    cast = compile_static(raycast, inplace=("vol",))
+    track = compile_static(track_camera)
+    mesh = compile_static(extract_mesh, inplace=("vol",))
 
     # 1. fuse every frame at its GT pose
     w2l_list = []
@@ -90,14 +99,14 @@ def main(argv=None) -> dict:
         w2l = EYE34 if t == 0 else seq["meta"][t, 0][18:30].reshape(3, 4).astype(np.float32)
         w2l_list.append(w2l)
         prob = F.one_hot(dev(seq["label"][t, 0]).long(), c).float()
-        fuse_frame(vol, dev(seq["depth"][t, 0]), prob, kt, dev(w2l))
+        fuse(vol, dev(seq["depth"][t, 0]), prob, kt, dev(w2l))
 
     # 2. raycast from each pose against the GT depth and labels
     os.makedirs(args.output, exist_ok=True)
     depth_errs, label_accs = [], []
     for t in range(args.num_steps):
-        d_pred, _, lab_pred = raycast(vol, kt, dev(cam_to_world(w2l_list[t])), height=h,
-                                      width=w, near=0.2, far=span + 0.2)
+        d_pred, _, lab_pred = cast(vol, kt, dev(cam_to_world(w2l_list[t])), height=h, width=w,
+                                   near=0.2, far=span + 0.2)
         d_pred, lab_pred = d_pred.cpu().numpy(), lab_pred.cpu().numpy()
         d_gt = seq["depth"][t, 0]
         both = (d_pred > 1e-6) & (d_gt > 1e-6)
@@ -116,10 +125,10 @@ def main(argv=None) -> dict:
     # 3. frame-to-model tracking against the GT relative motion
     rot_errs, trans_errs = [], []
     for t in range(1, args.num_steps):
-        model_depth, _, _ = raycast(vol, kt, dev(cam_to_world(w2l_list[t - 1])), height=h,
-                                    width=w, near=0.2, far=span + 0.2)
-        rt = track_camera(dev(seq["depth"][t, 0]), model_depth, kt, dev(EYE34),
-                          num_iters=8).cpu().numpy()
+        model_depth, _, _ = cast(vol, kt, dev(cam_to_world(w2l_list[t - 1])), height=h,
+                                 width=w, near=0.2, far=span + 0.2)
+        rt = track(dev(seq["depth"][t, 0]), model_depth, kt, dev(EYE34),
+                   num_iters=8).cpu().numpy()
         r_prev = w2l_list[t - 1][:, :3]
         rel_r = w2l_list[t][:, :3] @ r_prev.T  # cam_t ← world ← cam_{t−1}
         rel_t = w2l_list[t][:, 3] - rel_r @ w2l_list[t - 1][:, 3]
@@ -130,7 +139,7 @@ def main(argv=None) -> dict:
     # 4. the labelled surface and the mesh
     _, labels_surf, valid = extract_surface(vol, max_points=16384)
     valid, labels_surf = valid.cpu().numpy(), labels_surf.cpu().numpy()
-    tri_verts, tri_labels, tri_valid = extract_mesh(vol, max_triangles=16384)
+    tri_verts, tri_labels, tri_valid = mesh(vol, max_triangles=16384)
     tv = tri_verts.cpu().numpy()[tri_valid.cpu().numpy()]
     mesh_area = float(0.5 * np.linalg.norm(
         np.cross(tv[:, 1] - tv[:, 0], tv[:, 2] - tv[:, 0]), axis=1).sum()) if len(tv) else 0.0

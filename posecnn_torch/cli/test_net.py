@@ -31,9 +31,11 @@ optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
 
 On the card the posecnn forward with NMS's device part runs compiled, one
 CUDA graph per input signature (RGB, or RGBD with its depth blob), and so
-does ICP, one graph per object count (`utils/graph.compile_static`; JAX
-jits both); their NMS's scan (`ops/nms.greedy_keep`) stays on the host.
-`--device cpu` runs every program eagerly.
+does ICP, one graph per object count, and `--ransac`'s `estimate_center`,
+one graph at (1024, 64) (`utils/graph.compile_static`; JAX jits all three);
+their NMS's scan (`ops/nms.greedy_keep`) and RANSAC's draw stay on the
+host. The evaluator's pose errors run compiled too (`PoseEvaluator`, one
+graph per padded row count). `--device cpu` runs every program eagerly.
 
 `<output>/eval.json` holds the evaluator's summary, as the JAX test_net
 writes it, and under "run" the device, the images/s of the loop and the
@@ -170,11 +172,14 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
-def ransac_translation(label, vertex_pred, dets, k, seed):
+def ransac_translation(label, vertex_pred, dets, k, seed, estimate=estimate_center):
     """Each detection's translation from a RANSAC centre of its class's
-    vertex directions (up to 1024 pixels, 64 hypotheses drawn from a
-    generator seeded by (seed, detection index)) and the median voted
-    depth. label (H, W) int numpy; vertex_pred (H, W, 3C) on the device."""
+    vertex directions (up to 1024 pixels, padded to 1024 as JAX pads them,
+    64 hypotheses drawn on the host from a generator seeded by (seed,
+    detection index)) and the median voted depth. label (H, W) int numpy;
+    vertex_pred (H, W, 3C) on the device. `estimate` is `estimate_center`,
+    or it compiled (one graph at (1024, 64)); each centre is fetched before
+    the next call."""
     n_fix = 1024
     dev = vertex_pred.device
     out = []
@@ -195,7 +200,7 @@ def ransac_translation(label, vertex_pred, dets, k, seed):
         valid[:m] = True
         seq = np.random.SeedSequence([seed, di])
         g = torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
-        est = estimate_center(px_xy, dirs, valid, draw_hypotheses(valid, 64, 2, g))
+        est = estimate(px_xy, dirs, valid, draw_hypotheses(valid, 64, 2, g, n_valid=m))
         cxy = est.center.cpu().numpy()
         z = float(np.median(torch.exp(vp[:, 2]).cpu().numpy()))
         t_new = np.array([(cxy[0] - k[0, 2]) / k[0, 0] * z, (cxy[1] - k[1, 2]) / k[1, 1] * z, z],
@@ -437,6 +442,7 @@ def main(argv=None) -> dict:
     forward = compile_static(partial(forward_with_suppression, model,
                                      nms_threshold=cfg.test.nms_threshold))
     refine = compile_static(icp_refine_batch)
+    center = compile_static(estimate_center)
 
     def rendered_frame():
         sample = gen.render()
@@ -515,7 +521,7 @@ def main(argv=None) -> dict:
         dets = extract_detections(rois, out.hough.poses_init.cpu().numpy(),
                                   out.poses_pred.cpu().numpy(), keep.cpu().numpy(), c)
         if use_ransac and dets:
-            dets = ransac_translation(label, out.vertex_pred[0], dets, kk, args.seed)
+            dets = ransac_translation(label, out.vertex_pred[0], dets, kk, args.seed, center)
         if args.save_results:
             np.savez_compressed(
                 os.path.join(args.output, f"results_{i:04d}.npz"),

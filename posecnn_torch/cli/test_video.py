@@ -19,7 +19,10 @@ CLI builds it. Its forward is compiled (`video_labels` through
 `utils/graph.compile_static`, the counterpart of the JAX CLI's
 `jax.jit(model.apply)`): on a card one CUDA graph per sequence signature,
 its labels fetched before the next call; with `--device cpu` it runs
-eagerly. Fusion, tracking and extraction run eagerly.
+eagerly. `fuse_frame` and `track_camera` are compiled the same way (JAX
+jits both): one graph each a run, the volume made once, bound in place
+(`compile_static`'s `inplace`) and cleared in place for each sequence;
+`extract_surface` runs eagerly, as in JAX.
 
 Writes `<output>/video_eval.json`: per sequence the mean IoU, the surface
 point count and the tracked motion of each frame (metres), the JAX CLI's
@@ -126,10 +129,16 @@ def main(argv=None):
         restore_params(args.ckpt, model)
     model = model.to(device).eval()
     forward = compile_static(partial(video_labels, model))
+    fuse = compile_static(fuse_frame, inplace=("vol",))
+    track = compile_static(track_camera)
 
     os.makedirs(args.output, exist_ok=True)
     eye = torch.from_numpy(EYE34).to(device)
     gs = args.grid_size or cfg.test.grid_size
+    # a fixed physical span (voxels scale inversely with the grid), one
+    # volume for the run: the fuse program is bound to its tensors
+    vol = create_volume(gs, c, origin=(-0.8, -0.6, 0.3), voxel_size=0.035 * 48.0 / gs,
+                        device=device)
     results = []
     for s in range(args.num_sequences):
         sec = dict.fromkeys(STAGES, 0.0)
@@ -152,11 +161,11 @@ def main(argv=None):
             hist += fast_hist(gt[t].flatten(), labels_pred[t].flatten(), c)
         iou = iou_from_hist(hist)
 
-        # fuse the predicted labels and the depth, a fixed physical span
-        # (voxels scale inversely with the grid), and track each frame
-        # against the previous frame's depth
-        vol = create_volume(gs, c, origin=(-0.8, -0.6, 0.3), voxel_size=0.035 * 48.0 / gs,
-                            device=device)
+        # fuse the predicted labels and the depth into the cleared volume,
+        # and track each frame against the previous frame's depth
+        vol.tsdf.fill_(1.0)
+        vol.weight.zero_()
+        vol.prob.zero_()
         kt = torch.from_numpy(k).to(device)
         depths = blobs[1][:, 0]
         track_errs = []
@@ -164,12 +173,12 @@ def main(argv=None):
             t0 = time.perf_counter()
             w2l = EYE34 if t == 0 else seq["meta"][t, 0][18:30].reshape(3, 4).astype(np.float32)
             prob = F.one_hot(labels[t, 0], c).float()
-            fuse_frame(vol, depths[t], prob, kt, torch.from_numpy(w2l).to(device))
+            fuse(vol, depths[t], prob, kt, torch.from_numpy(w2l).to(device))
             sync()
             sec["fuse"] += time.perf_counter() - t0
             if t > 0:
                 t0 = time.perf_counter()
-                rt = track_camera(depths[t], depths[t - 1], kt, eye, num_iters=6)
+                rt = track(depths[t], depths[t - 1], kt, eye, num_iters=6)
                 track_errs.append(float(torch.linalg.vector_norm(rt[:, 3])))
                 sec["track"] += time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -180,7 +189,6 @@ def main(argv=None):
                         "surface_points": n_surface, "tracked_motion_m": track_errs,
                         "seconds": sec})
         print(f"seq {s}: IoU {results[-1]['mean_iou']:.3f}, surface {n_surface} pts")
-        del vol
 
     with open(os.path.join(args.output, "video_eval.json"), "w") as f:
         json.dump(results, f, indent=2)

@@ -10,7 +10,14 @@
 `PoseEvaluator` matches each image's detections to its GT poses on the
 host, computes every matched pair's errors on its `device` in one batched
 call, and accumulates them on the host in numpy, as the JAX evaluator
-does. `detection_ap` scores the detection family's boxes (AP@IoU).
+does. That call is `pair_errors`, the counterpart of the JAX evaluator's
+jitted `_pose_errors_one` (`posecnn_tpu/engine/evaluate.py:42`) batched
+over an image's pairs, compiled with `utils/graph.compile_static`: the
+pairs are padded (`padded_pairs`, repeating the last) to a power of two of
+at least 8 rows, so a run captures few graphs, and every row carries a
+z-flip flag, so the 180° retry runs for every row inside the one program
+and is kept per row. `detection_ap` scores the detection family's boxes
+(AP@IoU).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import numpy as np
 import torch
 
 from posecnn_torch.utils import pose_error
+from posecnn_torch.utils.graph import compile_static, device_constant
 from posecnn_torch.utils.quaternion import quat_mul, quat_to_mat
 
 
@@ -52,6 +60,27 @@ def pose_errors(q_est, t_est, q_gt, t_gt, pts, k):
 
 # 180° about the object z axis (wxyz), the LINEMOD eggbox ambiguity
 _Z_FLIP = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+
+
+def pair_errors(q_est, t_est, q_gt, t_gt, cls, flip, points, k):
+    """The (R, 5) errors (ADD, ADD-S, RE, TE, reprojection) of R pairs:
+    quaternions (R, 4), translations (R, 3), classes cls (R,) int64 into
+    points (C, P, 3), flip (R,) bool, intrinsics k (3, 3). A row with flip
+    keeps its errors against the GT turned 180° about z where that ADD is
+    lower (the retry runs for every row). The program `PoseEvaluator`
+    compiles: it reads nothing on the host."""
+    pts = points[cls]
+    errs = torch.stack(pose_errors(q_est, t_est, q_gt, t_gt, pts, k), -1)
+    q_flip = quat_mul(q_gt, device_constant(_Z_FLIP.tolist(), q_gt.device))
+    alt = torch.stack(pose_errors(q_est, t_est, q_flip, t_gt, pts, k), -1)
+    better = flip & (alt[:, 0] < errs[:, 0])
+    return torch.where(better[:, None], alt, errs)
+
+
+def padded_pairs(n: int) -> int:
+    """The rows `pair_errors` runs at for n pairs: the next power of two,
+    at least 8, so that a run captures one graph per power."""
+    return max(8, 1 << max(n - 1, 0).bit_length())
 
 
 @dataclass
@@ -88,6 +117,7 @@ class PoseEvaluator:
         dev = torch.device(self.device)
         self._points = torch.as_tensor(np.asarray(self.points, np.float32), device=dev)
         self._k = torch.as_tensor(np.asarray(self.intrinsics, np.float32), device=dev)
+        self._errors = compile_static(pair_errors)  # one CUDA graph per padded row count
 
     def add_segmentation(self, gt_label: np.ndarray, pred_label: np.ndarray):
         self.seg_hist += fast_hist(gt_label.flatten(), pred_label.flatten(), self.num_classes)
@@ -135,29 +165,26 @@ class PoseEvaluator:
             records.extend((cls, None) for j in range(len(gts_c)) if j not in matched)
         return records
 
-    def _pair_errors(self, pairs):
-        """(len(pairs), 5) errors of (cls, q_est, t_est, q_gt, t_gt) pairs,
-        in one batched call on the device, with the z-flip retry (keep the
-        flipped GT where its ADD is lower) for the z-flip classes."""
+    def pair_inputs(self, pairs) -> tuple:
+        """`pair_errors`' arguments for (cls, q_est, t_est, q_gt, t_gt)
+        pairs on the device, padded on the host to `padded_pairs` rows by
+        repeating the last pair."""
         dev = self._points.device
+        n = len(pairs)
+        padded = list(pairs) + [pairs[-1]] * (padded_pairs(n) - n)
 
-        def rows(i):
-            return torch.as_tensor(np.stack([np.asarray(p[i], np.float32) for p in pairs]),
-                                   device=dev)
+        def column(i, dtype=np.float32):
+            return torch.from_numpy(np.stack([np.asarray(p[i], dtype) for p in padded])).to(dev)
 
-        cls = torch.as_tensor([p[0] for p in pairs], device=dev)
-        q_est, t_est, q_gt, t_gt = rows(1), rows(2), rows(3), rows(4)
-        pts = self._points[cls]
-        errs = torch.stack(pose_errors(q_est, t_est, q_gt, t_gt, pts, self._k), -1)
-        flip = [i for i, p in enumerate(pairs) if p[0] in self.z_flip_classes]
-        if flip:
-            sel = torch.as_tensor(flip, device=dev)
-            q_flip = quat_mul(q_gt[sel], torch.as_tensor(_Z_FLIP, device=dev))
-            alt = torch.stack(pose_errors(q_est[sel], t_est[sel], q_flip, t_gt[sel], pts[sel],
-                                          self._k), -1)
-            better = alt[:, 0] < errs[sel, 0]
-            errs[sel] = torch.where(better[:, None], alt, errs[sel])
-        return errs.cpu().numpy()
+        cls = torch.from_numpy(np.asarray([p[0] for p in padded], np.int64)).to(dev)
+        flip = torch.from_numpy(np.asarray([p[0] in self.z_flip_classes for p in padded])).to(dev)
+        return column(1), column(2), column(3), column(4), cls, flip, self._points, self._k
+
+    def _pair_errors(self, pairs):
+        """(len(pairs), 5) errors of (cls, q_est, t_est, q_gt, t_gt) pairs:
+        one call of the compiled `pair_errors` on the padded rows, with the
+        z-flip retry for the z-flip classes, the real rows fetched."""
+        return self._errors(*self.pair_inputs(pairs)).cpu().numpy()[:len(pairs)]
 
     def add_image(self, detections: list, gts: list):
         """detections, gts: [(cls, quat (4,), t (3,))]. An unmatched GT

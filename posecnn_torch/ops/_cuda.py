@@ -49,6 +49,7 @@ LIBRARIES = {
         "hough_window_votes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "nms_scan": {"nms_scan": [_P, _P, _P, _P, _I, _I, _P, _P]},
+    "kabsch": {"kabsch_rotations": [_P, _P, _P, _I, _P, _P]},
 }
 
 _locks = {name: threading.Lock() for name in LIBRARIES}
@@ -117,9 +118,9 @@ def check(status: int, what: str) -> None:
 
 
 # the kernels by the names the counts use, each with its slot in a
-# device's counters: the three vote kernels (ops/hough_kernels.py) and the
-# NMS scan (ops/nms.py)
-KERNELS = ("tile", "flat", "window", "scan")
+# device's counters: the three vote kernels (ops/hough_kernels.py), the
+# NMS scan (ops/nms.py) and the Kabsch rotation (refine/ransac.py)
+KERNELS = ("tile", "flat", "window", "scan", "kabsch")
 # launches since the last reset, by kernel; chip_smoke.py reads them to
 # show that each path went through its kernels
 LAUNCHES = dict.fromkeys(KERNELS, 0)

@@ -21,6 +21,17 @@ updates the volume's tensors in place (and returns it), in slabs of x:
 at grid 512 with 10 classes the probability volume alone is 5.4 GB, and a
 whole-volume `torch.where` would make two or three more of it.
 
+The JAX package jits `fuse_frame`, `raycast`, `track_camera` and
+`extract_mesh` (`posecnn_tpu/refine/fusion.py:74`, `:145`, `:204`, `:304`);
+the CLIs compile them with `utils/graph.compile_static`, one CUDA graph per
+(G, C, H, W), (G, H, W, num_steps), (H, W, num_iters, max_points) and (G,
+max_triangles), the volume bound in place where a program takes it
+(`inplace=("vol",)`: captured at its address, never copied; `fuse_frame`
+writes it, the others read it). So their bodies read nothing on the host:
+their constants are device buffers made once (`utils/graph.device_constant`),
+and `raycast`'s 192-step march unrolls into its graph. `extract_surface`
+stays eager, as the JAX package leaves it.
+
 Index casts follow XLA's results: a projection far outside the image is
 clamped before the cast (JAX's cast saturates; torch's is undefined out
 of range), which leaves every such voxel out of the image as in JAX.
@@ -39,6 +50,7 @@ import torch
 
 from posecnn_torch.ops.normals import backproject_depth, depth_to_normals
 from posecnn_torch.refine.icp import _associate, _gn_step
+from posecnn_torch.utils.graph import device_constant
 
 
 class TSDFVolume(NamedTuple):
@@ -236,10 +248,8 @@ def _slab_triangles(vol: TSDFVolume, xs: torch.Tensor, iso: float, per_slab: int
     3, 3) voxel-unit vertices and (S, per_slab) scores (−inf where none)."""
     dev = vol.tsdf.device
     n = vol.tsdf.shape[0] - 1
-    offs = torch.tensor(_CUBE_OFFS, device=dev)
-    tets = torch.tensor(_TETS, device=dev)
-    edges = torch.tensor(_TET_EDGES, device=dev)
-    table = torch.tensor(_TET_TRI_TABLE, device=dev)
+    offs, tets, edges, table = (device_constant(t, dev, torch.long)
+                                for t in (_CUBE_OFFS, _TETS, _TET_EDGES, _TET_TRI_TABLE))
     ar = torch.arange(n, device=dev)
     s = xs.shape[0]
     shape = (s, 8, n, n)
@@ -310,7 +320,8 @@ def extract_mesh(vol: TSDFVolume, max_triangles: int = 16384, iso: float = 0.0,
     geom_n = torch.linalg.cross(verts_vox[:, 1] - verts_vox[:, 0],
                                 verts_vox[:, 2] - verts_vox[:, 0], dim=-1)
     flip = ((geom_n * grad).sum(-1) < 0)[:, None, None]
-    verts_vox = torch.where(flip, verts_vox[:, [0, 2, 1]], verts_vox)
+    swapped = torch.stack([verts_vox[:, 0], verts_vox[:, 2], verts_vox[:, 1]], 1)
+    verts_vox = torch.where(flip, swapped, verts_vox)
     verts = vol.origin + verts_vox * vol.voxel_size
     # the label: the argmax class probability at the centroid voxel
     cent = _index(verts_vox.mean(1), -1, g).clamp(0, g - 1)

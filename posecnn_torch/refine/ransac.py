@@ -17,13 +17,26 @@ package draws its hypotheses with `jax.random`, which torch cannot
 reproduce: `draw_hypotheses` draws the pixel indices from a seeded
 `torch.Generator`, and the bodies take them as an argument, so a test can
 feed both packages the same indices.
+
+The bodies are what the JAX package jits (`posecnn_tpu/refine/ransac.py:50`,
+`:135`), and callers compile them with `utils/graph.compile_static`, one
+CUDA graph per (N, Hyp) signature; the draw stays on the host, outside the
+graph. So a body reads nothing on the host: the best hypothesis is taken
+with `index_select` (an index by a 0-d tensor is read on the host), and
+Kabsch's rotation on a card is the CUDA kernel `kabsch_kernel`
+(`csrc/kabsch.cu`, `kabsch_rotation`): `torch.linalg.svd` on a CUDA tensor
+copies its solver's status to the host, which a capture refuses. Its plain
+version, `kabsch_rotation_plain`, the SVD and the reflection fix in
+PyTorch ops, runs on the CPU.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
+
+from posecnn_torch.ops import _cuda
 
 
 class CenterEstimate(NamedTuple):
@@ -40,15 +53,22 @@ class PoseEstimate(NamedTuple):
 
 
 def draw_hypotheses(valid: torch.Tensor, num_hypotheses: int, size: int,
-                    generator: torch.Generator) -> torch.Tensor:
+                    generator: torch.Generator, n_valid: Optional[int] = None) -> torch.Tensor:
     """(num_hypotheses, size) indices of valid entries, each drawn
     uniformly and independently, on `valid`'s device. `generator` is a
     CPU generator: the draw is the same on every device. With no valid
-    entry, index 0 throughout (the bodies then report no inliers)."""
+    entry, index 0 throughout (the bodies then report no inliers). A
+    caller that knows the count of valid entries passes it as `n_valid`,
+    and the draw then reads nothing from the device."""
     order = torch.argsort((~valid).to(torch.uint8), stable=True)  # valid entries first
-    n_valid = max(int(valid.sum()), 1)
+    n_valid = max(int(valid.sum()) if n_valid is None else n_valid, 1)
     pos = torch.randint(0, n_valid, (num_hypotheses, size), generator=generator)
     return order[pos.to(valid.device)]
+
+
+def _pick(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """x[index] for a 0-d index tensor, without reading it on the host."""
+    return torch.index_select(x, 0, index.reshape(1))[0]
 
 
 def _line_intersection(p0, d0, p1, d1):
@@ -80,8 +100,8 @@ def estimate_center(pixels_xy, directions, valid, pairs, *,
     counts = _cone_inliers(c, pixels_xy, directions, valid, inlier_threshold).sum(-1)
     scores = torch.where(ok, counts, -1)
     best = torch.argmax(scores)
-    any_ok = scores[best] >= 0  # no usable hypothesis on all-invalid input
-    c_best = c[best]
+    any_ok = _pick(scores, best) >= 0  # no usable hypothesis on all-invalid input
+    c_best = _pick(c, best)
 
     # weighted least squares over the best hypothesis' inliers: each line
     # through p with direction u contributes ((c − p)·n)², n ⟂ u
@@ -102,20 +122,61 @@ def estimate_center(pixels_xy, directions, valid, pairs, *,
     )
 
 
-def _kabsch(src, dst, w):
-    """Weighted rigid alignment dst ≈ R·src + t, batched: src, dst
-    (…, N, 3), w (…, N) → R (…, 3, 3), t (…, 3). The SVD's signs may
-    differ between LAPACK builds; R does not where the singular values
-    are distinct."""
-    wsum = torch.clamp(w.sum(-1), min=1e-10)[..., None]
-    mu_s = (src * w[..., None]).sum(-2) / wsum
-    mu_d = (dst * w[..., None]).sum(-2) / wsum
-    cov = ((src - mu_s[..., None, :]) * w[..., None]).transpose(-1, -2) @ (dst - mu_d[..., None, :])
+def kabsch_rotation_plain(cov: torch.Tensor) -> torch.Tensor:
+    """`kabsch_rotation` in PyTorch ops, on any device: U S Vᵀ = svd(cov),
+    R = V diag(1, 1, det(V Uᵀ)) Uᵀ (`posecnn_tpu/refine/ransac.py:119-122`).
+    The SVD's signs may differ between LAPACK builds; R does not where the
+    singular values are distinct."""
     u, _, vt = torch.linalg.svd(cov)
     v = vt.transpose(-1, -2)
     det = torch.linalg.det(v @ u.transpose(-1, -2))
     sgn = torch.diag_embed(torch.stack([torch.ones_like(det), torch.ones_like(det), det], -1))
-    r = v @ sgn @ u.transpose(-1, -2)
+    return v @ sgn @ u.transpose(-1, -2)
+
+
+def kabsch_rotation(cov: torch.Tensor, sweeps: bool = False):
+    """The rotation R (…, 3, 3) maximising trace(R·cov) of fp32
+    cross-covariances cov (…, 3, 3) (`Σ w (s − μs)(d − μd)ᵀ`), so that
+    d ≈ R s + t. On a CUDA tensor one launch of `kabsch_kernel`
+    (`csrc/kabsch.cu`: one thread a matrix, one-sided Jacobi sweeps), which
+    also returns each matrix's sweeps (…,) int32 with `sweeps`; on the CPU
+    `kabsch_rotation_plain` (no sweeps: None)."""
+    if cov.device.type == "cpu":
+        r = kabsch_rotation_plain(cov)
+        return (r, None) if sweeps else r
+    if cov.shape[-2:] != (3, 3) or cov.dtype != torch.float32:
+        raise ValueError(f"kabsch_rotation: cov must be fp32 (…, 3, 3), got {cov.dtype} "
+                         f"{tuple(cov.shape)}")
+    flat = cov.reshape(-1, 9).contiguous()
+    rot = torch.empty_like(flat)
+    ran = torch.empty(flat.shape[0], dtype=torch.int32, device=cov.device) if sweeps else None
+    lib = _cuda.library("kabsch")
+    with torch.cuda.device(cov.device):
+        status = lib.kabsch_rotations(flat.data_ptr(), rot.data_ptr(),
+                                      ran.data_ptr() if sweeps else None, flat.shape[0],
+                                      _cuda.device_counter(cov.device, "kabsch"),
+                                      torch.cuda.current_stream().cuda_stream)
+    _cuda.check(status, "kabsch_kernel")
+    _cuda.count("kabsch")
+    rot = rot.reshape(cov.shape)
+    return (rot, ran.reshape(cov.shape[:-2])) if sweeps else rot
+
+
+def weighted_covariance(src, dst, w):
+    """The weighted means and cross-covariance of src, dst (…, N, 3) under
+    w (…, N): (cov (…, 3, 3), mu_s (…, 3), mu_d (…, 3))."""
+    wsum = torch.clamp(w.sum(-1), min=1e-10)[..., None]
+    mu_s = (src * w[..., None]).sum(-2) / wsum
+    mu_d = (dst * w[..., None]).sum(-2) / wsum
+    cov = ((src - mu_s[..., None, :]) * w[..., None]).transpose(-1, -2) @ (dst - mu_d[..., None, :])
+    return cov, mu_s, mu_d
+
+
+def _kabsch(src, dst, w):
+    """Weighted rigid alignment dst ≈ R·src + t, batched: src, dst
+    (…, N, 3), w (…, N) → R (…, 3, 3), t (…, 3)."""
+    cov, mu_s, mu_d = weighted_covariance(src, dst, w)
+    r = kabsch_rotation(cov)
     return r, mu_d - (r @ mu_s[..., None])[..., 0]
 
 
@@ -134,8 +195,8 @@ def estimate_pose_3d(obj_coords, cam_points, valid, triples, *,
     counts = _inliers_3d(rs, ts, obj_coords, cam_points, valid, inlier_threshold).sum(-1)
     scores = torch.where(w3.sum(-1) == 3, counts, -1)
     best = torch.argmax(scores)
-    any_ok = scores[best] >= 0
-    r, t = rs[best], ts[best]
+    any_ok = _pick(scores, best) >= 0
+    r, t = _pick(rs, best), _pick(ts, best)
     for _ in range(num_refine):
         w = _inliers_3d(r, t, obj_coords, cam_points, valid, inlier_threshold).float()
         r2, t2 = _kabsch(obj_coords, cam_points, w)

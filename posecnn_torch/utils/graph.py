@@ -14,6 +14,21 @@ may overwrite what the last returned. On a CPU device `fn` runs as it is (the ca
 the CPU; `jit` computes the same there); on a CUDA device a capture that
 fails raises with its cause, and nothing falls back to the eager call.
 
+`compile_static(fn, inplace=("vol",))` names arguments that the program
+reads and writes where they are: the counterpart of the state JAX threads
+through its program (a TSDF volume that `fuse_frame` updates, read by
+`raycast`), too large to copy on every call. Each may be a tensor or a
+tuple (a NamedTuple) of tensors. Its tensors are captured at their own
+addresses and never copied; their shapes and dtypes, not their values or
+addresses, enter the signature. Every later call of the signature must
+pass the same tensors: each one's `data_ptr()`, shape and dtype are
+checked against the captured ones, and a call with another tensor raises
+ValueError (nothing falls back to the eager call). Because a program with
+such arguments changes them, the first call of its signature is the real
+call, run eagerly (so the effect happens once), then the capture, which
+runs nothing; that call returns the eager outputs, later calls the
+graph's.
+
 The benches' loop, `capture_loop`, captures n data-dependent forwards in
 one graph, the counterpart of `jax.jit` over a `lax.fori_loop` as
 `bench.py:56-69` and `experiments/bench_graph_phases.py:71-82` use them.
@@ -41,6 +56,7 @@ on every call: a capture refuses a pageable host-to-device copy.
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Sequence
 
 import torch
@@ -67,11 +83,29 @@ def _key(a):
     return ("static", a)
 
 
-def signature(args, kwargs):
+def _leaves(a) -> list:
+    """The tensors of an in-place argument: a tensor, or a tuple of them."""
+    if isinstance(a, torch.Tensor):
+        return [a]
+    if isinstance(a, (tuple, list)) and all(isinstance(x, torch.Tensor) for x in a):
+        return list(a)
+    raise TypeError(f"compile_static: an in-place argument must be a tensor or a tuple of "
+                    f"tensors, got {type(a).__name__}")
+
+
+def _bound_key(a):
+    """An in-place argument's part of the signature: its type and each
+    tensor's shape, dtype and device (not its address)."""
+    return ("inplace", type(a).__name__, tuple(_key(t) for t in _leaves(a)))
+
+
+def signature(args, kwargs, inplace=frozenset()):
     """A call's key: each tensor argument's shape, dtype and device, and
-    every other argument's value (JAX's static arguments)."""
-    return (tuple(_key(a) for a in args),
-            tuple((name, _key(kwargs[name])) for name in sorted(kwargs)))
+    every other argument's value (JAX's static arguments). `inplace` holds
+    the positions and names of the in-place arguments."""
+    return (tuple(_bound_key(a) if i in inplace else _key(a) for i, a in enumerate(args)),
+            tuple((name, _bound_key(kwargs[name]) if name in inplace else _key(kwargs[name]))
+                  for name in sorted(kwargs)))
 
 
 def _one_device(tensors, what: str) -> torch.device:
@@ -85,30 +119,58 @@ def _one_device(tensors, what: str) -> torch.device:
     return devices.pop()
 
 
-class _Program:
-    """One signature's graph: static input buffers, outputs, launches."""
+def _layout(t: torch.Tensor):
+    return t.data_ptr(), tuple(t.shape), t.dtype
 
-    def __init__(self, fn, args, kwargs, device, pool):
+
+def _arg(args, kwargs, key):
+    """The argument at position `key` (an int) or named `key`."""
+    return args[key] if isinstance(key, int) else kwargs[key]
+
+
+class _Program:
+    """One signature's graph: static input buffers, outputs, launches.
+    The in-place arguments (`bound`: positions and names) are captured as
+    they are and their layouts kept; `first` holds the eager outputs of
+    the real call that preceded the capture of such a program."""
+
+    def __init__(self, fn, args, kwargs, device, pool, bound=frozenset()):
+        def copy(key, a):
+            return a.clone() if isinstance(a, torch.Tensor) and key not in bound else a
+
         with torch.inference_mode(False), torch.no_grad():
-            self.args = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
-            self.kwargs = {k: v.clone() if isinstance(v, torch.Tensor) else v
-                           for k, v in kwargs.items()}
+            self.args = [copy(i, a) for i, a in enumerate(args)]
+            self.kwargs = {k: copy(k, v) for k, v in kwargs.items()}
+        self.bound = {key: [_layout(t) for t in _leaves(_arg(args, kwargs, key))]
+                      for key in bound}
+        self.first = None
+
+        def warm():
+            out = fn(*args, **kwargs)
+            if bound:
+                self.first = out
+
         self.graph, self.outputs, self.launches = _capture(
-            lambda: fn(*args, **kwargs), lambda: fn(*self.args, **self.kwargs), device, pool)
+            warm, lambda: fn(*self.args, **self.kwargs), device, pool)
 
     def load(self, args, kwargs):
+        for key, layouts in self.bound.items():
+            if [_layout(t) for t in _leaves(_arg(args, kwargs, key))] != layouts:
+                raise ValueError(f"compile_static: in-place argument {key!r} is not the tensors "
+                                 "the graph was captured on (address, shape or dtype differs)")
         with torch.inference_mode(False), torch.no_grad():
-            for buf, a in zip(self.args, args):
-                if isinstance(a, torch.Tensor):
+            for i, (buf, a) in enumerate(zip(self.args, args)):
+                if isinstance(a, torch.Tensor) and i not in self.bound:
                     buf.copy_(a)
             for k, a in kwargs.items():
-                if isinstance(a, torch.Tensor):
+                if isinstance(a, torch.Tensor) and k not in self.bound:
                     self.kwargs[k].copy_(a)
 
 
 class compile_static:  # noqa: N801 — named and used as a function, as `jax.jit`
-    """`compile_static(fn)(*args, **kwargs)`: `fn` on those arguments,
-    through one CUDA graph per signature (see the module's docstring).
+    """`compile_static(fn, inplace=())(*args, **kwargs)`: `fn` on those
+    arguments, through one CUDA graph per signature (see the module's
+    docstring); `inplace` names the arguments bound at their addresses.
 
     The outputs are the graph's static tensors: the next call, of any
     signature, may overwrite them, so a caller that keeps an output past
@@ -119,22 +181,35 @@ class compile_static:  # noqa: N801 — named and used as a function, as `jax.ji
     `programs` maps each signature to its program; a program's `launches`
     are the CUDA kernels' launches in one replay. `fn` is the eager body."""
 
-    def __init__(self, fn: Callable):
+    def __init__(self, fn: Callable, inplace: Sequence[str] = ()):
         self.fn = fn
+        self.inplace = tuple(inplace)
+        names = list(inspect.signature(fn).parameters)
+        missing = [name for name in self.inplace if name not in names]
+        if missing:
+            raise ValueError(f"compile_static: {missing} are not arguments of {fn}")
+        self._positions = {names.index(name) for name in self.inplace}
         self.programs: dict = {}
         self._pool = None
 
     def __call__(self, *args, **kwargs):
-        device = _one_device([a for a in (*args, *kwargs.values())
-                              if isinstance(a, torch.Tensor)], "compile_static")
+        bound = {i for i in self._positions if i < len(args)}
+        bound |= {name for name in self.inplace if name in kwargs}
+        tensors = [t for key in bound for t in _leaves(_arg(args, kwargs, key))]
+        tensors += [a for a in (*args, *kwargs.values()) if isinstance(a, torch.Tensor)]
+        device = _one_device(tensors, "compile_static")
         if device.type != "cuda":
             return self.fn(*args, **kwargs)
-        sig = signature(args, kwargs)
+        sig = signature(args, kwargs, bound)
         program = self.programs.get(sig)
         if program is None:
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            program = self.programs[sig] = _Program(self.fn, args, kwargs, device, self._pool)
+            program = self.programs[sig] = _Program(self.fn, args, kwargs, device, self._pool,
+                                                    frozenset(bound))
+            if bound:  # the real call ran eagerly before the capture
+                first, program.first = program.first, None
+                return first
         else:
             program.load(args, kwargs)
         program.graph.replay()

@@ -92,7 +92,7 @@ COMPILED = {"fcn8": ttrain.CompiledSegTrainStep, "resnet50_seg": ttrain.Compiled
             "recurrent_seg": ttrain.CompiledVideoTrainStep, "gan": ttrain.CompiledGanTrainStep}
 EAGER = {"fcn8": ttrain.SegTrainStep, "resnet50_seg": ttrain.SegTrainStep,
          "recurrent_seg": ttrain.VideoTrainStep, "gan": ttrain.GanTrainStep}
-NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0}
+NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0}
 
 
 def generator(c, f, seed):
@@ -457,28 +457,31 @@ def test_test_video_through_its_compiled_forward(tmp_path, monkeypatch):
     calls = []
 
     class Recording:
-        def __init__(self, fn):
+        def __init__(self, fn, inplace=()):
             self.fn, self.programs = fn, {}
 
-        def __call__(self, *args):
-            out = self.fn(*args)
+        def __call__(self, *args, **kwargs):
+            out = self.fn(*args, **kwargs)
             calls.append((self.fn, args, out))
             return out
 
     monkeypatch.setattr(test_video, "compile_static", Recording)
     got = test_video.main(["--device", "cpu", "--output", str(tmp_path / "compiled"), *flags])
-    assert len(calls) == 2
-    for fn, args, labels in calls:
-        assert fn.func is test_video.video_labels
+    # the forward's calls; fuse_frame and track_camera are compiled too
+    forwards = [c for c in calls if getattr(c[0], "func", None) is test_video.video_labels]
+    assert len(forwards) == 2
+    assert {getattr(fn, "__name__", None) for fn, _, _ in calls} == {
+        None, "fuse_frame", "track_camera"}
+    for fn, args, labels in forwards:
         with torch.no_grad():
             assert torch.equal(labels, fn.args[0](*args)[1])
 
     class Eager:
-        def __init__(self, fn):
+        def __init__(self, fn, inplace=()):
             self.fn = fn
 
-        def __call__(self, *args):
-            return self.fn(*args)
+        def __call__(self, *args, **kwargs):
+            return self.fn(*args, **kwargs)
 
     monkeypatch.setattr(test_video, "compile_static", Eager)
     eager = test_video.main(["--device", "cpu", "--output", str(tmp_path / "eager"), *flags])
