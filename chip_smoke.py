@@ -24,13 +24,17 @@ that fails, with a non-zero exit:
      plain version's time and the kernel's bound, with torch.profiler's
      per-kernel device time as a cross-check; the exhaustive kernel's
      time beside the coarse-to-fine pair's on the same samples; the NMS
-     scan kernel (`nms_scan_kernel`) against its plain version bit for bit
-     at every `scan_case` (the RPN's (1, 2000) suppression matrix at
-     lov_det.yaml's shapes, test_net's (21, 128) per-class one, no valid
-     row, every row killing the later ones, no kills, N = 1, N = 33), one
-     launch each counted by the wrapper and on the device, with `ms`,
-     `call_ms`, the plain version's time and its bound at (1, 2000) and
-     (21, 128);
+     scan kernel (`nms_scan_kernel`, after its packing launch
+     `pack_kill_kernel`) against its plain version bit for bit at every
+     `scan_case` (the RPN's (1, 2000) suppression matrix at lov_det.yaml's
+     shapes, test_net's (21, 128) per-class one, the serving forward's
+     per-class ones at batch 1 and 4, (1, 16) and (1, 64), no valid row,
+     every row killing the later ones, no kills, N = 1, 31, 32, 33, 64, 65,
+     2048, 2049 and 4096 (the register and shared-memory masks), 64
+     leading indices), one scan launch each counted by the wrapper and on
+     the device, with `ms`, `call_ms`, each launch's device time
+     (profiler), the plain version's time and its bound at (1, 2000), (21,
+     128), (1, 16) and (1, 64);
   3. the planted scene through `hough_voting` on the card: the planted
      centres and depths are recovered;
   4. the whole model, small and in fp32, on the card against the CPU;
@@ -38,12 +42,14 @@ that fails, with a non-zero exit:
      fc_dim 4096, 1024 Hough samples, seeded random weights), its forward
      compiled (one CUDA graph per engine, `utils/graph.compile_static`),
      at engine batch 1 (5 requests) and 4 (8 requests from 4 clients
-     through the MicroBatcher): the captured forward records flat and
-     window once, the requests replay it (no wrapper call) and the
-     kernels count one flat and one window launch a forward on the
-     device; on three frames in a row (random, planted, zeros) the
-     graph's label, RoIs, poses and NMS keep mask equal the eager body's
-     bit for bit; flat, window and tile bit for bit against their plain
+     through the MicroBatcher), its per-class NMS inside the graph: the
+     captured forward records flat, window and the scan once, the requests
+     replay it (no wrapper call) and the kernels count one flat, one window
+     and one scan launch a forward on the device; on three frames in a row
+     (random, planted, zeros) the graph's label, RoIs, poses and NMS keep
+     mask equal the eager body's bit for bit; the planted frame's keep mask
+     equals the host scan (`greedy_keep`) of its RoIs' suppression matrix;
+     flat, window and tile bit for bit against their plain
      versions on the planted frame's Hough inputs (8 slots at batch 1, 32
      at batch 4, S = 1024); the forward's ms as the graph and eager (CUDA
      events); then 200 more requests: the median and p90
@@ -85,13 +91,14 @@ that fails, with a non-zero exit:
      (FlopCounterMode) with MFU;
   9. the evaluation path at full width (the flagship yaml, seeded random
      weights): `python -m posecnn_torch.cli.test_net --refine --ransac` in
-     process on 8 held-out frames, compiled (the forward one graph, ICP
+     process on 8 held-out frames, compiled (the forward with its NMS one
+     graph, one flat, window and scan launch a replay on the device, ICP
      one graph per object count, RANSAC's `estimate_center` one graph at
      (1024, 64), the evaluator's pose errors one graph per padded row
-     count), with images/s and the seconds of render, forward, NMS +
-     extraction (RANSAC inside), ICP and the evaluator (a run without the
-     recording), then again recorded (`compiled_run`): every compiled
-     call (forward, ICP, RANSAC centre, pose errors) equal to its eager
+     count), with images/s and the seconds of render, forward (its NMS
+     inside), extraction (RANSAC inside), ICP and the evaluator (a run
+     without the recording), then again recorded (`compiled_run`): every
+     compiled call (forward, ICP, RANSAC centre, pose errors) equal to its eager
      run bit for bit, none of RANSAC's and the evaluator's graphs
      launching a CUDA kernel, RANSAC's ms a detection compiled and eager,
      the pose-error program on random pairs with a z-flip class (padded
@@ -165,8 +172,9 @@ that fails, with a non-zero exit:
      seconds, mAP, the graphs); `python -m posecnn_torch.cli.demo --refine` on 5
      rendered 480×640 frames in the demo's format with the flagship yaml's
      widths, compiled (its forward and ICP), every compiled call equal to
-     its eager run bit for bit, flat and window launched once a replayed
-     forward and bit for bit equal to plain on each forward's inputs.
+     its eager run bit for bit, flat, window and the scan launched once a
+     replayed forward, flat and window bit for bit equal to plain on each
+     forward's inputs.
 
  12. the segmentation and video families and fusion at full width, with
      seeded random weights: 4 train steps each of
@@ -320,7 +328,8 @@ recording where the phase prints them so.
 
 The line before the last is one JSON object with the kernels' results:
 the three vote kernels, the NMS scan, whose `launches` are those of
-phase 11's compiled training run, and the Kabsch kernel, whose
+phase 5's batch-1 HTTP run (one a forward, its times at the serving
+shape (1, 16), the other shapes' beside them), and the Kabsch kernel, whose
 `launches` are those of phase 9's replayed `estimate_pose_3d` (three a
 replay); the last line is {"ok": true, "device":
 {...}}. Without a CUDA device,
@@ -540,8 +549,13 @@ def vote_edge_case(name):
 
 
 # the NMS scan's inputs: the RPN's (1, 2000) suppression matrix at phase
-# 11's shapes, test_net's (21, 128) per-class one, and the edges
-SCAN_CASES = ("rpn", "per_class", "all_invalid", "all_kill", "no_kills", "n1", "n33")
+# 11's shapes, test_net's (21, 128) per-class one, the serving programs'
+# per-class ones at batch 1 and 4, and the edges (of the kernel's words,
+# its register and shared-memory masks, its blocks of four warps)
+SCAN_CASES = ("rpn", "per_class", "all_invalid", "all_kill", "no_kills", "n1", "n33", "n31",
+              "n32", "n64", "n65", "n2048", "n2049", "n4096", "b64", "serve1", "serve4")
+# the cases phase 2 times (the main paths' shapes)
+SCAN_TIMED = ("rpn", "per_class", "serve1", "serve4")
 DET_RPN = dict(height=480, width=640, stride=16, scales=(4, 8, 16, 32),
                ratios=(0.5, 0.75, 1.0, 1.5, 2.0), pre_nms=2000, threshold=0.7, min_size=16.0)
 
@@ -555,12 +569,18 @@ def scan_case(name):
     16 px size filter as the valid rows, IoU > 0.7. `per_class` is
     `test_net`'s per-class NMS at lov_det's test shapes: 21 foreground
     classes × 128 proposals around six objects, scores per class, IoU >
-    0.5, an eighth of the proposals invalid. `all_invalid` has no valid
-    row; `all_kill` every row killing every later one; `no_kills` none;
-    `n1` N = 1 in three leading indices; `n33` N = 33 (a word and a bit)."""
+    0.5, an eighth of the proposals invalid. `serve1` and `serve4` are the
+    serving forward's `nms_per_class` at batch 1 and 4 (`per_class_suppression`
+    over 16 and 64 Hough RoIs: 8 classes, 2 instances a class and frame,
+    tied scores). `all_invalid` has no valid row; `all_kill` every row
+    killing every later one; `no_kills` none; `n1` N = 1 in three leading
+    indices; `nN` N = 31, 32, 33 (a word, and a bit past it), 64, 65,
+    2048 (the last in registers), 2049 (the first in shared memory) and
+    4096 (a sparse random kill, a third of the valid rows kept); `b64` 64
+    leading indices of N = 200 (sixteen blocks of four warps)."""
     import torch
 
-    from posecnn_torch.ops.nms import box_suppression
+    from posecnn_torch.ops.nms import box_suppression, per_class_suppression
     from posecnn_torch.ops.rpn import _top_k, anchor_grid, generate_anchors
     from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
 
@@ -579,7 +599,27 @@ def scan_case(name):
                    & (boxes[:, 3] - boxes[:, 1] + 1 >= r["min_size"]))
         _, kill, valid = box_suppression(boxes, top, r["threshold"], size_ok)
         return kill[None], valid[None]
-    b, n = {"per_class": (21, 128), "n1": (3, 1), "n33": (2, 33)}.get(name, (2, 64))
+    if name in ("serve1", "serve4"):
+        frames = 1 if name == "serve1" else 4
+        n = 16 * frames
+        cls = np.tile(np.repeat(np.arange(1, 9), 2), frames)
+        xy = rng.uniform(0, 560, (n, 2))
+        xy[1::2] = xy[::2] + rng.uniform(-10, 10, (n // 2, 2))  # a near twin a class
+        rois = np.concatenate([np.repeat(np.arange(frames), 16)[:, None], cls[:, None], xy,
+                               xy + rng.uniform(40, 80, (n, 2)),
+                               np.round(rng.rand(n, 1) * 4) / 4], 1).astype(np.float32)
+        _, kill, valid = per_class_suppression(torch.from_numpy(rois), 0.5,
+                                               torch.from_numpy(rng.rand(n) > 0.25))
+        return kill[None].contiguous(), valid[None]
+    if name == "n4096":
+        n = 4096
+        kill = np.zeros((n, n), bool)
+        i, j = rng.randint(0, n, (2, 4 * n))
+        kill[np.minimum(i, j), np.maximum(i, j)] = i != j
+        return torch.from_numpy(kill[None]), torch.from_numpy(rng.rand(1, n) > 0.125)
+    b, n = {"per_class": (21, 128), "n1": (3, 1), "b64": (64, 200)}.get(name, (2, 64))
+    if name.startswith("n") and name[1:].isdigit():
+        n = int(name[1:])
     centres = rng.uniform(40, 600, (6, 2))
     c = centres[rng.randint(0, 6, n)] + rng.randn(n, 2) * 12
     half = rng.uniform(15, 60, (n, 2))
@@ -671,6 +711,10 @@ def ptxas_lines(report):
         if m:
             name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL, KABSCH_KERNEL)
                          if k in m.group(1)), None)
+            if name in (SCAN_KERNEL, PACK_KERNEL):  # templates: the mask's home, the reads
+                flag = "ILb1E" in m.group(1)
+                name += (f"<{'shared' if flag else 'registers'}>" if name == SCAN_KERNEL
+                         else f"<{'16-byte' if flag else 'byte'} loads>")
             continue
         if name is None:
             continue
@@ -889,17 +933,39 @@ def scan_bound(kill, kept):
     return needed / PEAK_BYTES * 1e3, "bytes", needed
 
 
+def scan_profile(kill, valid, n=50):
+    """torch.profiler's mean device milliseconds a launch of each kernel
+    of `greedy_scan` (the packing and the scan) over n calls; a kernel it
+    recorded no time for is missing."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from posecnn_torch.ops.nms import greedy_scan
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            greedy_scan(kill, valid)
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        total = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        for name in (PACK_KERNEL, SCAN_KERNEL):
+            if name in ev.key and total > 0:
+                out[name] = out.get(name, 0.0) + total / 1e3 / n
+    return out
+
+
 def phase_scan(device):
     """Phase 2, the NMS scan: the kernel against its plain version bit for
     bit at every `scan_case`, its launches counted by the wrapper and on
-    the device; at the RPN's (1, 2000) and test_net's (21, 128) its time
-    as a CUDA graph of n launches (`ms`), per wrapper call (`call_ms`),
-    the plain version's and its bound. Returns those of the RPN shape, the
-    main path's, with the (21, 128) ones under "per_class"."""
+    the device; at the main paths' shapes (`SCAN_TIMED`) its time as a CUDA
+    graph of n calls (`ms`), per wrapper call (`call_ms`) and each of its
+    two launches' (the packing's and the scan's) by torch.profiler, the
+    plain version's and the bound. Returns those by timed case."""
     from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.ops.nms import greedy_scan, greedy_scan_plain
 
-    results, counts, shapes = {}, {}, {}
+    results, shapes = {}, {}
     for case in SCAN_CASES:
         kill, valid = (t.to(device) for t in scan_case(case))
         shapes[case] = tuple(valid.shape)
@@ -909,27 +975,29 @@ def phase_scan(device):
         if not same or got.shape != want.shape:
             raise AssertionError(f"{SCAN_KERNEL} disagrees with its plain version at scan case "
                                  f"{case}: {int((got != want).sum())} rows differ")
-        counts[case] = (calls["scan"], counted["scan"])
-        if counts[case] != (1, 1):
+        if (calls["scan"], counted["scan"]) != (1, 1):
             raise AssertionError(f"{SCAN_KERNEL} at {case}: wrapper / device launches "
-                                 f"{counts[case]}, not 1 / 1")
-        if case in ("rpn", "per_class"):
-            ms = graph_ms(lambda: greedy_scan(kill, valid), 50)
-            call_ms = device_ms(lambda: greedy_scan(kill, valid), device, 50)
-            plain_ms = device_ms(lambda: greedy_scan_plain(kill, valid), device, 1, warm=False)
+                                 f"{calls['scan']} / {counted['scan']}, not 1 / 1")
+        if case in SCAN_TIMED:
             bound = scan_bound(kill, want)
-            results[case] = dict(shape=shapes[case], kept=int(want.sum()),
-                                 valid=int(valid.sum()), max_abs_err=err, ms=ms,
-                                 call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound[0],
-                                 bound_by=bound[1], bytes=bound[2])
+            results[case] = dict(
+                shape=shapes[case], kept=int(want.sum()), valid=int(valid.sum()),
+                max_abs_err=err, ms=graph_ms(lambda: greedy_scan(kill, valid), 50),
+                call_ms=device_ms(lambda: greedy_scan(kill, valid), device, 50),
+                kernels_ms=scan_profile(kill, valid),
+                plain_ms=device_ms(lambda: greedy_scan_plain(kill, valid), device, 1, warm=False),
+                bound_ms=bound[0], bound_by=bound[1], bytes=bound[2])
     print("phase 2 NMS scan kernel vs plain, bit for bit at (B, N) "
           + ", ".join(f"{c} {shape}" for c, shape in shapes.items())
-          + "; one launch each (wrapper / device); ms graph/call/plain/bound (bound by, bytes "
-          "needed; kept of valid rows): "
-          + ", ".join(f"{c} {r['ms']:.4f}/{r['call_ms']:.4f}/{r['plain_ms']:.1f}/"
-                      f"{r['bound_ms']:.5f} ({r['bound_by']}, {r['bytes']:.4g}; {r['kept']} of "
-                      f"{r['valid']})" for c, r in results.items()), flush=True)
-    return {**results["rpn"], "per_class": results["per_class"]}
+          + f"; one scan launch each (wrapper / device), after one {PACK_KERNEL} launch; ms "
+          "graph / call / each launch (profiler) / plain / bound (bound by, bytes needed; kept "
+          "of valid rows): "
+          + "; ".join(f"{c} {r['ms']:.4f} / {r['call_ms']:.4f} / "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in r["kernels_ms"].items())
+                      + f" / {r['plain_ms']:.1f} / {r['bound_ms']:.3g} ({r['bound_by']}, "
+                      f"{r['bytes']:.4g}; {r['kept']} of {r['valid']})"
+                      for c, r in results.items()), flush=True)
+    return results
 
 
 def phase_planted(device):
@@ -994,8 +1062,10 @@ def phase_small_model(device):
           + (", rois/poses_init/poses_pred within 1e-3" if agree == 1.0 else ""), flush=True)
 
 
-# a captured forward's launches (c2f)
+# a captured forward's launches (c2f), and with its per-class NMS (the
+# serving, demo and posecnn test_net programs)
 FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+NMS_FORWARD = {**FORWARD_BODY, "scan": 1}
 # phase 5: requests a counted pass sends (batch 1: the five images in turn;
 # batch 4: twice the batch from as many clients), and requests a timed
 # pass sends, its clients as many as the batch
@@ -1022,7 +1092,7 @@ def device_counted(call):
 
 def phase_serve(card):
     """The HTTP serving path at full width, compiled, at engine batch 1 and
-    4 (the MicroBatcher behind 4 clients). Returns (each vote kernel's
+    4 (the MicroBatcher behind 4 clients). Returns (each CUDA kernel's
     launches counted on the device in the batch-1 HTTP run, each engine's
     captured body's launches)."""
     from concurrent.futures import ThreadPoolExecutor as Clients
@@ -1033,7 +1103,7 @@ def phase_serve(card):
     from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.models import posecnn as posecnn_module
     from posecnn_torch.ops import hough_kernels as hk
-    from posecnn_torch.ops.nms import greedy_keep
+    from posecnn_torch.ops.nms import greedy_keep, per_class_suppression
 
     label, _ = planted_scene(HEIGHT, WIDTH, NUM_CLASSES, PLANTED)
     planted = (label * 11 % 256).astype(np.uint8)[:, :, None].repeat(3, 2)
@@ -1053,9 +1123,9 @@ def phase_serve(card):
                     f"{engine.model.hough_kw['num_samples']}")
         (program,) = engine._compiled.programs.values()
         bodies[f"serve batch {batch}"] = program.launches
-        if program.launches != FORWARD_BODY:
+        if program.launches != NMS_FORWARD:
             raise AssertionError(f"serve batch {batch}: the captured forward records "
-                                 f"{program.launches}, not {FORWARD_BODY}")
+                                 f"{program.launches}, not {NMS_FORWARD}")
         server = make_server(engine, "127.0.0.1", 0)
         port = server.server_address[1]
         thread = threading.Thread(target=server.serve_forever, daemon=True)
@@ -1106,8 +1176,8 @@ def phase_serve(card):
         if batch == 1:
             http_launches = counted
         # the requests replayed the graph: no wrapper call, and the device
-        # counted one flat and one window launch a forward
-        if any(calls.values()) or counted["flat"] != forwards or counted["window"] != forwards:
+        # counted one flat, one window and one scan launch a forward
+        if any(calls.values()) or any(counted[k] != forwards * NMS_FORWARD[k] for k in COUNTED):
             raise AssertionError(f"serve batch {batch}: wrapper calls {calls}, launches counted "
                                  f"on the device {counted}, {forwards} forwards")
 
@@ -1116,8 +1186,7 @@ def phase_serve(card):
         meta = torch.from_numpy(engine._meta0).to(engine.device)
 
         def eager(data):
-            *outputs, suppression = engine._compiled.fn(data, meta)
-            return (*outputs, greedy_keep(suppression))
+            return engine._compiled.fn(data, meta)
 
         frames = [rng.randint(0, 255, (batch, HEIGHT, WIDTH, 3), np.uint8),
                   np.repeat(planted[None, :, :, ::-1], batch, 0),
@@ -1132,18 +1201,31 @@ def phase_serve(card):
                     raise AssertionError(f"serve batch {batch}, frame {i}: the graph's {name} "
                                          f"differs from the eager body's: {exact(g, w)[0]}")
         # the planted frame's eager body with its Hough recorded (counts from
-        # 0): flat, window and tile bit for bit to plain at the engine's shapes
+        # 0): flat, window and tile bit for bit to plain at the engine's
+        # shapes, and the keep mask (the graph's, equal to it) bit for bit
+        # to the host scan of the Hough output's suppression matrix
         data = torch.from_numpy(np.ascontiguousarray(frames[1])).to(engine.device)
-        recorded = Recorded()
+        recorded, hough_out = Recorded(), []
         record, original = counting_hough(recorded)
+
+        def kept_hough(*args, **kw):
+            hough_out.append(record(*args, **kw))
+            return hough_out[-1]
+
         for key in hk.LAUNCHES:
             hk.LAUNCHES[key] = 0
-        posecnn_module.hough_voting = record
+        posecnn_module.hough_voting = kept_hough
         try:
             label_2d, rois, poses_init, poses_pred, keep = eager(data)
         finally:
             posecnn_module.hough_voting = original
         errs = recorded_vs_plain(recorded, f"serve batch {batch}")
+        (hough,) = hough_out
+        host_keep = greedy_keep(per_class_suppression(hough.rois, engine.nms_threshold,
+                                                      hough.valid))
+        if not (torch.equal(hough.rois, rois) and torch.equal(keep, host_keep)):
+            raise AssertionError(f"serve batch {batch}: the planted frame's keep mask "
+                                 f"{keep.tolist()} is not the host scan's {host_keep.tolist()}")
         for name, t in (("rois", rois), ("poses_init", poses_init), ("poses_pred", poses_pred)):
             if not bool(torch.isfinite(t).all()):
                 raise AssertionError(f"non-finite {name}")
@@ -1168,8 +1250,10 @@ def phase_serve(card):
             f"counted pass {len(results)} requests in {forwards} forwards, launches counted on "
             f"the device {counted} (wrapper calls {calls}); {len(frames)} frames in a row graph == "
             f"eager bit for bit; the planted frame's Hough ({hough_shape(recorded)}) flat / "
-            f"window / tile == plain bit for bit, max_abs_err {errs}; forward with NMS's device "
-            f"part {graph_ms:.4f} ms as the graph, {eager_ms:.4f} ms eager (CUDA events, mean "
+            f"window / tile == plain bit for bit, max_abs_err {errs}; its keep mask == the host "
+            f"scan bit for bit ({int(keep.sum())} of {int(hough.valid.sum())} valid rows kept); "
+            f"forward with its NMS "
+            f"{graph_ms:.4f} ms as the graph, {eager_ms:.4f} ms eager (CUDA events, mean "
             f"of 20); timed pass {len(timed)} requests ({n_det} detections in all): median "
             f"{float(np.median(lat)):.2f} ms, p90 {float(lat[int(0.9 * (len(lat) - 1))]):.2f} ms, "
             f"server forward + fetch (batch_seconds) median {float(np.median(fwd)):.2f} ms, batch "
@@ -2254,10 +2338,10 @@ def phase_eval(device, card):
         raise AssertionError(f"eval.json: {summary['num_images']} images, {len(iou)} IoUs, "
                              f"mean {summary['seg_mean_iou']}")
     launches, replayed, hough_in = run_net["device"], run_net["replayed"], run_net["recorded"]
-    forwards = run_net["bodies"]["forward_with_suppression"]
-    if replayed["flat"] != EVAL_IMAGES or replayed["window"] != EVAL_IMAGES or len(
+    forwards = run_net["bodies"]["forward_with_nms"]
+    if any(replayed[k] != EVAL_IMAGES for k in ("flat", "window", "scan")) or len(
             hough_in) != EVAL_IMAGES or run_net["forwards"] != EVAL_IMAGES or (
-            forwards != [FORWARD_BODY]):
+            forwards != [NMS_FORWARD]):
         raise AssertionError(f"test_net: replays launched {replayed} in {EVAL_IMAGES} frames, "
                              f"{len(hough_in)} forwards, captured forwards {forwards}")
     icp_graphs = len(run_net["bodies"].get("icp_refine_batch", []))
@@ -2365,15 +2449,17 @@ def phase_eval(device, card):
           f"--refine --ransac "
           f"{EVAL_IMAGES} images, {run['images_per_s']:.2f} images/s (a run without the recording), "
           f"seconds render "
-          f"{sec['render']:.3f} / forward {sec['forward']:.3f} / NMS + extraction "
-          f"{sec['extract']:.3f} / ICP {sec['icp']:.3f} / evaluator {sec['evaluate']:.3f}, "
-          f"{run['detections']} detections, {run['refined']} refined, seg mean IoU "
-          f"{summary['seg_mean_iou']:.4f}; compiled: the forward one graph ({forwards[0]} a "
+          f"{sec['render']:.3f} / forward with its NMS {sec['forward']:.3f} / extraction with "
+          f"RANSAC {sec['extract']:.3f} / ICP {sec['icp']:.3f} / evaluator "
+          f"{sec['evaluate']:.3f}, {run['detections']} detections, {run['refined']} refined, "
+          f"seg mean IoU {summary['seg_mean_iou']:.4f}; compiled: the forward one graph "
+          f"({forwards[0]} a "
           f"replay), ICP {icp_graphs} graphs (one per object count); the recorded run's "
           f"launches counted on the device {launches} (eager warm-ups, the wrappers' counts, {run_net['calls']}; graph "
           f"replays {replayed}); "
           f"{run_net['checked']} compiled calls (forwards and ICP) == their eager runs bit for "
-          f"bit; flat, window and tile == plain bit "
+          f"bit; the keep mask == the host scan bit for bit on {run_net['scanned']} forwards; "
+          f"flat, window and tile == plain bit "
           f"for bit on every eval forward ({len(inputs)}; the liveliest, {best}: slots, live, "
           f"samples, peak coarse vote {shapes[best]}), max_abs_err {errs}; test_icp "
           f"({'; '.join(icp_lines)}), card vs CPU per scene (one step, converged share within "
@@ -2512,11 +2598,14 @@ def compiled_run(call, modules, where):
     launches a replay, by the compiled function's name; `forwards`, the
     calls of the compiled forward; `recorded`, the eager reruns' Hough
     inputs and launches (`counting_hough`, one a forward); `checked`, the
-    calls held to eager, and `checks` by name; `programs`, the recording
+    calls held to eager, and `checks` by name; `scanned`, the forwards
+    whose graph's keep mask equals the host scan (`greedy_keep`) of their
+    own RoIs' suppression matrix bit for bit; `programs`, the recording
     compiled calls by name, with their calls' copies)."""
     import torch
 
     from posecnn_torch.models import posecnn as posecnn_module
+    from posecnn_torch.ops.nms import greedy_keep, per_class_suppression
 
     made = []
     stand_in = recording_compile(made)
@@ -2535,11 +2624,12 @@ def compiled_run(call, modules, where):
         bodies.setdefault(name, []).extend(p.launches for p in c.programs.values())
         programs.setdefault(name, []).append(c)
         checks[name] = checks.get(name, 0) + c.checked
-        if name == "forward_with_suppression":
+        if name == "forward_with_nms":
             forwards += len(c.calls)
     recorded = Recorded()
     record, original = counting_hough(recorded)
     posecnn_module.hough_voting = record
+    scanned = 0
     try:
         for c in made:
             name = getattr(c.fn, "func", c.fn).__name__
@@ -2548,11 +2638,22 @@ def compiled_run(call, modules, where):
                     want = c.fn(*args, **kwargs)
                 tree_exact(out, want, f"{where}: {name} graph vs eager, call {checks[name]}")
                 checks[name] += 1
+                if name == "forward_with_nms":
+                    # the graph's keep mask against the host scan, which
+                    # shares nothing with the device scan
+                    outputs, keep = out
+                    host = greedy_keep(per_class_suppression(
+                        outputs.hough.rois, c.fn.keywords["nms_threshold"], outputs.hough.valid))
+                    if not torch.equal(keep, host):
+                        raise AssertionError(f"{where}: forward {scanned}: the graph's keep mask "
+                                             f"{keep.tolist()} is not the host scan's "
+                                             f"{host.tolist()}")
+                    scanned += 1
     finally:
         posecnn_module.hough_voting = original
     return result, dict(calls=calls, device=counted, replayed=replayed, bodies=bodies,
                         forwards=forwards, recorded=recorded, checked=sum(checks.values()),
-                        checks=checks, programs=programs)
+                        checks=checks, scanned=scanned, programs=programs)
 
 
 def domain_reversal_check(tr, batches):
@@ -2889,7 +2990,8 @@ def phase_real(card):
         if summary["num_images"] != REAL_FRAMES[1] or not np.isfinite(finite).all() or len(
                 summary["seg_iou_per_class"]) != 22 or run["refined"] != run["detections"]:
             raise AssertionError(f"test_net --dataset lov ({weights} weights): {summary}")
-        if not summary["replayed"]["flat"] == summary["replayed"]["window"] == REAL_FRAMES[1]:
+        if not (summary["replayed"]["flat"] == summary["replayed"]["window"]
+                == summary["replayed"]["scan"] == REAL_FRAMES[1]):
             raise AssertionError(f"test_net --dataset lov ({weights} weights): replays "
                                  f"launched {summary['replayed']}")
     if written["random"]["run"]["refined"] == 0:
@@ -3190,11 +3292,12 @@ def phase_det_demo(card):
             2 * DEMO_FRAMES + 1):
         raise AssertionError(f"demo: {len(results)} frames, {len(recorded)} forwards, wrote "
                              f"{written}")
-    demo_forwards = run_demo["bodies"]["forward_with_suppression"]
-    if replayed["flat"] != DEMO_FRAMES or replayed["window"] != DEMO_FRAMES or (
-            demo_forwards != [FORWARD_BODY]):
-        raise AssertionError(f"demo: the replays of one captured forward must launch flat and "
-                             f"window once a frame: {replayed}, captured {demo_forwards}")
+    demo_forwards = run_demo["bodies"]["forward_with_nms"]
+    if any(replayed[k] != DEMO_FRAMES for k in ("flat", "window", "scan")) or (
+            demo_forwards != [NMS_FORWARD]):
+        raise AssertionError(f"demo: the replays of one captured forward must launch flat, "
+                             f"window and scan once a frame: {replayed}, captured "
+                             f"{demo_forwards}")
     for f in results:
         for d in f["detections"]:
             if not np.isfinite(d["quat_wxyz"] + d["trans"]).all():
@@ -3259,7 +3362,8 @@ def phase_det_demo(card):
           f"{len(run_demo['bodies'].get('icp_refine_batch', []))} graphs, launches counted on "
           f"the device {launches} (eager warm-ups {run_demo['calls']}, graph replays "
           f"{replayed}), {run_demo['checked']} compiled calls "
-          f"(forwards and ICP) == their eager runs bit for bit; "
+          f"(forwards and ICP) == their eager runs bit for bit; the keep mask == the host scan "
+          f"bit for bit on {run_demo['scanned']} forwards; "
           f"flat, window and tile == plain bit for bit on each of the {len(recorded)} forwards "
           f"(slots, live, samples, peak coarse vote: "
           f"{max(shapes.values(), key=lambda v: v[1])} at the liveliest), max_abs_err {errs}",
@@ -3970,7 +4074,7 @@ def phase_switches_gan(device, card):
             raise AssertionError(f"test_net on the seg + vertex snapshot kept {kept}, not the "
                                  "pose head alone")
         n = SWITCH_FRAMES[1]
-        if replayed["flat"] != n or replayed["window"] != n or len(recorded) != n:
+        if any(replayed[k] != n for k in ("flat", "window", "scan")) or len(recorded) != n:
             raise AssertionError(f"test_net on the switched snapshot: replays launched "
                                  f"{replayed}, {len(recorded)} forwards")
         extents, kw = recorded.call
@@ -5031,8 +5135,8 @@ def main() -> int:
     entry_launches, entry_per_body = phase_entry_bench(card)
     p17_errs, p17_launches, p17_per_body, p17_tunings = phase_breakdowns(device, card)
     # each kernel's launches on its main path: the exhaustive forward for
-    # the tile kernel, the batch-1 HTTP serving run for the c2f pair (its
-    # graph replays, counted on the device); and those of the
+    # the tile kernel, the batch-1 HTTP serving run for the c2f pair and the
+    # NMS scan (its graph replays, counted on the device); and those of the
     # test_net run (phase 9, recorded) and of phase 10's training steps and
     # test_net run, each counted from 0
     launches["tile"] = runs["exhaustive"]["tile"]
@@ -5067,13 +5171,17 @@ def main() -> int:
         for k in ("tile", "flat", "window")
     ] + [
         {"name": SCAN_KERNEL, "route": "cuda", "source": "posecnn_torch/csrc/nms_scan.cu",
-         "replaces": "posecnn_tpu/ops/nms.py:34", "launches": det["train_launches"]["scan"],
-         "max_abs_err": scan["max_abs_err"], "ms": scan["ms"], "call_ms": scan["call_ms"],
-         "plain_ms": scan["plain_ms"], "bound_ms": scan["bound_ms"],
-         "bound_by": scan["bound_by"], "library_ms": None, "shape": list(scan["shape"]),
-         "per_class": {k: scan["per_class"][k] for k in
-                       ("shape", "max_abs_err", "ms", "call_ms", "plain_ms", "bound_ms",
-                        "bound_by")},
+         "replaces": "posecnn_tpu/ops/nms.py:34", "launches": launches["scan"],
+         **{k: scan["serve1"][k] for k in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                             "bound_ms", "bound_by", "kernels_ms")},
+         "library_ms": None, "shape": list(scan["serve1"]["shape"]),
+         **{case: {k: scan[case][k] for k in
+                   ("shape", "max_abs_err", "ms", "call_ms", "kernels_ms", "plain_ms",
+                    "bound_ms", "bound_by")} for case in ("serve4", "per_class", "rpn")},
+         "posecnn_test_net_launches": eval_launches["scan"],
+         "demo_launches": demo_launches["scan"],
+         "per_captured_cli_body": {name: body["scan"] for name, body in cli_bodies.items()},
+         "det_train_launches": det["train_launches"]["scan"],
          **{k: det[k] for k in ("per_replayed_step", "gate_per_replay", "rpn_max_abs_err",
                                 "test_net_launches", "per_test_net_frame",
                                 "per_captured_det_infer")},

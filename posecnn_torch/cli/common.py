@@ -18,7 +18,7 @@ from posecnn_torch.data.procedural import (
     load_background_pool,
     make_procedural_objects,
 )
-from posecnn_torch.ops.nms import per_class_suppression
+from posecnn_torch.ops.nms import nms_per_class
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -71,14 +71,15 @@ def setup_device(name: str) -> torch.device:
     return device
 
 
-def forward_with_suppression(model, data, extents, meta, nms_threshold: float, **forward_kw):
-    """The PoseCNN forward and NMS's device part over its Hough RoIs
-    (`ops/nms.per_class_suppression`): the program that `serve`, `demo`
-    and `test_net` compile (`utils/graph.compile_static`), as the JAX CLIs
-    jit the forward with its `nms_per_class`. Returns (outputs,
-    suppression); `ops/nms.greedy_keep(suppression)` is the keep mask."""
+def forward_with_nms(model, data, extents, meta, nms_threshold: float, **forward_kw):
+    """The PoseCNN forward and `ops/nms.nms_per_class` over its Hough RoIs:
+    the program that `serve`, `demo` and `test_net` compile
+    (`utils/graph.compile_static`), as the JAX CLIs jit the forward with
+    its `nms_per_class` (`posecnn_tpu/cli/serve.py:96-106`). Returns
+    (outputs, keep): keep is the (R,) bool mask in the RoIs' order,
+    computed on the device (the scan is `nms_scan_kernel` on a card)."""
     out = model(data, extents, meta, **forward_kw)
-    return out, per_class_suppression(out.hough.rois, nms_threshold, out.hough.valid)
+    return out, nms_per_class(out.hough.rois, nms_threshold, out.hough.valid)
 
 
 def _coerce_flag(value, like):

@@ -13,9 +13,10 @@ Counterpart of `posecnn_tpu/cli/serve.py`, with the same HTTP contract:
 The model runs at a fixed input size and batch; smaller inputs are
 placed in the top-left corner of the canvas. `--batch N` coalesces
 concurrent requests into one forward (MicroBatcher). On the card the
-forward with NMS's device part runs as one CUDA graph, captured when the
-engine starts (`utils/graph.compile_static`, as the JAX engine jits it at
-its batch); `--device cpu` runs it eagerly.
+forward with its per-class NMS (the scan on the device, `nms_scan_kernel`)
+runs as one CUDA graph, captured when the engine starts
+(`utils/graph.compile_static`, as the JAX engine jits the forward and
+`nms_per_class` at its batch); `--device cpu` runs it eagerly.
 
     python -m posecnn_torch.cli.serve --port 8475          # serve forever
     python -m posecnn_torch.cli.serve --bench 20           # one JSON latency line
@@ -40,7 +41,7 @@ import torch
 from posecnn_torch.cli.common import (
     YCB_K,
     base_parser,
-    forward_with_suppression,
+    forward_with_nms,
     head_flags_from_ckpt,
     load_config,
     setup_device,
@@ -48,7 +49,6 @@ from posecnn_torch.cli.common import (
 from posecnn_torch.core.checkpoint import restore_for_eval
 from posecnn_torch.engine.evaluate import extract_detections
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import greedy_keep
 from posecnn_torch.utils.graph import compile_static
 
 
@@ -106,20 +106,18 @@ class InferenceEngine:
     @torch.inference_mode()
     def _body(self, data_u8: torch.Tensor, meta: torch.Tensor):
         """The compiled program: the uint8 cast, the mean subtraction, the
-        model and NMS's device part."""
-        out, suppression = forward_with_suppression(
-            self.model, data_u8.float() - self._pixel_means, self._extents, meta,
-            self.nms_threshold)
-        return out.label_2d, out.hough.rois, out.hough.poses_init, out.poses_pred, suppression
+        model and its per-class NMS."""
+        out, keep = forward_with_nms(self.model, data_u8.float() - self._pixel_means,
+                                     self._extents, meta, self.nms_threshold)
+        return out.label_2d, out.hough.rois, out.hough.poses_init, out.poses_pred, keep
 
     def infer_device(self, data_u8: torch.Tensor, meta: torch.Tensor):
         """One forward on device tensors, compiled: (B, H, W, 3) uint8 BGR
         and (B, 48) meta at the engine's batch and canvas. Returns
-        (label_2d, rois, poses_init, poses_pred, keep) on the device; the
-        first four are the graph's outputs, which the next call
-        overwrites (`infer_batch` reads them under the engine's lock)."""
-        *outputs, suppression = self._compiled(data_u8, meta)
-        return (*outputs, greedy_keep(suppression))
+        (label_2d, rois, poses_init, poses_pred, keep) on the device, the
+        graph's outputs, which the next call overwrites (`infer_batch`
+        reads them under the engine's lock)."""
+        return self._compiled(data_u8, meta)
 
     def __call__(self, image_rgb: np.ndarray, k: np.ndarray | None = None,
                  want_label: bool = False) -> dict:

@@ -29,25 +29,26 @@ optionally RANSAC centres (`--ransac`) and ICP (`--refine`), and
         train.syn_width=64 train.num_units=16 train.fc_dim=64 test.hough_num_samples=64 \\
         train.add_num_points=32
 
-On the card the posecnn forward with NMS's device part runs compiled, one
-CUDA graph per input signature (RGB, or RGBD with its depth blob), and so
-does ICP, one graph per object count, and `--ransac`'s `estimate_center`,
-one graph at (1024, 64) (`utils/graph.compile_static`; JAX jits all three);
-their NMS's scan (`ops/nms.greedy_keep`) and RANSAC's draw stay on the
-host. The evaluator's pose errors run compiled too (`PoseEvaluator`, one
-graph per padded row count). `--device cpu` runs every program eagerly.
+On the card the posecnn forward with its per-class NMS (the scan on the
+device, `nms_scan_kernel`) runs compiled, one CUDA graph per input
+signature (RGB, or RGBD with its depth blob), and so does ICP, one graph
+per object count, and `--ransac`'s `estimate_center`, one graph at
+(1024, 64) (`utils/graph.compile_static`; JAX jits all three); RANSAC's
+draw stays on the host. The evaluator's pose errors run compiled too
+(`PoseEvaluator`, one graph per padded row count). `--device cpu` runs
+every program eagerly.
 
 `<output>/eval.json` holds the evaluator's summary, as the JAX test_net
 writes it, and under "run" the device, the images/s of the loop and the
 seconds of each stage (render = rendering or reading a frame and making
-its blobs, forward, extract = NMS, detections and RANSAC, icp,
-evaluate), with the number of detections and of refined ones. The model has
-every head whatever the training switches said (as the JAX test_net
-builds it); its weights come from `--ckpt` (the JAX `.npz` layout, either
-package's, of any posecnn-family model: a seg-only or seg + vertex
-checkpoint keeps the seeded values of the heads it lacks, and a line
-names them, `core/checkpoint.restore_for_eval`), else seeded random ones
-(`init_weights`, `rng_seed`).
+its blobs, forward = the forward and its NMS, extract = detections and
+RANSAC, icp, evaluate), with the number of detections and of refined
+ones. The model has every head whatever the training switches said (as
+the JAX test_net builds it); its weights come from `--ckpt` (the JAX
+`.npz` layout, either package's, of any posecnn-family model: a seg-only
+or seg + vertex checkpoint keeps the seeded values of the heads it lacks,
+and a line names them, `core/checkpoint.restore_for_eval`), else seeded
+random ones (`init_weights`, `rng_seed`).
 
 `network: posecnn_det` evaluates the detection family instead
 (`detection_eval`, `posecnn_tpu/cli/test_net.py:423-573`): held-out
@@ -93,7 +94,7 @@ from posecnn_torch.cli.common import (
     base_parser,
     class_geometry,
     data_flags_from_ckpt,
-    forward_with_suppression,
+    forward_with_nms,
     has_real_frames,
     head_flags_from_ckpt,
     load_backgrounds,
@@ -122,7 +123,7 @@ from posecnn_torch.engine.evaluate import (
 from posecnn_torch.engine.train import INPUTS
 from posecnn_torch.models.detection import PoseCNNDet
 from posecnn_torch.models.posecnn import PoseCNN, init_weights
-from posecnn_torch.ops.nms import greedy_keep, nms
+from posecnn_torch.ops.nms import nms
 from posecnn_torch.ops.rpn import estimate_translation_from_box
 from posecnn_torch.utils.bbox import bbox_transform_inv, clip_boxes
 from posecnn_torch.refine.icp import icp_refine_batch
@@ -437,9 +438,9 @@ def main(argv=None) -> dict:
     meta0[:9] = k.flatten()
     meta0[9:18] = np.linalg.inv(k).flatten()
     pm = np.asarray(cfg.pixel_means, np.float32)
-    # the forward with NMS's device part, and ICP, each one CUDA graph per
-    # input signature on the card; outputs live until their next call
-    forward = compile_static(partial(forward_with_suppression, model,
+    # the forward with its NMS, and ICP, each one CUDA graph per input
+    # signature on the card; outputs live until their next call
+    forward = compile_static(partial(forward_with_nms, model,
                                      nms_threshold=cfg.test.nms_threshold))
     refine = compile_static(icp_refine_batch)
     center = compile_static(estimate_center)
@@ -507,14 +508,13 @@ def main(argv=None) -> dict:
         blob, blob_p, meta, depth, gt_label, gts = make_frame()
         kk = meta[:9].reshape(3, 3)
         t.append(time.perf_counter())
-        out, suppression = forward(
+        out, keep = forward(
             torch.from_numpy(blob[None]).to(device), extents_t,
             torch.from_numpy(meta[None]).to(device),
             data_p=None if blob_p is None else torch.from_numpy(blob_p[None]).to(device),
             full_vertex=use_ransac)
         _sync(device)
         t.append(time.perf_counter())
-        keep = greedy_keep(suppression)
         label_t = out.label_2d[0]
         label = label_t.cpu().numpy()
         rois = out.hough.rois.cpu().numpy()

@@ -84,14 +84,48 @@ def bilinear_upsample_kernel(factor: int, channels: int) -> torch.Tensor:
     return kernel
 
 
+def _resize_weights(n_in: int, n_out: int, device, dtype) -> torch.Tensor:
+    """(n_out, n_in): `F.interpolate`'s bilinear weights along one axis
+    (align_corners False): output i takes 1 − λ of input ⌊s⌋ and λ of the
+    next (the last input again at the edge), s = max((i + ½)·n_in/n_out − ½,
+    0), λ = s − ⌊s⌋."""
+    dst = torch.arange(n_out, device=device, dtype=dtype)
+    src = ((dst + 0.5) * (n_in / n_out) - 0.5).clamp(min=0)
+    lo = src.long()
+    hi = torch.where(lo < n_in - 1, lo + 1, lo)
+    frac = (src - lo)[:, None]
+    cols = torch.arange(n_in, device=device)
+    return (1 - frac) * (cols == lo[:, None]) + frac * (cols == hi[:, None])
+
+
+class _Bilinear(torch.autograd.Function):
+    """`F.interpolate`'s bilinear resize (NCHW), with its exact adjoint as
+    the backward: two matrix products, in fp32 (fp64 for fp64), on every
+    device. PyTorch's own backward adds each output's gradient into its
+    inputs with atomics on the card, in a device order and in the
+    gradient's dtype, so two runs of one bf16 training step there differed
+    by up to ~2% of a gradient's largest entry; the adjoint gives the same
+    bits on every run, and is the contraction JAX's resize gradient is."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, size: tuple) -> torch.Tensor:
+        ctx.shape, ctx.size = list(x.shape), list(size)
+        return F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        wide = torch.float64 if grad.dtype == torch.float64 else torch.float32
+        rows = _resize_weights(ctx.shape[2], ctx.size[0], grad.device, wide)
+        cols = _resize_weights(ctx.shape[3], ctx.size[1], grad.device, wide)
+        return (rows.t() @ grad.to(wide) @ cols).to(grad.dtype), None
+
+
 def bilinear_upsample(x: torch.Tensor, factor: int) -> torch.Tensor:
     """Frozen bilinear ×factor upsampling of an NHWC tensor.
 
     Equals `jax.image.resize(..., "linear")` when upsampling
     (`posecnn_tpu/models/vgg16.py:73-85`): half-pixel centres, edges
-    clamped to the first and last texel."""
+    clamped to the first and last texel. Its gradient is the exact
+    adjoint, the same bits on every run (`_Bilinear`)."""
     b, h, w, c = x.shape
-    out = F.interpolate(
-        nchw(x), size=(h * factor, w * factor), mode="bilinear", align_corners=False
-    )
-    return nhwc(out)
+    return nhwc(_Bilinear.apply(nchw(x), (h * factor, w * factor)))

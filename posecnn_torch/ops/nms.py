@@ -6,21 +6,21 @@ mask aligned with the input rows. `nms` is class-agnostic (the RPN's
 proposals, the detection head's per-class boxes); `nms_per_class`
 suppresses only within each (batch, class) pair of Hough RoIs.
 
-The (N, N) suppression matrix is built on the device in one pass. The
-greedy scan over the score-sorted rows, which JAX runs as a `lax.scan`
-(`posecnn_tpu/ops/nms.py:34-40`), runs where the matrix is:
-`greedy_scan` launches the CUDA kernel `nms_scan_kernel`
-(`csrc/nms_scan.cu`) for a CUDA tensor, with no host read, so that a
-CUDA graph captures it (the detection family's compiled training step
-and `test_net` programs), and takes its plain PyTorch version,
-`greedy_scan_plain`, for a tensor on the CPU; the two agree bit for bit.
-Nothing falls back: a failed build or launch raises. `nms` runs the
-scan so. A row that is still alive suppresses the later rows it
-overlaps; equal scores keep their input order (a stable sort, as
-`jnp.argsort`). `per_class_suppression` is the device part of
-`nms_per_class`, which the serving, demo and posecnn `test_net`
-forwards capture; `greedy_keep`, their scan after it, still runs on the
-host over the matrix, fetched once.
+Both run on the device with no host read, as JAX jits them with the
+programs around them: the (N, N) suppression matrix in one pass
+(`box_suppression`, `per_class_suppression`), then the greedy scan over
+the score-sorted rows, which JAX runs as a `lax.scan`
+(`posecnn_tpu/ops/nms.py:34-40`, `:60-66`): `greedy_scan` launches the
+CUDA kernel `nms_scan_kernel` (`csrc/nms_scan.cu`) for a CUDA tensor, so
+that a CUDA graph captures it (the detection family's compiled training
+step and `test_net` programs; the serving, demo and posecnn `test_net`
+forwards with their `nms_per_class`), and takes its plain PyTorch
+version, `greedy_scan_plain`, for a tensor on the CPU; the two agree bit
+for bit. Nothing falls back: a failed build or launch raises. A row
+that is still alive suppresses the later rows it overlaps; equal scores
+keep their input order (a stable sort, as `jnp.argsort`). `greedy_keep`
+is the same scan on the host after one fetch, the reference that tests
+and `chip_smoke.py` hold the device scan to; no program runs it.
 """
 
 from __future__ import annotations
@@ -45,9 +45,9 @@ class Suppression(NamedTuple):
 
 
 def greedy_keep(suppression: Suppression) -> torch.Tensor:
-    """The greedy scan over the sorted rows, on the host after one fetch.
-    Returns the (…, N) keep mask in the input order, on the device of
-    `order`."""
+    """The greedy scan over the sorted rows, on the host after one fetch:
+    the reference for `greedy_scan`. Returns the (…, N) keep mask in the
+    input order, on the device of `order`."""
     order, kill, sorted_valid = suppression
     n = order.shape[-1]
     kill_np = kill.cpu().numpy().reshape(-1, n, n)
@@ -81,7 +81,9 @@ def greedy_scan(kill: torch.Tensor, sorted_valid: torch.Tensor) -> torch.Tensor:
     own: a valid row not yet suppressed is kept and suppresses the later
     rows it kills. kill (…, N, N) bool (`Suppression.kill`), sorted_valid
     (…, N) bool → kept_sorted (…, N) bool, in sorted order. On a CUDA
-    tensor one launch of `nms_scan_kernel`; on the CPU `greedy_scan_plain`."""
+    tensor `pack_kill_kernel` packs the kill bytes into 32-bit words in a
+    scratch tensor, then `nms_scan_kernel` walks them (two launches, the
+    scan's counted); on the CPU `greedy_scan_plain`."""
     if kill.device.type == "cpu":
         return greedy_scan_plain(kill, sorted_valid)
     n = kill.shape[-1]
@@ -121,7 +123,7 @@ def _later(n: int, device) -> torch.Tensor:
 @torch.no_grad()
 def box_suppression(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
                     valid: Optional[torch.Tensor] = None) -> Suppression:
-    """The device part of `nms`: boxes (…, N, 4) xyxy, scores (…, N), valid
+    """The suppression matrix of `nms`: boxes (…, N, 4) xyxy, scores (…, N), valid
     (…, N) bool; each leading index its own rows."""
     n = boxes.shape[-2]
     if valid is None:
@@ -149,7 +151,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, threshold: float,
 @torch.no_grad()
 def per_class_suppression(rois: torch.Tensor, threshold: float,
                           valid: Optional[torch.Tensor] = None) -> Suppression:
-    """The device part of `nms_per_class`: rois (R, 7) Hough format,
+    """The suppression matrix of `nms_per_class`: rois (R, 7) Hough format,
     valid (R,) bool; suppression only within each (batch, class) pair."""
     n = rois.shape[0]
     if valid is None:
@@ -162,7 +164,11 @@ def per_class_suppression(rois: torch.Tensor, threshold: float,
     return Suppression(order, kill, valid[order])
 
 
+@torch.no_grad()
 def nms_per_class(rois: torch.Tensor, threshold: float, valid: Optional[torch.Tensor] = None):
-    """rois: (R, 7) Hough format; valid: (R,) bool. Returns (R,) bool
-    (`posecnn_tpu/ops/nms.py:44`)."""
-    return greedy_keep(per_class_suppression(rois, threshold, valid))
+    """rois: (R, 7) Hough format; valid: (R,) bool. Returns the (R,) bool
+    keep mask (`posecnn_tpu/ops/nms.py:44`) on the device of `rois`, with
+    no host read: `per_class_suppression`, then `greedy_scan`."""
+    order, kill, sorted_valid = per_class_suppression(rois, threshold, valid)
+    kept = greedy_scan(kill, sorted_valid)
+    return torch.zeros_like(kept).scatter(-1, order, kept)

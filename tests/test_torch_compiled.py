@@ -1,16 +1,19 @@
 """The port's compiled call (`posecnn_torch/utils/graph.compile_static`,
 the counterpart of `jax.jit`) and the programs it compiles, on the CPU.
 
-- NMS's split: `per_class_suppression` (the device part a CUDA graph
-  captures) then `greedy_keep` (the host scan) equals `nms_per_class` as
-  it was before the split and JAX's `nms_per_class`, bit for bit, on
-  seeded RoIs with score ties, overlapping twins and invalid rows.
+- NMS's parts: `per_class_suppression` (the suppression matrix) then
+  `greedy_keep` (the host scan) equals `nms_per_class` as it was before
+  the split, `nms_per_class` as it is (the scan `greedy_scan`, on the
+  device on a card) and JAX's `nms_per_class`, bit for bit, on seeded
+  RoIs with score ties, overlapping twins and invalid rows, and on the
+  edges: tied scores, no valid row, several (batch, class) pairs, R = 1,
+  R = 33.
 - The signature: equal shapes share one program, a new object count or a
   changed static argument makes a new one; on the CPU the call is `fn`'s
   own, outputs and all; tensors on two devices are refused.
 - The serving engine: its compiled entry (`infer_device`, eager on the
-  CPU) and its eager body (`_compiled.fn`, then NMS's host scan) against
-  JAX's serve engine at a tiny size, with the same weights.
+  CPU) and its eager body (`_compiled.fn`, the NMS inside) against JAX's
+  serve engine at a tiny size, with the same weights.
 
 The CUDA graphs themselves run only on a card: the `cuda` tests hold the
 engine's graph to its eager body bit for bit at batch 1 and 2 on three
@@ -69,20 +72,41 @@ def seeded_rois(seed, n=32):
     return rois, rng.rand(n) > 0.2
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2, 3, 4, 5])
-def test_nms_split_equals_nms_per_class_and_jax(seed):
+EDGES = ("ties", "all_invalid", "pairs", "r1", "r33")
+
+
+def edge_rois(name):
+    """(rois (R, 7) float32 Hough format, valid (R,) bool) at one of the
+    scan's edges, made from a seed."""
+    rng = np.random.RandomState(EDGES.index(name))
+    n = {"r1": 1, "r33": 33, "pairs": 48}.get(name, 24)
+    xy = rng.rand(n, 2) * (10 if name == "pairs" else 40)
+    wh = 10 + rng.rand(n, 2) * 20
+    batch = rng.randint(0, 3 if name == "pairs" else 1, (n, 1))
+    cls = rng.randint(1, 5 if name == "pairs" else 2, (n, 1))
+    scores = np.round(rng.rand(n, 1) * 3) / 3 if name == "ties" else rng.rand(n, 1)
+    rois = np.concatenate([batch, cls, xy, xy + wh, scores], 1).astype(np.float32)
+    valid = rng.rand(n) > 0.2
+    if name == "all_invalid":
+        valid[:] = False
+    return rois, valid
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 3, 4, 5, *EDGES])
+def test_nms_split_equals_nms_per_class_and_jax(case):
     import jax.numpy as jnp
 
     from posecnn_tpu.ops.nms import nms_per_class as jax_nms_per_class
 
-    rois, valid = seeded_rois(seed)
+    rois, valid = seeded_rois(case) if isinstance(case, int) else edge_rois(case)
     r, v = torch.from_numpy(rois), torch.from_numpy(valid)
     got = greedy_keep(per_class_suppression(r, 0.5, v))
     np.testing.assert_array_equal(got.numpy(), nms_per_class_before(r, 0.5, v).numpy())
     np.testing.assert_array_equal(got.numpy(), nms_per_class(r, 0.5, v).numpy())
     want = jax_nms_per_class(jnp.asarray(rois), 0.5, jnp.asarray(valid))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    assert 0 < got.sum() < valid.sum()  # something kept, something suppressed
+    if case not in ("all_invalid", "r1"):
+        assert 0 < got.sum() < valid.sum()  # something kept, something suppressed
 
 
 def test_signature_keys_shapes_and_static_arguments():
@@ -193,10 +217,9 @@ def test_engine_compiled_and_eager_equal_jaxs_engine(engines, batch):
 
 
 def eager(engine, data, meta):
-    """The engine's body run eagerly, then NMS's host scan: what
-    `infer_device` computes."""
-    *outputs, suppression = engine._compiled.fn(data, meta)
-    return (*outputs, greedy_keep(suppression))
+    """The engine's body run eagerly, its NMS inside: what `infer_device`
+    computes."""
+    return engine._compiled.fn(data, meta)
 
 
 @pytest.fixture
@@ -226,7 +249,7 @@ def test_engine_graph_equals_eager_on_the_card(cuda, batch):
                               want):
             assert exact(g, w), name
     (program,) = engine._compiled.programs.values()
-    assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+    assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 1, "kabsch": 0}
 
 
 @pytest.mark.cuda

@@ -10,14 +10,20 @@ Each kernel is held to its plain version bit for bit (NaN where the
 plain version gives NaN), at small scenes and at `chip_smoke`'s edge
 cases (the exhaustive vote at stride 1, the c2f pair as c2f runs them)
 and at the four tunings of `bench c2f`; the scan kernel at `chip_smoke`'s
-scan cases (the RPN's (1, 2000) matrix, test_net's (21, 128), the edges).
+scan cases (the RPN's (1, 2000) matrix, test_net's (21, 128), the serving
+programs' (1, 16) and (1, 64), and the edges of its design), also one
+byte off its allocation.
 Without a card those skip; the CPU tests check the plain c2f path against
-the plain exhaustive vote, the plain scan against the host scan, and the
-launch bookkeeping.
+the plain exhaustive vote, the plain scan against the host scan, the
+launch bookkeeping, and the bilinear upsample's backward (its exact
+adjoint, on every device) against autograd's own backward of
+`F.interpolate` (the card test holds it so on the card, and to itself
+run after run).
 """
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from chip_smoke import (
     EDGE_CASES,
@@ -31,6 +37,7 @@ from chip_smoke import (
 from posecnn_torch.ops import _cuda
 from posecnn_torch.ops import hough_kernels as hk
 from posecnn_torch.ops.nms import Suppression, greedy_keep, greedy_scan, greedy_scan_plain
+from posecnn_torch.models.vgg16 import _resize_weights, bilinear_upsample
 from posecnn_torch.ops.hough_voting import _prepare_slots, hough_voting
 
 torch.set_num_threads(1)
@@ -325,6 +332,74 @@ def test_scan_kernel_matches_plain(cuda, case):
     assert got.dtype == torch.bool and got.shape == want.shape
     assert torch.equal(got.cpu(), want)
     assert _cuda.LAUNCHES["scan"] == n0 + 1 and _cuda.device_launches()["scan"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCAN_CASES)
+def test_scan_kernel_on_a_misaligned_matrix_matches_plain(cuda, case):
+    """The kill matrix one byte off its allocation: the packing reads it a
+    byte at a time (16 bytes at a time only where it is 16-byte aligned
+    and N is a multiple of 16)."""
+    kill, valid = scan_case(case)
+    shifted = torch.zeros(kill.numel() + 1, dtype=torch.bool, device=cuda)
+    shifted[1:] = kill.reshape(-1).to(cuda)
+    _cuda.reset_device_launches()
+    got = greedy_scan(shifted[1:].view(kill.shape), valid.to(cuda))
+    assert torch.equal(got.cpu(), greedy_scan_plain(kill, valid))
+    assert _cuda.device_launches()["scan"] == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(6, 8, 8), (7, 9, 2), (1, 3, 2)])
+def test_upsample_adjoint_equals_autograds_backward(shape, dtype):
+    """`models/vgg16.bilinear_upsample`'s backward, the transpose of its
+    resize weights, against autograd's own backward of `F.interpolate`
+    (to rounding); as a forward the weights give `F.interpolate`."""
+    h, w, f = shape
+    x = torch.randn(2, 3, h, w, dtype=dtype, generator=torch.Generator().manual_seed(0),
+                    requires_grad=True)
+    g = torch.randn(2, 3, h * f, w * f, dtype=dtype, generator=torch.Generator().manual_seed(1))
+    y = F.interpolate(x, size=(h * f, w * f), mode="bilinear", align_corners=False)
+    (want,) = torch.autograd.grad(y, x, g)
+    rows, cols = _resize_weights(h, h * f, "cpu", dtype), _resize_weights(w, w * f, "cpu", dtype)
+    tol = 1e-6 if dtype == torch.float32 else 1e-14
+    torch.testing.assert_close(rows @ x.detach() @ cols.t(), y.detach(), rtol=0, atol=tol)
+    torch.testing.assert_close(rows.t() @ g @ cols, want, rtol=0,
+                               atol=tol * float(want.abs().max()))
+    xh = x.detach().permute(0, 2, 3, 1).requires_grad_(True)
+    yh = bilinear_upsample(xh, f)
+    torch.testing.assert_close(yh.detach(), y.detach().permute(0, 2, 3, 1), rtol=0, atol=0)
+    (got,) = torch.autograd.grad(yh, xh, g.permute(0, 2, 3, 1))
+    torch.testing.assert_close(got, want.permute(0, 2, 3, 1), rtol=0,
+                               atol=tol * float(want.abs().max()))
+
+
+def autograd_upsample_grad(x, g):
+    """Autograd's own backward of `F.interpolate` (NHWC in and out)."""
+    xx = x.permute(0, 3, 1, 2).clone().requires_grad_(True)
+    size = (g.shape[1], g.shape[2])
+    y = F.interpolate(xx, size=size, mode="bilinear", align_corners=False)
+    return torch.autograd.grad(y, xx, g.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+
+
+@pytest.mark.cuda
+def test_upsample_backward_on_the_card_is_deterministic(cuda):
+    """`bilinear_upsample`'s gradient on the card: autograd's backward of
+    `F.interpolate` on the CPU to rounding (fp64) and, in bf16, the same
+    bits on every run."""
+    rng = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 60, 80, 16, dtype=torch.float64, generator=rng)
+    g = torch.randn(2, 480, 640, 16, dtype=torch.float64, generator=rng)
+
+    def grad(xx, gg):
+        xx = xx.clone().requires_grad_(True)
+        return torch.autograd.grad(bilinear_upsample(xx, 8), xx, gg)[0]
+
+    torch.testing.assert_close(grad(x.to(cuda), g.to(cuda)).cpu(), autograd_upsample_grad(x, g),
+                               rtol=0, atol=1e-12)
+    xb, gb = x.to(cuda, torch.bfloat16), g.to(cuda, torch.bfloat16)
+    first = grad(xb, gb)
+    assert all(torch.equal(first, grad(xb, gb)) for _ in range(3))
 
 
 @pytest.mark.cuda
