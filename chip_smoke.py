@@ -9,8 +9,8 @@ that fails, with a non-zero exit:
 
   1. the card's name and power limit; build the CUDA kernels, one nvcc a
      source started together (`csrc/hough_vote.cu`, the vote kernels;
-     `csrc/nms_scan.cu`, the NMS scan; `csrc/kabsch.cu`, the Kabsch
-     rotation), and print `ptxas -v`'s registers,
+     `csrc/nms_scan.cu`, the NMS scan; `csrc/kabsch.cu`, RANSAC's two
+     pose kernels and the Kabsch rotation), and print `ptxas -v`'s registers,
      shared memory and spills per kernel, with the data-path library
      (`data/native.py`, g++) built beside them;
   2. each kernel against its plain PyTorch version, bit for bit, at the
@@ -114,11 +114,20 @@ that fails, with a non-zero exit:
      wall, the host's costliest ops); RANSAC centres of the
      planted scene within 1 px, card against CPU; the evaluator on the
      card against the CPU on the run's detections; `estimate_pose_3d` at
-     (4096 points, 256 hypotheses) compiled == eager bit for bit, three
-     Kabsch launches a replay counted on the device, both timed, the pose
-     against the truth and the CPU's; `kabsch_kernel` against its plain
-     version (the SVD on the card) at the program's shapes: R within 1e-4
-     where the singular values stand apart, trace(R·cov) within 1e-5
+     (4096 points, 256 hypotheses) compiled == eager bit for bit, one
+     `pose_hypotheses_kernel` and one `pose_refine_kernel` launch a replay
+     counted on the device and nothing else, both timed, the pose against
+     the truth and the CPU's, the kernels against the plain body (the same
+     best hypothesis, R within 1e-4, t within 1e-5, the inliers equal);
+     each pose kernel against its plain version (the SVD on the card) at
+     (4096, 256) and at 65536 points: a fit's R within 1e-4 and t within
+     1e-5 where its covariance's singular values stand apart, each score
+     its own fit's fp64 count and plain's up to the points near the
+     threshold; their ms as a graph of launches (the hypotheses' kernel at
+     1, 2, 4 and 8 hypotheses a block), per call, the plain version's,
+     and their bounds; `kabsch_kernel` (on no program path since) against
+     its plain version at the program's covariances: R within 1e-4 where
+     the singular values stand apart, trace(R·cov) within 1e-5
      everywhere; its ms as a graph of launches, per call, the plain
      version's and torch.linalg.svd's, and its bound;
  10. the real-frame family at full width: a YCB-Video tree written to a
@@ -329,9 +338,10 @@ recording where the phase prints them so.
 The line before the last is one JSON object with the kernels' results:
 the three vote kernels, the NMS scan, whose `launches` are those of
 phase 5's batch-1 HTTP run (one a forward, its times at the serving
-shape (1, 16), the other shapes' beside them), and the Kabsch kernel, whose
-`launches` are those of phase 9's replayed `estimate_pose_3d` (three a
-replay); the last line is {"ok": true, "device":
+shape (1, 16), the other shapes' beside them), RANSAC's two pose kernels,
+whose `launches` are those of phase 9's replayed `estimate_pose_3d` (one
+each a replay), and the Kabsch kernel, launched there no more (0); the
+last line is {"ok": true, "device":
 {...}}. Without a CUDA device,
 or without the posecnn_torch package beside it, it prints no result
 and exits non-zero.
@@ -483,9 +493,11 @@ KERNELS = {"tile": "tile_vote_kernel", "flat": "flat_vote_kernel",
            "window": "window_vote_kernel"}
 # every kernel the launch counts hold (ops/_cuda.KERNELS): the vote kernels
 # and the NMS scan, whose library also builds its packing kernel
-COUNTED = (*KERNELS, "scan", "kabsch")
+COUNTED = (*KERNELS, "scan", "kabsch", "pose_hyp", "pose_refine")
 SCAN_KERNEL, PACK_KERNEL = "nms_scan_kernel", "pack_kill_kernel"
-KABSCH_KERNEL = "kabsch_kernel"  # refine/ransac.py's rotation kernel (csrc/kabsch.cu)
+# refine/ransac.py's rotation kernel and its two pose kernels (csrc/kabsch.cu)
+KABSCH_KERNEL = "kabsch_kernel"
+POSE_HYP_KERNEL, POSE_REFINE_KERNEL = "pose_hypotheses_kernel", "pose_refine_kernel"
 EDGE_CASES = ("s1", "s37", "s300", "s1100", "inf_depth", "short", "dead", "multi")
 
 
@@ -709,7 +721,8 @@ def ptxas_lines(report):
     for line in report.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?([^' ]+)", line)
         if m:
-            name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL, KABSCH_KERNEL)
+            name = next((k for k in (*KERNELS.values(), SCAN_KERNEL, PACK_KERNEL, KABSCH_KERNEL,
+                                     POSE_HYP_KERNEL, POSE_REFINE_KERNEL)
                          if k in m.group(1)), None)
             if name in (SCAN_KERNEL, PACK_KERNEL):  # templates: the mask's home, the reads
                 flag = "ILb1E" in m.group(1)
@@ -1064,7 +1077,8 @@ def phase_small_model(device):
 
 # a captured forward's launches (c2f), and with its per-class NMS (the
 # serving, demo and posecnn test_net programs)
-FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+FORWARD_BODY = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+                "pose_hyp": 0, "pose_refine": 0}
 NMS_FORWARD = {**FORWARD_BODY, "scan": 1}
 # phase 5: requests a counted pass sends (batch 1: the five images in turn;
 # batch 4: twice the batch from as many clients), and requests a timed
@@ -1637,11 +1651,14 @@ def live_hough_inputs(step, state, batch, where):
 
 # what one replayed training step launches: the posecnn step its c2f pair,
 # the detection step the RPN's NMS scan
-C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
-DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0}
+C2F_STEP = {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+            "pose_hyp": 0, "pose_refine": 0}
+DET_STEP = {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0,
+            "pose_hyp": 0, "pose_refine": 0}
 # a replayed segmentation, video or GAN step's (the GAN yaml builds no
 # pose head, so no Hough), and a replay of test_video's forward
-NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0}
+NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0,
+             "pose_hyp": 0, "pose_refine": 0}
 
 
 def equality_gate(step, state, batches, where, per_replay, prepare=None):
@@ -2082,12 +2099,23 @@ def icp_card_vs_cpu(scene, device, rot_perturb, num_iters):
 
 # phase 9 (e): estimate_pose_3d's correspondences and hypotheses (the
 # JAX default hypothesis count at 4096 points: tests/test_torch_ransac.py's
-# scene, scaled), its inlier threshold, and the Kabsch kernel's bars
-# against its plain version (R where the singular values stand apart by
-# 1e-3 of the largest, as tests/test_torch_ransac.py compares R to JAX's;
-# trace(R·cov), which every maximiser attains, on every matrix)
+# scene, scaled; and a scene larger than a block's shared memory, 227 KB),
+# its inlier threshold, and the bars of its kernels against their plain
+# versions: R where the covariance's singular values stand apart by 1e-3 of
+# the largest, as tests/test_torch_ransac.py compares R to JAX's, and t
+# there; trace(R·cov), which every maximiser attains, on every matrix; an
+# inlier count up to the points whose fp64 error lies within POSE_BAND of
+# the threshold (relative) under either fit, or on either side of it
 POSE_POINTS, POSE_HYPOTHESES, POSE_THRESHOLD = 4096, 256, 0.01
+POSE_POINTS_LARGE = 65536
 KABSCH_GAP, KABSCH_R_TOL, KABSCH_TRACE_TOL = 1e-3, 1e-4, 1e-5
+POSE_T_TOL, POSE_BAND = 1e-5, 1e-5
+# fp32 operations of one inlier test |R s + t - d| < threshold (R s + t - d
+# 21, the squared norm 5, the root, the compare), of one hypothesis' fit
+# but its rotation (the weight sum 3, the means 36, the centred covariance
+# 126, t 18), and of an inlier in a refinement round (its count and sums 7,
+# its centred products 24)
+TEST_OPS, FIT_OPS, INLIER_OPS = 28, 183, 31
 
 
 def pose_scene(n, seed=0):
@@ -2105,22 +2133,63 @@ def pose_scene(n, seed=0):
     return obj, cam.astype(np.float32), np.ones(n, bool), r, t
 
 
-def kabsch_bound(sweeps):
-    """The least time of the Kabsch kernel on these inputs: its bytes (each
-    3x3 fp32 matrix read and its rotation written) over the memory rate,
-    against the fp32 operations its sweeps need over the fp32 peak: per
-    matrix the scaling (9), three column-pair tests a sweep (15 each: three
-    3-vector dots), one column rotation (46: the angle and two column pairs
-    of A and V) in each sweep but the last (a further sweep ran because one
-    rotated, at least), and the assembly of R (93). Returns (bound ms,
-    "bytes" or "operations", bytes, operations)."""
-    n = int(sweeps.numel())
-    total = float(sweeps.sum())
-    ops = n * (9 + 93) + 45 * total + 46 * (total - n)
-    bytes_ = 72 * n
+def kabsch_ops(sweeps):
+    """fp32 operations of `kabsch_one` on matrices that ran `sweeps` (a
+    tensor): per matrix the scaling (9), three column-pair tests a sweep
+    (15 each: three 3-vector dots), one column rotation (46: the angle and
+    two column pairs of A and V) in each sweep but the last (a further
+    sweep ran because one rotated, at least), and the assembly of R (93)."""
+    n, total = int(sweeps.numel()), float(sweeps.sum())
+    return n * (9 + 93) + 45 * total + 46 * (total - n)
+
+
+def bound_of(bytes_, ops):
+    """(the least ms: bytes over the memory rate or fp32 operations over the
+    fp32 peak, whichever is larger, "bytes" or "operations", bytes, ops)."""
     t_bytes, t_ops = bytes_ / PEAK_BYTES * 1e3, ops / PEAK_FP32_OPS * 1e3
     return (t_bytes, "bytes", bytes_, ops) if t_bytes >= t_ops else (t_ops, "operations", bytes_,
                                                                       ops)
+
+
+def kabsch_bound(sweeps):
+    """The least time of the Kabsch kernel on these inputs: its bytes (each
+    3x3 fp32 matrix read and its rotation written) against its operations
+    (`kabsch_ops`). Returns `bound_of`'s tuple."""
+    return bound_of(72 * int(sweeps.numel()), kabsch_ops(sweeps))
+
+
+def pose_hypotheses_bound(n, hyp, sweeps):
+    """The least time of `pose_hypotheses_kernel` at N = n, Hyp = hyp: the
+    points read (N·25 bytes), the triples read and the fits and scores
+    written (Hyp·(24 + 48 + 8)), against TEST_OPS a (hypothesis, point)
+    pair, FIT_OPS a fit and its rotation's `kabsch_ops` by `sweeps`, those
+    `kabsch_kernel` ran on the hypotheses' covariances. Returns
+    `bound_of`'s tuple."""
+    return bound_of(25 * n + 80 * hyp, TEST_OPS * n * hyp + FIT_OPS * hyp + kabsch_ops(sweeps))
+
+
+def pose_refine_bound(n, hyp, inliers, sweeps):
+    """The least time of `pose_refine_kernel` at N = n, Hyp = hyp, given each
+    round's inliers (the plain version's) and the sweeps `kabsch_kernel` ran
+    on a refinement's covariance (a tensor of one): the points (N·25 bytes),
+    the scores (Hyp·8) and the best fit (48) read, the pose (56) written,
+    against the argmax's Hyp compares, an inlier test a point a round and in
+    the final count, a valid count a point, INLIER_OPS an inlier a round,
+    and in each round of at least 3 inliers a rotation of those sweeps
+    (`kabsch_ops`) with its means and t (24). Returns `bound_of`'s tuple."""
+    ran = sum(c >= 3 for c in inliers)
+    ops = (hyp + TEST_OPS * n * (len(inliers) + 1) + n + INLIER_OPS * sum(inliers)
+           + ran * (kabsch_ops(sweeps) + 24))
+    return bound_of(25 * n + 8 * hyp + 48 + 56, ops)
+
+
+def refine_inliers(obj, cam, valid, hyps, threshold, num_refine):
+    """Each refinement round's inliers under `pose_refine_plain`: round k
+    takes those of the pose after k rounds."""
+    from posecnn_torch.refine import ransac
+
+    return [float(ransac.pose_refine_plain(obj, cam, valid, *hyps, threshold, k).inliers)
+            for k in range(num_refine)]
 
 
 def kabsch_vs_plain(cov, where):
@@ -2153,29 +2222,148 @@ def kabsch_vs_plain(cov, where):
     return err, int(apart.sum()), rel, sweeps
 
 
+def fit_errors(obj, cam, r, t):
+    """|R s + t - d| in fp64 of each fit r (H, 3, 3), t (H, 3) at every
+    point of obj, cam (N, 3): (H, N)."""
+    pred = obj.double() @ r.double().transpose(-1, -2) + t.double()[..., None, :]
+    return (pred - cam.double()).norm(dim=-1)
+
+
+def count_slack(err_a, err_b, valid, threshold):
+    """(the fp64 inlier count under fit a (H,), the valid points per fit
+    whose count may differ between fits a and b: an fp64 error within
+    POSE_BAND of the fp32 threshold under either, or the two on either
+    side (H,), those under fit a alone (H,))."""
+    thr = float(np.float32(threshold))
+    near_a = (err_a - thr).abs() <= POSE_BAND * thr
+    near_b = (err_b - thr).abs() <= POSE_BAND * thr
+    sides = (err_a < thr) != (err_b < thr)
+    return (((err_a < thr) & valid).sum(-1), ((near_a | near_b | sides) & valid).sum(-1),
+            (near_a & valid).sum(-1))
+
+
+def pose_hypotheses_vs_plain(obj, cam, valid, triples, threshold, where, chunk=64):
+    """`pose_hypotheses_kernel` against `pose_hypotheses_plain` (the SVD on
+    the card for its rotations) on one input: R within KABSCH_R_TOL and t
+    within POSE_T_TOL where the hypothesis' covariance has its singular
+    values apart by KABSCH_GAP; on every usable hypothesis R finite and
+    trace(R·cov) within KABSCH_TRACE_TOL of the singular values' sum of the
+    plain version's (every maximiser attains it, so this holds the fits of
+    rank-deficient triples too); the same hypotheses usable; each usable
+    score equal to the fp64 count of its own fit up to its points near the
+    threshold, and to the plain version's up to `count_slack`. Returns the
+    stats."""
+    import torch
+
+    from posecnn_torch.refine import ransac
+
+    rs, ts, scores = ransac.pose_hypotheses(obj, cam, valid, triples, threshold)
+    rs_p, ts_p, scores_p = ransac.pose_hypotheses_plain(obj, cam, valid, triples, threshold)
+    cov = ransac.weighted_covariance(obj[triples].double(), cam[triples].double(),
+                                     valid[triples].double())[0]
+    sv = torch.linalg.svdvals(cov)
+    apart = torch.minimum(sv[:, 0] - sv[:, 1], sv[:, 1] - sv[:, 2]) > KABSCH_GAP * sv[:, 0]
+    d_r = (rs - rs_p).abs().flatten(1).amax(1)[apart]
+    d_t = (ts - ts_p).abs().amax(1)[apart]
+    r_err = float(d_r.max()) if d_r.numel() else 0.0
+    t_err = float(d_t.max()) if d_t.numel() else 0.0
+    usable = scores >= 0
+    trace = (torch.einsum("nij,nji->n", rs.double(), cov)
+             - torch.einsum("nij,nji->n", rs_p.double(), cov)).abs() / sv.sum(1).clamp(min=1e-30)
+    trace_err = float(trace[usable].max()) if bool(usable.any()) else 0.0
+    own_off = differ = max_diff = 0
+    for lo in range(0, triples.shape[0], chunk):
+        sl = slice(lo, lo + chunk)
+        err = fit_errors(obj, cam, rs[sl], ts[sl])
+        count, slack, near = count_slack(err, fit_errors(obj, cam, rs_p[sl], ts_p[sl]), valid,
+                                         threshold)
+        off = torch.where(usable[sl], (scores[sl] - count).abs(), 0)
+        diff = (scores[sl] - scores_p[sl]).abs()
+        if bool((off > near).any()) or bool((diff > torch.where(usable[sl], slack, 0)).any()):
+            raise AssertionError(f"pose_hypotheses_kernel's scores at {where}: off the fp64 "
+                                 f"count by {off.tolist()} (near {near.tolist()}), off the "
+                                 f"plain version by {diff.tolist()} (slack {slack.tolist()})")
+        own_off += int((off > 0).sum())
+        differ += int((diff > 0).sum())
+        max_diff = max(max_diff, int(diff.max()))
+    if (r_err > KABSCH_R_TOL or t_err > POSE_T_TOL or trace_err > KABSCH_TRACE_TOL
+            or not torch.equal(usable, scores_p >= 0)
+            or not bool(torch.isfinite(rs).all() and torch.isfinite(ts).all())):
+        raise AssertionError(f"pose_hypotheses_kernel disagrees with its plain version at {where}: "
+                             f"|dR| {r_err}, |dt| {t_err} on {int(apart.sum())} separated fits, "
+                             f"trace {trace_err} on {int(usable.sum())} usable, usable "
+                             f"{int(usable.sum())} / {int((scores_p >= 0).sum())}")
+    return dict(shape=[obj.shape[0], triples.shape[0]], max_abs_err=max(r_err, t_err),
+                r_err=r_err, t_err=t_err, trace_rel_err=trace_err, compared=int(apart.sum()),
+                usable=int(usable.sum()), scores_off_fp64=own_off, scores_differ=differ,
+                max_score_diff=max_diff)
+
+
+def pose_refine_vs_plain(obj, cam, valid, hyps, threshold, num_refine, where, exact=False):
+    """`pose_refine_kernel` against `pose_refine_plain` on the same
+    hypotheses: R within KABSCH_R_TOL, t within POSE_T_TOL, the inliers
+    equal (`exact`) or within `count_slack` of the two final fits, the score
+    the inliers over the valid entries. Returns the stats."""
+    import torch
+
+    from posecnn_torch.refine import ransac
+
+    got = ransac.pose_refine(obj, cam, valid, *hyps, threshold, num_refine)
+    want = ransac.pose_refine_plain(obj, cam, valid, *hyps, threshold, num_refine)
+    r_err = float((got.rotation - want.rotation).abs().max())
+    t_err = float((got.translation - want.translation).abs().max())
+    _, slack, _ = count_slack(fit_errors(obj, cam, got.rotation[None], got.translation[None]),
+                              fit_errors(obj, cam, want.rotation[None], want.translation[None]),
+                              valid, threshold)
+    d_inl = float((got.inliers - want.inliers).abs())
+    share = torch.where(got.inliers > 0, got.inliers / valid.sum().clamp(min=1), 0.0)
+    if (r_err > KABSCH_R_TOL or t_err > POSE_T_TOL or d_inl > (0 if exact else float(slack[0]))
+            or not torch.equal(got.score, share.float())):
+        raise AssertionError(f"pose_refine_kernel disagrees with its plain version at {where}: "
+                             f"|dR| {r_err}, |dt| {t_err}, inliers {float(got.inliers)} / "
+                             f"{float(want.inliers)} (slack {int(slack[0])}), score "
+                             f"{float(got.score)} / {float(want.score)}")
+    return dict(shape=[obj.shape[0], hyps[2].shape[0]], max_abs_err=max(r_err, t_err),
+                r_err=r_err, t_err=t_err, inliers=float(got.inliers),
+                plain_inliers=float(want.inliers))
+
+
 def ransac_pose_check(device):
     """Phase 9 (e): `estimate_pose_3d` at (POSE_POINTS, POSE_HYPOTHESES) as a
     compiled program against its eager body (bit for bit; three replays
-    counted on the device: the Kabsch kernel three times a replay, the
-    hypotheses' and two refinements', and no other kernel), both timed;
-    the pose against the truth; then `kabsch_kernel` against its plain
-    version at the program's shapes (the hypotheses' (256, 3, 3) and a
-    refinement's (3, 3)), timed as a graph of launches, per wrapper call,
-    its plain version's and torch.linalg.svd's time. Returns (line, the
-    kernel's entries for the kernels line)."""
+    counted on the device: `pose_hypotheses_kernel` and
+    `pose_refine_kernel` once a replay, no other kernel), both timed; the
+    pose against the truth; the two kernels against their plain versions
+    there and at POSE_POINTS_LARGE points (`pose_hypotheses_vs_plain`,
+    `pose_refine_vs_plain`), the whole plain body against the kernels' (the
+    same best hypothesis, R, t, inliers), each kernel timed as a graph of
+    launches, per wrapper call and its plain version, with its bound (from
+    the sweeps `kabsch_kernel` runs on the same covariances and the plain
+    version's inliers a round); `kabsch_kernel` against its plain version at
+    the program's covariances (the hypotheses' and a refinement's), timed
+    likewise with torch.linalg.svd. Returns (line, {kernel: its entry for
+    the kernels line})."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from posecnn_torch.cli.validate import device_ms
     from posecnn_torch.refine import ransac
     from posecnn_torch.utils.graph import compile_static
 
-    obj_np, cam_np, valid_np, r_true, t_true = pose_scene(POSE_POINTS)
-    obj, cam, valid = (torch.from_numpy(a).to(device) for a in (obj_np, cam_np, valid_np))
-    triples = ransac.draw_hypotheses(valid, POSE_HYPOTHESES, 3, torch.Generator().manual_seed(0),
-                                     n_valid=POSE_POINTS)
-    kw = dict(inlier_threshold=POSE_THRESHOLD)
-    eager = partial(ransac.estimate_pose_3d, obj, cam, valid, triples, **kw)
-    compiled = partial(compile_static(ransac.estimate_pose_3d), obj, cam, valid, triples, **kw)
+    def scene(n, seed):
+        obj_np, cam_np, valid_np, r_true, t_true = pose_scene(n, seed)
+        obj, cam, valid = (torch.from_numpy(a).to(device) for a in (obj_np, cam_np, valid_np))
+        triples = ransac.draw_hypotheses(valid, POSE_HYPOTHESES, 3,
+                                         torch.Generator().manual_seed(seed), n_valid=n)
+        return (obj, cam, valid, triples), r_true, t_true
+
+    args, r_true, t_true = scene(POSE_POINTS, 0)
+    obj, cam, valid, triples = args
+    thr, kw = POSE_THRESHOLD, dict(inlier_threshold=POSE_THRESHOLD)
+    eager = partial(ransac.estimate_pose_3d, *args, **kw)
+    program = compile_static(ransac.estimate_pose_3d)
+    compiled = partial(program, *args, **kw)
+    _, eager_calls, _ = device_counted(eager)
     want = eager()
     tree_exact(tree_map(lambda x: x.clone(), compiled()), want, "estimate_pose_3d compiled vs eager")
     replays = 3
@@ -2184,54 +2372,136 @@ def ransac_pose_check(device):
     for out in outs:
         tree_exact(out, want, "estimate_pose_3d replay vs eager")
     per = {k: counted[k] / replays for k in COUNTED}
-    if any(calls.values()) or per != {**NO_LAUNCH, "kabsch": 3}:
-        raise AssertionError(f"estimate_pose_3d replays: wrapper calls {calls}, device "
-                             f"launches {counted} in {replays} replays")
+    two = {**NO_LAUNCH, "pose_hyp": 1, "pose_refine": 1}
+    if any(calls.values()) or per != two or eager_calls != two:
+        raise AssertionError(f"estimate_pose_3d: eager wrapper calls {eager_calls}; replays: "
+                             f"wrapper calls {calls}, device launches {counted} in {replays}")
     rot = want.rotation.cpu().numpy()
     r_err = float(np.degrees(np.arccos(np.clip(0.5 * (np.trace(rot @ r_true.T) - 1), -1, 1))))
     t_err = float(np.linalg.norm(want.translation.cpu().numpy() - t_true))
     if not (r_err < 3.0 and t_err < 0.01 and float(want.score) > 0.5):
         raise AssertionError(f"estimate_pose_3d: {r_err} deg, {t_err} m, score "
                              f"{float(want.score)}")
-    cpu = ransac.estimate_pose_3d(obj.cpu(), cam.cpu(), valid.cpu(), triples.cpu(), **kw)
+    cpu = ransac.estimate_pose_3d(*(a.cpu() for a in args), **kw)
     vs_cpu = (float((want.rotation.cpu() - cpu.rotation).abs().max()),
               float((want.translation.cpu() - cpu.translation).abs().max()),
               float(want.inliers), float(cpu.inliers))
-    ms = (device_ms(eager, device, 5), device_ms(compiled, device, 5))
+    ms = (device_ms(eager, device, 20), device_ms(compiled, device, 20))
+    # where a compiled call's time goes: its graph's replay alone (CUDA
+    # events over a loop of replays), and the device's busy time a call
+    # (torch.profiler: the copies into the graph's inputs and the kernels)
+    (graph,) = [p.graph for p in program.programs.values()]
+    replay_ms = device_ms(graph.replay, device, 20)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            compiled()
+        torch.cuda.synchronize(device)
+    busy_ms = kernel_busy_ms(prof) / 20
 
-    # the kernel at the program's shapes
+    # each kernel against its plain version, at both scenes; the plain body
+    # end to end against the kernels'
+    hyp_stats = pose_hypotheses_vs_plain(*args, thr, "the planted scene")
+    hyps = ransac.pose_hypotheses(*args, thr)
+    ref_stats = pose_refine_vs_plain(obj, cam, valid, hyps, thr, 2, "the planted scene",
+                                     exact=True)
+    plain_hyps = ransac.pose_hypotheses_plain(*args, thr)
+    plain = ransac.pose_refine_plain(obj, cam, valid, *plain_hyps, thr, 2)
+    best = (int(torch.argmax(hyps[2])), int(torch.argmax(plain_hyps[2])))
+    body = (float((want.rotation - plain.rotation).abs().max()),
+            float((want.translation - plain.translation).abs().max()))
+    if (best[0] != best[1] or body[0] > KABSCH_R_TOL or body[1] > POSE_T_TOL
+            or float(want.inliers) != float(plain.inliers)):
+        raise AssertionError(f"estimate_pose_3d's kernels vs its plain body: best {best}, |dR| "
+                             f"{body[0]}, |dt| {body[1]}, inliers {float(want.inliers)} / "
+                             f"{float(plain.inliers)}")
+    large, _, _ = scene(POSE_POINTS_LARGE, 1)
+    hyp_large = pose_hypotheses_vs_plain(*large, thr, f"{POSE_POINTS_LARGE} points")
+    ref_large = pose_refine_vs_plain(*large[:3], ransac.pose_hypotheses(*large, thr), thr, 2,
+                                     f"{POSE_POINTS_LARGE} points")
+
+    # the rotation kernel at the program's covariances
     w3 = valid[triples].float()
     hyp_cov = ransac.weighted_covariance(obj[triples], cam[triples], w3)[0]
-    inl = ransac._inliers_3d(want.rotation, want.translation, obj, cam, valid,
-                             POSE_THRESHOLD).float()
+    inl = ransac._inliers_3d(want.rotation, want.translation, obj, cam, valid, thr).float()
     ref_cov = ransac.weighted_covariance(obj, cam, inl)[0][None]
     err, compared, rel, sweeps = kabsch_vs_plain(hyp_cov, "the hypotheses' covariances")
-    err1, _, rel1, _ = kabsch_vs_plain(ref_cov, "a refinement's covariance")
+    err1, _, rel1, ref_sweeps = kabsch_vs_plain(ref_cov, "a refinement's covariance")
+
+    # the times, at the planted scene (and the graphs at the large one)
+    hyp_bound = pose_hypotheses_bound(POSE_POINTS, POSE_HYPOTHESES, sweeps)
+    round_inliers = refine_inliers(obj, cam, valid, hyps, thr, 2)
+    ref_bound = pose_refine_bound(POSE_POINTS, POSE_HYPOTHESES, round_inliers, ref_sweeps)
+    hyp_stats.update(
+        launches=counted["pose_hyp"], ms=graph_ms(lambda: ransac.pose_hypotheses(*args, thr), 200),
+        call_ms=device_ms(lambda: ransac.pose_hypotheses(*args, thr), device, 50),
+        plain_ms=device_ms(lambda: ransac.pose_hypotheses_plain(*args, thr), device, 20),
+        bound_ms=hyp_bound[0], bound_by=hyp_bound[1], bytes=hyp_bound[2],
+        operations=hyp_bound[3], library_ms=None,
+        program_ms={"eager": ms[0], "compiled": ms[1], "replay": replay_ms, "busy": busy_ms},
+        large={**hyp_large, "ms": graph_ms(lambda: ransac.pose_hypotheses(*large, thr), 50)})
+    large_hyps = ransac.pose_hypotheses(*large, thr)
+    ref_stats.update(
+        launches=counted["pose_refine"],
+        ms=graph_ms(lambda: ransac.pose_refine(obj, cam, valid, *hyps, thr, 2), 200),
+        call_ms=device_ms(lambda: ransac.pose_refine(obj, cam, valid, *hyps, thr, 2), device, 50),
+        plain_ms=device_ms(lambda: ransac.pose_refine_plain(obj, cam, valid, *hyps, thr, 2),
+                           device, 20),
+        bound_ms=ref_bound[0], bound_by=ref_bound[1], bytes=ref_bound[2],
+        operations=ref_bound[3], library_ms=None, round_inliers=round_inliers,
+        large={**ref_large, "ms": graph_ms(lambda: ransac.pose_refine(*large[:3], *large_hyps,
+                                                                      thr, 2), 50)})
+
     bound = kabsch_bound(sweeps)
     k_ms = graph_ms(lambda: ransac.kabsch_rotation(hyp_cov), 200)
     call_ms = device_ms(lambda: ransac.kabsch_rotation(hyp_cov), device, 50)
     plain_ms = device_ms(lambda: ransac.kabsch_rotation_plain(hyp_cov), device, 20)
     svd_ms = device_ms(lambda: torch.linalg.svd(hyp_cov), device, 20)
-    stats = dict(shape=list(hyp_cov.shape), launches=counted["kabsch"], max_abs_err=max(err, err1),
-                 trace_rel_err=max(rel, rel1), compared=compared, ms=k_ms, call_ms=call_ms,
-                 plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], bytes=bound[2],
-                 operations=bound[3], library_ms=svd_ms,
-                 sweeps=[int(sweeps.min()), float(sweeps.float().mean()), int(sweeps.max())])
+    kabsch = dict(shape=list(hyp_cov.shape), launches=counted["kabsch"],
+                  max_abs_err=max(err, err1), trace_rel_err=max(rel, rel1), compared=compared,
+                  ms=k_ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound[0],
+                  bound_by=bound[1], bytes=bound[2], operations=bound[3], library_ms=svd_ms,
+                  sweeps=[int(sweeps.min()), float(sweeps.float().mean()), int(sweeps.max())])
+
+    def times(st):
+        return (f"ms graph / call / plain / bound {st['ms']:.4f} / {st['call_ms']:.4f} / "
+                f"{st['plain_ms']:.4f} / {st['bound_ms']:.3g} ({st['bound_by']}, share "
+                f"{100 * st['bound_ms'] / st['ms']:.2f}%)")
+
     line = (f"(e) estimate_pose_3d at ({POSE_POINTS} points, {POSE_HYPOTHESES} hypotheses, 30% "
             f"outliers) compiled == eager bit for bit (first call and {replays} replays), "
             f"{r_err:.3f} deg / {1e3 * t_err:.3f} mm from the truth, {float(want.inliers):.0f} "
             f"inliers; the card vs the CPU (the SVD there): |dR| {vs_cpu[0]:.3g}, |dt| "
             f"{vs_cpu[1]:.3g}, inliers {vs_cpu[2]:.0f} / {vs_cpu[3]:.0f}; ms eager / compiled "
-            f"{ms[0]:.3f} / {ms[1]:.3f} (CUDA events, mean of 5); launches a replay (device) "
-            f"{per}; {KABSCH_KERNEL} vs plain (torch.linalg.svd and the sign fix, on the card): "
-            f"max |dR| {err:.3g} on {compared} of {hyp_cov.shape[0]} hypothesis covariances with "
+            f"{ms[0]:.4f} / {ms[1]:.4f} (CUDA events, mean of 20), the graph's replay alone "
+            f"{replay_ms:.4f}, the device busy {busy_ms:.4f} a compiled call (profiler: its "
+            f"input copies and two kernels); launches a replay (device) "
+            f"{per}; the plain body vs the kernels: best hypothesis {best[0]} / {best[1]}, |dR| "
+            f"{body[0]:.3g}, |dt| {body[1]:.3g}, inliers equal; pose_hypotheses_kernel vs plain "
+            f"(the SVD on the card), at {POSE_POINTS} / {POSE_POINTS_LARGE} points: |dR| "
+            f"{hyp_stats['r_err']:.3g} / {hyp_large['r_err']:.3g}, |dt| {hyp_stats['t_err']:.3g} "
+            f"/ {hyp_large['t_err']:.3g} on {hyp_stats['compared']} / {hyp_large['compared']} "
+            f"separated fits (bars {KABSCH_R_TOL:g}, {POSE_T_TOL:g}), trace(R cov) within "
+            f"{hyp_stats['trace_rel_err']:.3g} / {hyp_large['trace_rel_err']:.3g} of plain's on "
+            f"{hyp_stats['usable']} / {hyp_large['usable']} usable (bar {KABSCH_TRACE_TOL:g}), "
+            f"scores off their own fp64 "
+            f"count {hyp_stats['scores_off_fp64']} / {hyp_large['scores_off_fp64']} and off "
+            f"plain's {hyp_stats['scores_differ']} / {hyp_large['scores_differ']} times, each "
+            f"within its points near the threshold; {times(hyp_stats)}; ms at "
+            f"{POSE_POINTS_LARGE} points {hyp_stats['large']['ms']:.4f}; pose_refine_kernel vs plain on the same hypotheses: |dR| {ref_stats['r_err']:.3g} "
+            f"/ {ref_large['r_err']:.3g}, |dt| {ref_stats['t_err']:.3g} / "
+            f"{ref_large['t_err']:.3g}, inliers {ref_stats['inliers']:.0f} / "
+            f"{ref_stats['plain_inliers']:.0f}, {ref_large['inliers']:.0f} / "
+            f"{ref_large['plain_inliers']:.0f}; {times(ref_stats)}; ms at {POSE_POINTS_LARGE} "
+            f"points {ref_stats['large']['ms']:.4f}; inliers a round (plain) "
+            f"{ref_stats['round_inliers']}; {KABSCH_KERNEL} (on no program path) vs plain: max |dR| "
+            f"{err:.3g} on {compared} of {hyp_cov.shape[0]} hypothesis covariances with "
             f"singular values apart (bar {KABSCH_R_TOL:g}), {err1:.3g} on a refinement's, "
             f"trace(R cov) within {max(rel, rel1):.3g} of sum(sigma) on all (bar "
-            f"{KABSCH_TRACE_TOL:g}); sweeps min / mean / max {stats['sweeps']}; at "
+            f"{KABSCH_TRACE_TOL:g}); sweeps min / mean / max {kabsch['sweeps']}; at "
             f"{tuple(hyp_cov.shape)} ms graph / call / plain / torch.linalg.svd / bound "
             f"{k_ms:.4f} / {call_ms:.4f} / {plain_ms:.4f} / {svd_ms:.4f} / {bound[0]:.3g} "
             f"({bound[1]})")
-    return line, stats
+    return line, {"pose_hyp": hyp_stats, "pose_refine": ref_stats, "kabsch": kabsch}
 
 
 def pose_errors_check(device, points, pairs_n=5):
@@ -2277,10 +2547,10 @@ def phase_eval(device, card):
     --ransac`, compiled, each forward, ICP, RANSAC centre and evaluator
     call held to its eager run bit for bit; ICP through `test_icp`'s drive,
     compiled and eager; RANSAC centres, and the evaluator, each on the card
-    against the CPU; `estimate_pose_3d` compiled and its Kabsch kernel
-    (`ransac_pose_check`). Returns (each vote kernel's launches in the
-    recorded test_net run, its captured forward's launches, the Kabsch
-    kernel's entries)."""
+    against the CPU; `estimate_pose_3d` compiled, its two pose kernels and
+    the Kabsch kernel (`ransac_pose_check`). Returns (each vote kernel's
+    launches in the recorded test_net run, its captured forward's
+    launches, the three kernels' entries)."""
     import tempfile
 
     import torch
@@ -2367,7 +2637,7 @@ def phase_eval(device, card):
     compiled = partial(compile_static(estimate_center), *ransac_args, **ransac_kw)
     tree_exact(tree_map(lambda x: x.clone(), compiled()), eager(), "estimate_center compiled")
     ransac_ms = (device_ms(eager, device, 5), device_ms(compiled, device, 5))
-    pose_line, kabsch = ransac_pose_check(device)
+    pose_line, pose_kernels = ransac_pose_check(device)
     # flat and window bit for bit on each eval forward's Hough inputs
     extents, kw = hough_in.call
     meta = hough_in[0][2]
@@ -2479,7 +2749,7 @@ def phase_eval(device, card):
           f"pose errors: {n_errors} calls through {len(bodies.get('pair_errors', []))} graphs "
           f"(rows padded to a power of two, at least 8), == eager bit for bit; {errors_line}; "
           f"{pose_line}", flush=True)
-    return launches, forwards[0], kabsch
+    return launches, forwards[0], pose_kernels
 
 
 def cfg_path(name):
@@ -3091,7 +3361,8 @@ class Eager:
 
 # a replay of test_net's captured det_infer: the scans of the RPN's NMS and
 # of the per-class NMS
-DET_INFER_BODY = {"tile": 0, "flat": 0, "window": 0, "scan": 2, "kabsch": 0}
+DET_INFER_BODY = {"tile": 0, "flat": 0, "window": 0, "scan": 2, "kabsch": 0,
+                  "pose_hyp": 0, "pose_refine": 0}
 
 
 def phase_det_demo(card):
@@ -5125,7 +5396,7 @@ def main() -> int:
     phase_validate(device)
     runs = phase_full_width(device, card)
     train = phase_train(card)
-    eval_launches, cli_bodies["test_net"], kabsch = phase_eval(device, card)
+    eval_launches, cli_bodies["test_net"], pose_kernels = phase_eval(device, card)
     real_launches, real_eval_launches = phase_real(card)
     demo_launches, cli_bodies["demo"], det = phase_det_demo(card)
     seg_launches, seg_replays = phase_seg_video(device, card)
@@ -5187,10 +5458,13 @@ def main() -> int:
                                 "per_captured_det_infer")},
          "per_replayed_family_program": {name: counts["scan"] for name, counts in families.items()}}
     ] + [
-        {"name": KABSCH_KERNEL, "route": "cuda", "source": "posecnn_torch/csrc/kabsch.cu",
-         "replaces": "posecnn_tpu/refine/ransac.py:119", **kabsch,
-         "per_replayed_family_program": {name: counts["kabsch"]
-                                         for name, counts in families.items()}}
+        {"name": name, "route": "cuda", "source": "posecnn_torch/csrc/kabsch.cu",
+         "replaces": replaces, **pose_kernels[k],
+         "per_replayed_family_program": {fam: counts[k] for fam, counts in families.items()}}
+        for k, name, replaces in (
+            ("pose_hyp", POSE_HYP_KERNEL, "posecnn_tpu/refine/ransac.py:155"),
+            ("pose_refine", POSE_REFINE_KERNEL, "posecnn_tpu/refine/ransac.py:165"),
+            ("kabsch", KABSCH_KERNEL, "posecnn_tpu/refine/ransac.py:119"))
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -39,7 +39,7 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # each library (csrc/<name>.cu): its entry points' ctypes argument types;
 # every entry point returns a cudaError_t as int
 LIBRARIES = {
@@ -49,7 +49,11 @@ LIBRARIES = {
         "hough_window_votes": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     },
     "nms_scan": {"nms_scan": [_P, _P, _P, _P, _I, _I, _P, _P]},
-    "kabsch": {"kabsch_rotations": [_P, _P, _P, _I, _P, _P]},
+    "kabsch": {
+        "kabsch_rotations": [_P, _P, _P, _I, _P, _P],
+        "pose_hypotheses": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P],
+        "pose_refine": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    },
 }
 
 _locks = {name: threading.Lock() for name in LIBRARIES}
@@ -119,8 +123,9 @@ def check(status: int, what: str) -> None:
 
 # the kernels by the names the counts use, each with its slot in a
 # device's counters: the three vote kernels (ops/hough_kernels.py), the
-# NMS scan (ops/nms.py) and the Kabsch rotation (refine/ransac.py)
-KERNELS = ("tile", "flat", "window", "scan", "kabsch")
+# NMS scan (ops/nms.py), the Kabsch rotation and RANSAC's two pose kernels
+# (refine/ransac.py)
+KERNELS = ("tile", "flat", "window", "scan", "kabsch", "pose_hyp", "pose_refine")
 # launches since the last reset, by kernel; chip_smoke.py reads them to
 # show that each path went through its kernels
 LAUNCHES = dict.fromkeys(KERNELS, 0)

@@ -21,13 +21,17 @@ feed both packages the same indices.
 The bodies are what the JAX package jits (`posecnn_tpu/refine/ransac.py:50`,
 `:135`), and callers compile them with `utils/graph.compile_static`, one
 CUDA graph per (N, Hyp) signature; the draw stays on the host, outside the
-graph. So a body reads nothing on the host: the best hypothesis is taken
-with `index_select` (an index by a 0-d tensor is read on the host), and
-Kabsch's rotation on a card is the CUDA kernel `kabsch_kernel`
-(`csrc/kabsch.cu`, `kabsch_rotation`): `torch.linalg.svd` on a CUDA tensor
-copies its solver's status to the host, which a capture refuses. Its plain
-version, `kabsch_rotation_plain`, the SVD and the reflection fix in
-PyTorch ops, runs on the CPU.
+graph. So a body reads nothing on the host: `estimate_center` takes its
+best hypothesis with `index_select` (an index by a 0-d tensor is read on
+the host). `estimate_pose_3d` on a card is two CUDA kernels
+(`csrc/kabsch.cu`): `pose_hypotheses_kernel` fits and scores every
+hypothesis, `pose_refine_kernel` picks the best and refines it; their
+plain versions `pose_hypotheses_plain` and `pose_refine_plain` run on the
+CPU, where they are the JAX body's steps in PyTorch ops. The rotation
+inside both kernels is `kabsch_kernel`'s (`kabsch_rotation`, plain version
+`kabsch_rotation_plain`: the SVD and the reflection fix), because
+`torch.linalg.svd` on a CUDA tensor copies its solver's status to the
+host, which a capture refuses.
 """
 
 from __future__ import annotations
@@ -173,10 +177,10 @@ def weighted_covariance(src, dst, w):
 
 
 def _kabsch(src, dst, w):
-    """Weighted rigid alignment dst ≈ R·src + t, batched: src, dst
-    (…, N, 3), w (…, N) → R (…, 3, 3), t (…, 3)."""
+    """Weighted rigid alignment dst ≈ R·src + t, batched, in PyTorch ops:
+    src, dst (…, N, 3), w (…, N) → R (…, 3, 3), t (…, 3)."""
     cov, mu_s, mu_d = weighted_covariance(src, dst, w)
-    r = kabsch_rotation(cov)
+    r = kabsch_rotation_plain(cov)
     return r, mu_d - (r @ mu_s[..., None])[..., 0]
 
 
@@ -185,15 +189,19 @@ def _inliers_3d(r, t, obj_coords, cam_points, valid, threshold):
     return (torch.linalg.vector_norm(pred - cam_points, dim=-1) < threshold) & valid
 
 
-def estimate_pose_3d(obj_coords, cam_points, valid, triples, *,
-                     inlier_threshold: float = 0.02, num_refine: int = 2) -> PoseEstimate:
-    """Rigid pose from 3D-3D correspondences. obj_coords, cam_points
-    (N, 3) fp32, valid (N,) bool, triples (Hyp, 3) indices
-    (`draw_hypotheses`)."""
+def pose_hypotheses_plain(obj_coords, cam_points, valid, triples, inlier_threshold):
+    """`pose_hypotheses` in PyTorch ops, on any device (the vmapped `hyp`
+    of `posecnn_tpu/refine/ransac.py:155-163`)."""
     w3 = valid[triples].float()  # (Hyp, 3)
     rs, ts = _kabsch(obj_coords[triples], cam_points[triples], w3)
     counts = _inliers_3d(rs, ts, obj_coords, cam_points, valid, inlier_threshold).sum(-1)
-    scores = torch.where(w3.sum(-1) == 3, counts, -1)
+    return rs, ts, torch.where(w3.sum(-1) == 3, counts, -1)
+
+
+def pose_refine_plain(obj_coords, cam_points, valid, rs, ts, scores, inlier_threshold,
+                      num_refine) -> PoseEstimate:
+    """`pose_refine` in PyTorch ops, on any device
+    (`posecnn_tpu/refine/ransac.py:165-189`)."""
     best = torch.argmax(scores)
     any_ok = _pick(scores, best) >= 0
     r, t = _pick(rs, best), _pick(ts, best)
@@ -207,3 +215,92 @@ def estimate_pose_3d(obj_coords, cam_points, valid, triples, *,
     return PoseEstimate(rotation=r, translation=t,
                         inliers=torch.where(any_ok, inl, 0.0),
                         score=torch.where(any_ok, inl / n_valid, 0.0))
+
+
+def _check_points(what, obj_coords, cam_points, valid, **more):
+    """Raise unless obj_coords, cam_points (N, 3) fp32, valid (N,) bool and
+    `more` (name -> (tensor, dtype, shape)) are contiguous on one CUDA
+    device; returns N."""
+    n = obj_coords.shape[0]
+    want = {"obj_coords": (obj_coords, torch.float32, (n, 3)),
+            "cam_points": (cam_points, torch.float32, (n, 3)),
+            "valid": (valid, torch.bool, (n,)), **more}
+    for name, (t, dtype, shape) in want.items():
+        if (t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous()
+                or t.device != obj_coords.device):
+            raise ValueError(f"{what}: {name} must be a contiguous {dtype} {shape} tensor on "
+                             f"{obj_coords.device}, got {t.dtype} {tuple(t.shape)} on {t.device} "
+                             f"(contiguous={t.is_contiguous()})")
+    return n
+
+
+def pose_hypotheses(obj_coords, cam_points, valid, triples, inlier_threshold):
+    """Each hypothesis' fit to its three correspondences and its inlier
+    count: obj_coords, cam_points (N, 3) fp32, valid (N,) bool, triples
+    (Hyp, 3) int64 → rs (Hyp, 3, 3) fp32, ts (Hyp, 3) fp32, scores (Hyp,)
+    int64 (the count of valid points within `inlier_threshold` of R s + t,
+    -1 where a triple holds an invalid entry). On a CUDA tensor one launch
+    of `pose_hypotheses_kernel` (`csrc/kabsch.cu`, a block a hypothesis);
+    on the CPU `pose_hypotheses_plain`."""
+    if obj_coords.device.type == "cpu":
+        return pose_hypotheses_plain(obj_coords, cam_points, valid, triples, inlier_threshold)
+    hyp = triples.shape[0]
+    n = _check_points("pose_hypotheses", obj_coords, cam_points, valid,
+                      triples=(triples, torch.int64, (hyp, 3)))
+    device = obj_coords.device
+    rs = torch.empty((hyp, 3, 3), dtype=torch.float32, device=device)
+    ts = torch.empty((hyp, 3), dtype=torch.float32, device=device)
+    scores = torch.empty(hyp, dtype=torch.int64, device=device)
+    lib = _cuda.library("kabsch")
+    with torch.cuda.device(device):
+        status = lib.pose_hypotheses(
+            obj_coords.data_ptr(), cam_points.data_ptr(), valid.data_ptr(), triples.data_ptr(),
+            rs.data_ptr(), ts.data_ptr(), scores.data_ptr(), n, hyp, inlier_threshold,
+            _cuda.device_counter(device, "pose_hyp"), torch.cuda.current_stream().cuda_stream)
+    _cuda.check(status, "pose_hypotheses_kernel")
+    _cuda.count("pose_hyp")
+    return rs, ts, scores
+
+
+def pose_refine(obj_coords, cam_points, valid, rs, ts, scores, inlier_threshold, num_refine):
+    """The best hypothesis (the first of the highest score) refined
+    `num_refine` times by Kabsch on its inliers (kept where fewer than 3),
+    then its inlier count and share of the valid entries (both 0 where no
+    hypothesis was usable): `pose_hypotheses`' outputs → PoseEstimate. On a
+    CUDA tensor one launch of `pose_refine_kernel` (`csrc/kabsch.cu`, one
+    block); on the CPU `pose_refine_plain`."""
+    if obj_coords.device.type == "cpu":
+        return pose_refine_plain(obj_coords, cam_points, valid, rs, ts, scores, inlier_threshold,
+                                 num_refine)
+    hyp = scores.shape[0]
+    if hyp < 1 or num_refine < 0:
+        raise ValueError(f"pose_refine: needs a hypothesis and num_refine >= 0, got {hyp} and "
+                         f"{num_refine}")
+    n = _check_points("pose_refine", obj_coords, cam_points, valid,
+                      rs=(rs, torch.float32, (hyp, 3, 3)), ts=(ts, torch.float32, (hyp, 3)),
+                      scores=(scores, torch.int64, (hyp,)))
+    device = obj_coords.device
+    rotation = torch.empty((3, 3), dtype=torch.float32, device=device)
+    translation = torch.empty(3, dtype=torch.float32, device=device)
+    inliers = torch.empty((), dtype=torch.float32, device=device)
+    score = torch.empty((), dtype=torch.float32, device=device)
+    lib = _cuda.library("kabsch")
+    with torch.cuda.device(device):
+        status = lib.pose_refine(
+            obj_coords.data_ptr(), cam_points.data_ptr(), valid.data_ptr(), rs.data_ptr(),
+            ts.data_ptr(), scores.data_ptr(), n, hyp, inlier_threshold, num_refine,
+            rotation.data_ptr(), translation.data_ptr(), inliers.data_ptr(), score.data_ptr(),
+            _cuda.device_counter(device, "pose_refine"), torch.cuda.current_stream().cuda_stream)
+    _cuda.check(status, "pose_refine_kernel")
+    _cuda.count("pose_refine")
+    return PoseEstimate(rotation, translation, inliers, score)
+
+
+def estimate_pose_3d(obj_coords, cam_points, valid, triples, *,
+                     inlier_threshold: float = 0.02, num_refine: int = 2) -> PoseEstimate:
+    """Rigid pose from 3D-3D correspondences. obj_coords, cam_points
+    (N, 3) fp32, valid (N,) bool, triples (Hyp, 3) indices
+    (`draw_hypotheses`): `pose_hypotheses`, then `pose_refine`; two kernel
+    launches on a CUDA tensor."""
+    hyps = pose_hypotheses(obj_coords, cam_points, valid, triples, inlier_threshold)
+    return pose_refine(obj_coords, cam_points, valid, *hyps, inlier_threshold, num_refine)

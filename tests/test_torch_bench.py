@@ -204,4 +204,5 @@ def test_graph_replay_equals_eager(cuda, cell_stride):
     torch.cuda.synchronize()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
-    assert launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+    assert launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+                        "pose_hyp": 0, "pose_refine": 0}

@@ -249,7 +249,8 @@ def test_engine_graph_equals_eager_on_the_card(cuda, batch):
                               want):
             assert exact(g, w), name
     (program,) = engine._compiled.programs.values()
-    assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 1, "kabsch": 0}
+    assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 1, "kabsch": 0,
+                                "pose_hyp": 0, "pose_refine": 0}
 
 
 @pytest.mark.cuda

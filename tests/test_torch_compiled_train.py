@@ -324,7 +324,8 @@ def test_replayed_steps_equal_eager_steps_on_the_card(cuda, kind):
     # one graph a SYMSIZE phase: momentum's switch at step 2 makes a second
     assert len(step.compiled.programs) == (2 if kind == "momentum" else 1)
     for program in step.compiled.programs.values():
-        assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+        assert program.launches == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+                                    "pose_hyp": 0, "pose_refine": 0}
 
 
 @pytest.mark.cuda
@@ -362,10 +363,12 @@ def test_one_flat_and_one_window_launch_a_replayed_step_on_the_card(cuda):
     tb = {k: torch.from_numpy(v).to(cuda) for k, v in batches[0].items()}
     hk.LAUNCHES.update(dict.fromkeys(hk.LAUNCHES, 0))
     step(state, tb)  # the real step (eager) and the capture
-    assert hk.LAUNCHES == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}
+    assert hk.LAUNCHES == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+                           "pose_hyp": 0, "pose_refine": 0}
     hk.reset_device_launches()
     for _ in range(3):
         step(state, tb)
-    assert hk.LAUNCHES == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0}  # replays call no wrapper
+    assert hk.LAUNCHES == {"tile": 0, "flat": 1, "window": 1, "scan": 0, "kabsch": 0,
+                           "pose_hyp": 0, "pose_refine": 0}  # replays call no wrapper
     counted = hk.device_launches()
     assert (counted["flat"], counted["window"], counted["tile"]) == (3, 3, 0)

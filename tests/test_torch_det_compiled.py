@@ -402,7 +402,8 @@ def test_replayed_det_steps_equal_eager_steps_on_the_card(cuda):
         assert max_distance(state_of(step, state), after) == 0.0, i
         keep()
     (program,) = step.compiled.programs.values()
-    assert program.launches == {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0}
+    assert program.launches == {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0,
+                                "pose_hyp": 0, "pose_refine": 0}
 
 
 @pytest.mark.cuda
@@ -412,12 +413,14 @@ def test_one_scan_launch_a_replayed_det_step_on_the_card(cuda):
     batch = tb(batches[0], cuda)
     _cuda.LAUNCHES.update(dict.fromkeys(_cuda.LAUNCHES, 0))
     step(state, batch)  # the real step (eager) and the capture
-    assert _cuda.LAUNCHES == {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0}
+    assert _cuda.LAUNCHES == {"tile": 0, "flat": 0, "window": 0, "scan": 1, "kabsch": 0,
+                              "pose_hyp": 0, "pose_refine": 0}
     _cuda.reset_device_launches()
     for _ in range(3):
         step(state, batch)
     assert _cuda.LAUNCHES["scan"] == 1  # replays call no wrapper
-    assert _cuda.device_launches() == {"tile": 0, "flat": 0, "window": 0, "scan": 3, "kabsch": 0}
+    assert _cuda.device_launches() == {"tile": 0, "flat": 0, "window": 0, "scan": 3, "kabsch": 0,
+                                       "pose_hyp": 0, "pose_refine": 0}
 
 
 @pytest.mark.cuda
@@ -451,5 +454,6 @@ def test_detection_programs_replay_their_eager_bodies_on_the_card(cuda):
             for g, w in zip(pose(*args), test_net.det_pose(*args)):
                 assert torch.equal(g, w)
     (program,) = infer.programs.values()
-    assert program.launches == {"tile": 0, "flat": 0, "window": 0, "scan": 2, "kabsch": 0}
+    assert program.launches == {"tile": 0, "flat": 0, "window": 0, "scan": 2, "kabsch": 0,
+                                "pose_hyp": 0, "pose_refine": 0}
     assert sorted(p.args[0].shape[0] for p in pose.programs.values()) == [4, 8]

@@ -92,7 +92,8 @@ COMPILED = {"fcn8": ttrain.CompiledSegTrainStep, "resnet50_seg": ttrain.Compiled
             "recurrent_seg": ttrain.CompiledVideoTrainStep, "gan": ttrain.CompiledGanTrainStep}
 EAGER = {"fcn8": ttrain.SegTrainStep, "resnet50_seg": ttrain.SegTrainStep,
          "recurrent_seg": ttrain.VideoTrainStep, "gan": ttrain.GanTrainStep}
-NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0}
+NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0,
+             "pose_hyp": 0, "pose_refine": 0}
 
 
 def generator(c, f, seed):

@@ -35,8 +35,8 @@ in-place arguments they need, the Kabsch kernel's plain version, and
 
 The `cuda` tests hold each program's replays to its eager body on the
 card, count no vote kernel or scan launch a replay on the device (the
-Kabsch kernel three a replay of `estimate_pose_3d`), and hold the Kabsch
-kernel to its plain version (`python -m pytest --noconftest -p
+two pose kernels once each a replay of `estimate_pose_3d`, the Kabsch
+kernel none), and hold the Kabsch kernel to its plain version (`python -m pytest --noconftest -p
 no:cacheprovider -m cuda tests/test_torch_refine_compiled.py`). JAX is
 imported inside the tests that use it: the card's machine has none.
 """
@@ -467,8 +467,8 @@ def test_inplace_program_on_the_card(cuda):
 def test_programs_replay_their_eager_bodies_on_the_card(cuda, name):
     """Three replays of each program equal its eager body bit for bit; they
     call no kernel wrapper, and on the device launch no vote kernel and no
-    scan (`estimate_pose_3d` the Kabsch kernel three times a replay: the
-    hypotheses' and two refinements')."""
+    scan (`estimate_pose_3d` its two pose kernels once each a replay, and
+    no Kabsch kernel)."""
     body, program = card_programs(cuda)[name]
     want = body()
     program()  # the first call: the eager run and the capture
@@ -479,7 +479,7 @@ def test_programs_replay_their_eager_bodies_on_the_card(cuda, name):
         assert tree_equal(tuple(got) if isinstance(got, tuple) else got,
                           tuple(want) if isinstance(want, tuple) else want), name
     assert _cuda.LAUNCHES == calls
-    assert _cuda.device_launches() == ({**NO_LAUNCH, "kabsch": 9}
+    assert _cuda.device_launches() == ({**NO_LAUNCH, "pose_hyp": 3, "pose_refine": 3}
                                        if name == "estimate_pose_3d" else NO_LAUNCH)
 
 
