@@ -149,8 +149,10 @@ that fails, with a non-zero exit:
      the update bit for bit, each gradient within the eager spread or
      2e-2, one flat and one window launch a replay on the device), the
      yaml's loss terms among its metrics (`loss_match` for full); `--resume`
-     restoring the RGBD snapshot and its step on the staircase, and the
-     CLI training on from it; `test_net --dataset lov --refine` on the
+     restoring the RGBD snapshot as the JAX CLI resumes (its step, a fresh
+     optimizer at count 0, `lr_step_offset` at the step, the device rate
+     on the global step's staircase), the CLI training on from it (count
+     1, one flat and one window launch); `test_net --dataset lov --refine` on the
      4 val frames with that snapshot and with seeded random weights
      (whose labels leave detections for ICP), finite summaries, each
      forward's kernels bit for bit to plain. Per config: ms a step split into feed
@@ -248,7 +250,12 @@ that fails, with a non-zero exit:
      and a background pool (scenes/s, samples/s); `train_net` on the
      flagship yaml (c2f) with `train.max_host_rss_gb` under the process's
      RSS, which must snapshot at iteration 1 and return, then `--resume`
-     to iteration 3 with the handoff off; `train_net --pretrained` from a
+     to iteration 3 with the handoff off (Adam's count and steps read back
+     2 from the card: restarted at 0); the flagship's compiled Adam step
+     resumed from that run's snapshot (count, steps and moments 0 on the
+     card, the device rate `schedule(0 + offset)`), its first replay held
+     to eager resumed steps by the equality gate, one more replay reading
+     back count and steps 1; `train_net --pretrained` from a
      Caffe-layout vgg16.npy at VGG16's shapes (seeded): 15 kernels loaded,
      fc8 skipped, conv1_1 and fc6 equal to the file before 2 steps; in both
      runs flat and window launched once a step and bit for bit equal to
@@ -350,6 +357,7 @@ and exits non-zero.
 from __future__ import annotations
 
 import base64
+import dataclasses
 import json
 import os
 import re
@@ -1661,13 +1669,15 @@ NO_LAUNCH = {"tile": 0, "flat": 0, "window": 0, "scan": 0, "kabsch": 0,
              "pose_hyp": 0, "pose_refine": 0}
 
 
-def equality_gate(step, state, batches, where, per_replay, prepare=None):
+def equality_gate(step, state, batches, where, per_replay, prepare=None, resumed=False):
     """A compiled step (a `CompiledStep` of any family) against the same
     step eager over len(batches) consecutive steps from one state: the
     given state, readied by the family's `prepare(step, state, batch,
     where)` where it has one (the posecnn family's `live_hough_inputs`,
     which returns the gate's note), with the optimizer's count two updates
-    before a step of the lr staircase. The run is the compiled step's
+    before a step of the lr staircase; or, `resumed`, with the optimizer as
+    a resume left it (count 0, the schedule offset to the restored step).
+    The run is the compiled step's
     (replays of its graph); before each of its steps the state is kept
     (`bench.snapshot`, restored in place, as a graph reads it) and eager
     steps are run from it. A step is three parts, each held to its own
@@ -1693,9 +1703,13 @@ def equality_gate(step, state, batches, where, per_replay, prepare=None):
 
     given = snapshot(step, state)
     prepared = prepare(step, state, batches[0], where) if prepare is not None else {}
-    fastforward_opt_counts(state.opt, step.cfg.train.stepsize - 2)
+    if resumed:
+        if state.opt.count != 0:
+            raise AssertionError(f"{where}: a resumed optimizer at count {state.opt.count}")
+    else:
+        fastforward_opt_counts(state.opt, step.cfg.train.stepsize - 2)
     lrs = [state.opt.schedule(state.opt.count + i) for i in range(len(batches))]
-    if len(set(lrs)) < 2:
+    if len(set(lrs)) < 2 and not resumed:
         raise AssertionError(f"{where}: the gate's steps cross no step of the lr staircase: {lrs}")
     start = snapshot(step, state)
     step(state, batches[0])  # make sure of the graph: a signature's first call runs eagerly
@@ -3201,7 +3215,10 @@ def phase_real(card):
             del tr, step, batches, recorded, gate_batches, gate
             torch.cuda.empty_cache()
 
-        # --resume: the newest snapshot, its step, and the staircase on it
+        # --resume: the newest snapshot, as the JAX CLI resumes it: the step
+        # continued, the optimizer fresh (count 0, zero traces on the card),
+        # the staircase on the global step through lr_step_offset; the
+        # device rate of the next update set from it
         out = os.path.join(tmp, REAL_CFGS[0])
         argv = ["--dataset", "lov", "--data_root", root, "--cfg", cfg_path(REAL_CFGS[0]),
                 "--output", out, "--resume", *REAL_SET[REAL_CFGS[0]]]
@@ -3210,28 +3227,43 @@ def phase_real(card):
         tr.batches.close()
         restored = params_to_jax(tr.model.state_dict())
         same = all(np.array_equal(restored[k], saved[k]) for k in saved)
-        lr = lr_schedule(tr.cfg)(tr.state.opt.count)
-        if args.ckpt != rgbd_snapshot or not (
-                tr.state.step == tr.state.opt.count == REAL_STEPS) or not same or lr != lr_next:
+        opt = tr.state.opt
+        fresh = not any(bool(t.any()) for t in tr.state.state_tensors())
+        lr = opt.prepare()
+        device_lr = float(opt.lr)
+        if args.ckpt != rgbd_snapshot or tr.state.step != REAL_STEPS or opt.count != 0 or (
+                tr.cfg.train.lr_step_offset != REAL_STEPS) or not same or not fresh or (
+                lr != lr_next) or device_lr != float(np.float32(lr_next)):
             raise AssertionError(f"--resume: {args.ckpt} vs {rgbd_snapshot}, step "
-                                 f"{tr.state.step}, optimizer count {tr.state.opt.count}, "
-                                 f"parameters equal {same}, lr {lr} / {lr_next}")
-        del tr, restored, saved
-        # the CLI itself resumes and trains one more step
-        state = train_net.main_run(train_net.make_parser().parse_args(argv),
-                                   train_net.load_config(args), REAL_STEPS + 1)
-        if not state.step == state.opt.count == REAL_STEPS + 1:
+                                 f"{tr.state.step}, optimizer count {opt.count}, offset "
+                                 f"{tr.cfg.train.lr_step_offset}, fresh {fresh}, parameters "
+                                 f"equal {same}, lr {lr} (device {device_lr}) / {lr_next}")
+        del tr, restored, saved, opt
+        # the CLI itself resumes and trains one more step (its first call
+        # eager: one flat and one window launch on the device)
+        state, _, resume_launches = device_counted(lambda: train_net.main_run(
+            train_net.make_parser().parse_args(argv), train_net.load_config(args),
+            REAL_STEPS + 1))
+        resumed_lr = float(state.opt.lr)
+        if not (state.step == REAL_STEPS + 1 and state.opt.count == 1) or (
+                resumed_lr != float(np.float32(lr_next))) or (
+                resume_launches["flat"], resume_launches["window"]) != (1, 1):
             raise AssertionError(f"train_net --resume ended at step {state.step}, optimizer "
-                                 f"count {state.opt.count}")
+                                 f"count {state.opt.count}, device rate {resumed_lr}, "
+                                 f"launches {resume_launches}")
         final_snapshot = train_net.newest_snapshot(out)
         adam_err = adam_fastforward_check(REAL_STEPS)
         resume_line = (f"--resume restored {os.path.basename(rgbd_snapshot)} (parameters "
-                       f"equal), step {REAL_STEPS} = the optimizer's count "
-                       f"(fastforward_opt_counts), lr {lr:g} = the staircase at the global "
-                       f"step; train_net --resume --iters {REAL_STEPS + 1} trained 1 step "
-                       f"(count {REAL_STEPS + 1}), wrote {os.path.basename(final_snapshot)}; "
-                       f"fused Adam fast-forwarded to step {REAL_STEPS} == the CPU's Adam after "
-                       f"one update within {adam_err:.3g}")
+                       f"equal) as the JAX CLI resumes: step {REAL_STEPS}, the optimizer "
+                       f"fresh (count 0, zero traces read on the card), lr_step_offset "
+                       f"{REAL_STEPS}, device rate {device_lr:g} = schedule(0 + offset) = the "
+                       f"staircase at the global step; train_net --resume --iters "
+                       f"{REAL_STEPS + 1} trained 1 step (step {REAL_STEPS + 1}, count 1, "
+                       f"device rate {resumed_lr:g}, launches on the device flat "
+                       f"{resume_launches['flat']} window {resume_launches['window']}), wrote "
+                       f"{os.path.basename(final_snapshot)}; fused Adam fast-forwarded to step "
+                       f"{REAL_STEPS} (as the equality gates set the count) == the CPU's Adam "
+                       f"after one update within {adam_err:.3g}")
         del state
         torch.cuda.empty_cache()
 
@@ -4505,6 +4537,62 @@ def caffe_vgg16_npy(path, seed, fc_dim=4096):
     return data
 
 
+def resumed_adam_gate(out, sets):
+    """Phase 14's compiled Adam resume of the flagship: `train_net
+    --resume` from the newest snapshot under `out` (the handoff run's, at
+    step HANDOFF_ITERS), as the JAX CLI resumes: the step continued, count
+    0 and every Adam `step` and moment 0 read back from the card,
+    `lr_step_offset` at the step and the device rate `schedule(0 +
+    offset)`. Its first replay is held to eager resumed steps from the same
+    state by `equality_gate`'s three parts; one more replay then reads back
+    count and steps 1 and the same rate, launching one flat and one window
+    kernel. Returns the line to print."""
+    import torch
+
+    from posecnn_torch.cli import train_net
+    from posecnn_torch.engine.train import lr_schedule
+
+    t0 = time.perf_counter()
+    args = train_net.make_parser().parse_args(
+        ["--cfg", TRAIN_CFG, "--output", out, "--resume", "--set", *sets])
+    tr = train_net.build_trainer(args, train_net.load_config(args))
+    try:
+        batch = next(tr.batches)
+    finally:
+        tr.batches.close()
+    opt = tr.state.opt
+    tensors = tr.state.state_tensors()  # Adam's, made where its first update makes them
+    steps = [opt.opt.state[p]["step"] for p in opt.params]
+    zero = not any(bool(t.any()) for t in tensors)
+    rate = opt.prepare()
+    device_rate = float(opt.lr)
+    base = dataclasses.replace(tr.cfg, train=dataclasses.replace(tr.cfg.train, lr_step_offset=0))
+    if not (tr.state.step == tr.cfg.train.lr_step_offset == HANDOFF_ITERS and opt.count == 0
+            and zero and all(t.is_cuda for t in steps) and opt.opt.param_groups[0]["fused"]
+            and rate == lr_schedule(base)(HANDOFF_ITERS)
+            and device_rate == float(np.float32(rate))):
+        raise AssertionError(f"resumed Adam: step {tr.state.step}, offset "
+                             f"{tr.cfg.train.lr_step_offset}, count {opt.count}, zero state "
+                             f"{zero}, rate {rate} (device {device_rate})")
+    gate = equality_gate(tr.step, tr.state, [batch], "phase 14 resumed Adam (flagship)",
+                         C2F_STEP, live_hough_inputs, resumed=True)
+    _, _, launches = device_counted(lambda: tr.step(tr.state, batch))
+    after = {float(t) for t in steps}
+    if opt.count != 1 or after != {1.0} or float(opt.lr) != device_rate or (
+            launches != C2F_STEP):
+        raise AssertionError(f"resumed Adam's replay: count {opt.count}, steps {after}, device "
+                             f"rate {float(opt.lr)}, launches {launches}")
+    line = (f"compiled Adam resume of the flagship from {os.path.basename(args.ckpt)}: step "
+            f"{HANDOFF_ITERS}, lr_step_offset {HANDOFF_ITERS}, count 0 and every Adam step and "
+            f"moment 0 read back from the card, device rate {device_rate:g} = schedule(0 + "
+            f"offset); {gate['line']}; one more replay: count 1, every Adam step 1 on the "
+            f"card, the same rate, launches {launches}; {time.perf_counter() - t0:.1f} s with "
+            f"set-up")
+    del tr, gate, batch
+    torch.cuda.empty_cache()
+    return line
+
+
 def phase_slice11(card, native_build_s):
     """Phase 14: the C++ data-path library against the numpy path, the
     shard store, the host-RSS handoff and --resume, --pretrained, the
@@ -4605,17 +4693,28 @@ def phase_slice11(card, native_build_s):
             losses = [json.loads(line)["loss"] for line in f]
         if len(losses) != HANDOFF_ITERS or not np.isfinite(losses).all():
             raise AssertionError(f"handoff and resume logged {losses}")
+        # the resumed pass's Adam started again at count 0 (JAX's resume):
+        # its count and every Adam step, read back from the card, are the
+        # pass's HANDOFF_ITERS - 1 updates
+        adam_steps = {float(state.opt.opt.state[p]["step"]) for p in state.opt.params}
+        if state.opt.count != HANDOFF_ITERS - 1 or adam_steps != {HANDOFF_ITERS - 1.0}:
+            raise AssertionError(f"--resume: count {state.opt.count}, Adam steps {adam_steps} "
+                                 f"after {HANDOFF_ITERS - 1} resumed updates")
         handoff_errs = recorded_vs_plain(recorded, "the handoff and resume steps")
         parts.append(
             f"train_net on the flagship yaml (c2f) with train.max_host_rss_gb={limit:.3f} "
             f"(half the process's RSS before it): snapshotted at iteration 1 and returned in "
             f"{handoff_s:.1f} s with set-up; --resume from it to iteration {HANDOFF_ITERS} with "
-            f"the handoff off in {resume_s:.1f} s; losses {[round(x, 4) for x in losses]}; "
+            f"the handoff off in {resume_s:.1f} s (Adam restarted: count and steps read back "
+            f"{HANDOFF_ITERS - 1} after its {HANDOFF_ITERS - 1} updates); losses "
+            f"{[round(x, 4) for x in losses]}; "
             f"launches {launches} (counted on the device: flat and window once a step, the "
             f"compiled step's first call in each run eager, the resumed run's last a replay), "
             f"== plain bit for bit on each of the {len(recorded)} eager steps' inputs, "
             f"max_abs_err {handoff_errs}")
         del state, recorded
+        torch.cuda.empty_cache()
+        parts.append(resumed_adam_gate(out, sets))
         torch.cuda.empty_cache()
 
         # 14.4: --pretrained from a full-shape Caffe-layout vgg16.npy

@@ -39,15 +39,22 @@ every later step replays; with `--device cpu` the step runs eagerly. The
 data-parallel steps (`--num_data` > 1) run eagerly.
 
 `--ckpt` (or `--resume`, the newest snapshot under `--output`) restores
-the parameters and the step before the step is built, so the first
-capture reads them where they stay (`fastforward_opt_counts` writes in
-place, and the discriminator's Adam is made fresh after the restore);
-`fastforward_opt_counts` sets the fresh
-optimizer's update count (and Adam's `step`) to that step, so the
-staircase follows the global step. The moments start at zero. (The JAX
-CLI instead keeps the count at 0 and offsets the schedule by
-`train.lr_step_offset`; the staircase is the same, Adam's first
-bias correction after a resume is not.)
+the parameters before the step is built, and the run resumes in the state
+the JAX CLI's does, family by family (`posecnn_tpu/cli/train_net.py`).
+The optimizer is always fresh: update count 0, every Adam `step` 0, zero
+moments (the discriminator's Adam too). The posecnn family continues the
+snapshot's step (iterations, snapshot names, SYMSIZE, dropout streams)
+with `train.lr_step_offset` set to it (`:739-775`), so the staircase
+follows the global step while Adam's bias-corrected warm-up starts again:
+the "restart kick" of the chunked passes (`experiments/train_chunked.sh`).
+The detection, segmentation and video families restore the parameters
+only: the step, the iterations, the snapshot names and the staircase
+start again from 0 (`:146-149`, `:199-202`, `:276-279`). The GAN continues
+the step at an offset of 0 (`:713-715`): it applies the staircase at the
+pass-local count and logs it at the global step (`engine/train.logged_lr`),
+and, like the other families' loops, numbers its iterations and snapshots
+from 1 (JAX's `_generic_loop`). `engine/train.fastforward_opt_counts`, the
+counterpart of JAX's function, is called by neither CLI.
 `--reinit` re-randomises named modules after the restore.
 
 `network: posecnn_det` (`experiments/cfgs/lov_det.yaml` and the LINEMOD
@@ -132,6 +139,7 @@ mesh in JAX and run one process here too (a line says so).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import glob
 import json
 import os
@@ -177,7 +185,6 @@ from posecnn_torch.engine.train import (
     check_supported,
     create_train_state,
     discriminator_optimizer,
-    fastforward_opt_counts,
     make_det_train_step,
     make_gan_train_step,
     make_seg_train_step,
@@ -271,20 +278,27 @@ def _restore(args, model, modules: dict) -> int:
 
 
 def _initialised(args, cfg: Config, model, modules: dict, device, pretrained=None, mesh=None):
-    """`model` with seeded weights, the `pretrained` vgg16.npy and then
-    `--ckpt` / `--reinit` applied, on `device`, and its optimizer state at
-    the restored step (every rank of a mesh starts from the same)."""
+    """(model, state, cfg): `model` with seeded weights, the `pretrained`
+    vgg16.npy and then `--ckpt` / `--reinit` applied, on `device`, a fresh
+    optimizer (count 0, zero moments), and the step and cfg of the JAX
+    CLI's resume: the posecnn family at the restored step with
+    `train.lr_step_offset` set to it, the GAN at the restored step with no
+    offset, the other families at step 0 (every rank of a mesh starts from
+    the same)."""
     init_weights(model, cfg.rng_seed)
     if pretrained:
         import_vgg16_npy(pretrained, model)
     step0 = _restore(args, model, modules)
     model = model.to(device)
+    if cfg.network != "posecnn":
+        step0 = 0  # the parameters only
+    elif args.ckpt and not cfg.train.gan:
+        # the staircase on the global step; Adam's count starts again
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train,
+                                                                 lr_step_offset=step0))
     state = create_train_state(cfg, model, mesh)
     state.step = step0
-    if args.ckpt:
-        # the staircase and Adam's bias correction follow the global step
-        fastforward_opt_counts(state.opt, step0)
-    return model, state
+    return model, state, cfg
 
 
 def build_trainer(args, cfg: Config, *, mesh: Optional[Mesh] = None,
@@ -374,8 +388,8 @@ def build_trainer(args, cfg: Config, *, mesh: Optional[Mesh] = None,
             adaptation=t.adapt, input_format="RGBD" if cfg.input == "RGBD" else "COLOR",
             vertex_reg=vertex_reg(cfg), pose_reg=t.pose_reg, compute_dtype=compute_dtype,
         )
-    model, state = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES, device,
-                                pretrained, mesh)
+    model, state, cfg = _initialised(args, cfg, model, _DET_MODULES if det else _MODULES,
+                                     device, pretrained, mesh)
     disc = None
     if t.gan:
         # the discriminator scores [255·vertex map ‖ image], in fp32 as the
@@ -480,8 +494,8 @@ def _seg_trainer(args, cfg: Config, device, gen, ds, c: int, compute_dtype,
     else:
         width = {"fc_dim": t.fc_dim} if cfg.network == "fcn8" else {"num_units": t.num_units}
         model = MODELS.get(cfg.network)(c, compute_dtype=compute_dtype, **width)
-    model, state = _initialised(args, cfg, model,
-                                {name: name for name, _ in model.named_children()}, device)
+    model, state, cfg = _initialised(args, cfg, model,
+                                     {name: name for name, _ in model.named_children()}, device)
 
     num_workers = FEED_WORKERS
     if cfg.network != "recurrent_seg":
@@ -551,10 +565,11 @@ def main_run(args, cfg: Config, max_iters: int, *, mesh: Optional[Mesh] = None,
         tr.batches.close()
         if log_f is not None:
             log_f.close()
-    # the final snapshot is labelled with the step reached (a resumed run
-    # may have started at or beyond max_iters)
+    # the final snapshot is labelled with the posecnn step reached (a
+    # resumed run may have started at or beyond max_iters), the other
+    # families' with max_iters
     if chief:
-        print(f"done → {snapshot(state.step)}")
+        print(f"done → {snapshot(state.step if tr.step.continues_numbering else max_iters)}")
     return state
 
 
@@ -611,8 +626,10 @@ def make_parser():
     parser.add_argument("--output", default="output/train")
     parser.add_argument("--iters", type=int, default=0, help="override max_iters")
     parser.add_argument("--ckpt", default=None,
-                        help="resume from this snapshot (JAX .npz layout): parameters and "
-                        "step; the optimizer's count is set to the step, its moments to 0")
+                        help="resume from this snapshot (JAX .npz layout) as the JAX CLI "
+                        "does: the parameters, a fresh optimizer (count 0, zero moments); "
+                        "posecnn continues the step with train.lr_step_offset at it, the GAN "
+                        "the step, the other families start at step 0")
     parser.add_argument("--resume", action="store_true",
                         help="resume from the newest snapshot under --output (fresh start "
                         "when there is none)")

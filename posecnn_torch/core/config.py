@@ -180,10 +180,10 @@ class TrainConfig:
     # host cost of syn_pool_fresh renders/step (per prefetch worker)
     syn_pool_size: int = 0
     syn_pool_fresh: int = 2
-    # added to the optimizer's count by engine/train.lr_schedule. The JAX
-    # CLI's resume sets it to the restored step; the port's resume
-    # fast-forwards the count instead (fastforward_opt_counts) and
-    # leaves it at 0
+    # added to the optimizer's count by engine/train.lr_schedule. A
+    # posecnn resume (cli/train_net --ckpt / --resume, as the JAX CLI's)
+    # sets it to the restored step: the count starts again at 0, the
+    # staircase stays on the global step
     lr_step_offset: int = 0
     # tunnel-feed compression (data/pipeline.compact_feed →
     # engine/train.decompress_feed): uint8 image/label + depth dropped

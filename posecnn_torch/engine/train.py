@@ -169,9 +169,12 @@ def vertex_reg(cfg: Config) -> bool:
 
 def lr_schedule(cfg: Config) -> Callable[[int], float]:
     """Staircase exponential decay, evaluated on the optimizer's own
-    update count (which `fastforward_opt_counts` sets to the global step
-    on a resume) plus `train.lr_step_offset`
-    (`posecnn_tpu/engine/train.py:49-73`)."""
+    update count plus `train.lr_step_offset`
+    (`posecnn_tpu/engine/train.py:49-73`). The count starts at 0 with every
+    fresh optimizer, a resumed one too; a posecnn resume sets the offset
+    to the restored step (`cli/train_net`), so the staircase follows the
+    global step while Adam starts again from its first, bias-corrected
+    update (JAX's "restart kick")."""
     t = cfg.train
 
     def lr(count: int) -> float:
@@ -181,6 +184,18 @@ def lr_schedule(cfg: Config) -> Callable[[int], float]:
         return t.learning_rate * t.gamma ** math.floor(count / t.stepsize)
 
     return lr
+
+
+def logged_lr(cfg: Config, step: int) -> float:
+    """The `lr` a step logs at the global `step` (the one before its
+    update): `schedule(step − lr_step_offset)`, the offset added back by
+    the schedule (`posecnn_tpu/engine/train.py:391`). The rate the update
+    applies is `schedule(count)` on the optimizer's pass-local count. The
+    two agree on a fresh run and on a posecnn resume (count 0, offset the
+    step); a resumed GAN continues its step on a count from 0 with no
+    offset, so it logs the staircase at the global step and applies it at
+    the count, as JAX does."""
+    return lr_schedule(cfg)(step - cfg.train.lr_step_offset)
 
 
 def _weight_mask(params: Sequence[torch.Tensor]) -> list[bool]:
@@ -337,12 +352,12 @@ def adam_state_tensors(adam: torch.optim.Adam) -> list[torch.Tensor]:
 def fastforward_opt_counts(opt: Optimizer, step: int) -> Optimizer:
     """Set the optimizer's update count, which the schedule reads, and
     every parameter's `step` in the `torch.optim` state to `step`
-    (`posecnn_tpu/engine/train.py:76-99` sets every optax `count`). The
-    staircase then follows the global iteration, and Adam's bias
-    correction is that of an optimizer `step` updates old, with the
-    moments it has (zero on a fresh one, as optax's init). The count is
-    written into the existing `step` tensor, which a captured update reads
-    at its address. The momentum trace has no count."""
+    (`posecnn_tpu/engine/train.py:76-99` sets every optax `count`). Adam's
+    bias correction is then that of an optimizer `step` updates old, with
+    the moments it has. The count is written into the existing `step`
+    tensor, which a captured update reads at its address. The momentum
+    trace has no count. As in JAX, no resume calls it: a resume starts a
+    fresh optimizer at count 0."""
     opt.count = step
     if opt.opt is not None:
         for p in opt.params:
@@ -539,12 +554,16 @@ def step_losses(cfg: Config, model, points, extents, symmetry, batch: dict,
 class TrainStep:
     """One training step: `forward` (losses), `backward`, `update`;
     calling it (`eager`) runs the three and returns the metrics (tensors
-    on the device, plus `lr`), one launch at a time. With a `mesh` it is
-    one rank's part of the data-parallel step: `backward` also sums the
+    on the device, plus the host's `logged_lr`), one launch at a time. With
+    a `mesh` it is one rank's part of the data-parallel step: `backward` also sums the
     gradients over the data group (`parallel/mesh.reduce_gradients`)."""
 
     # train_loop's host-RSS handoff: the posecnn step's alone, as in JAX
     host_rss_handoff = True
+    # train_loop numbers the iterations from the state's step (JAX's
+    # train_loop); the other families' loops number each pass from 1
+    # (JAX's `_generic_loop`, posecnn_tpu/cli/train_net.py:54-66)
+    continues_numbering = True
 
     def __init__(self, cfg: Config, model, points, extents, symmetry, *, keep_prob: float = 0.5,
                  mesh: Optional[Mesh] = None):
@@ -597,7 +616,8 @@ class TrainStep:
         """The step, one launch at a time (a compiled step's eager twin)."""
         total, metrics = self.forward(state, batch)
         self.backward(total)
-        metrics["lr"] = self.update(state)
+        metrics["lr"] = logged_lr(self.cfg, state.step)
+        self.update(state)
         return metrics
 
 
@@ -645,7 +665,7 @@ class CompiledStep:
     generators, so both draw the same), and writes the learning rate into
     the optimizer's `lr`; after it, it counts the update and the step. The
     metrics are fresh tensors (the eager step's contract), `lr` the host's
-    float. On the CPU the call runs the same body eagerly.
+    float (`logged_lr`). On the CPU the call runs the same body eagerly.
 
     A family mixes this into its eager step class and calls `_compile`
     with its losses on the persistent generators: a function of (batch,
@@ -694,7 +714,8 @@ class CompiledStep:
     def __call__(self, state: TrainState, batch: dict) -> dict:
         for g, seed in zip(self.generators, self.noise_seeds(state)):
             g.manual_seed(seed)
-        lr = state.opt.prepare()
+        state.opt.prepare()
+        lr = logged_lr(self.cfg, state.step)
         metrics = self.compiled(batch, self.optimizers(state), *self.static(state))
         program = self.compiled.last
         if program is not None:
@@ -841,6 +862,7 @@ class GanTrainStep(TrainStep):
     card."""
 
     host_rss_handoff = False
+    continues_numbering = False
 
     def __init__(self, cfg: Config, model, disc, points, extents, symmetry, *,
                  keep_prob: float = 0.5, mesh: Optional[Mesh] = None):
@@ -865,7 +887,8 @@ class GanTrainStep(TrainStep):
     def eager(self, state: GanTrainState, batch: dict) -> dict:
         total, metrics, fake = self.forward(state, batch)
         self.backward(total)
-        lr = self.update(state)
+        lr = logged_lr(self.cfg, state.step)
+        self.update(state)
         metrics["loss_d"] = self.discriminator(state, batch, fake)
         metrics["lr"] = lr
         return metrics
@@ -941,6 +964,7 @@ class DetTrainStep(TrainStep):
     gt_poses (G, 13), gt_valid (G,)."""
 
     host_rss_handoff = False
+    continues_numbering = False
 
     def __init__(self, cfg: Config, model, points=None, symmetry=None):
         super().__init__(cfg, model, points, None, symmetry)
@@ -982,7 +1006,10 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
                step: Optional[TrainStep] = None, mesh: Optional[Mesh] = None) -> TrainState:
     """Host loop (`engine/train.py:403-462`): one step per batch, the
     metrics every `display` iterations, a snapshot every
-    `snapshot_iters`. A restored state continues its numbering. `step`
+    `snapshot_iters`. The posecnn step's loop continues a restored state's
+    numbering up to `max_iters`; the other families' (a step whose
+    `continues_numbering` is false: JAX's `_generic_loop`) take
+    `max_iters` steps numbered from 1, whatever the state's step. `step`
     defaults to the posecnn family's (with `mesh`). With `train.max_host_rss_gb` > 0
     the posecnn step's loop checks the host's RSS at each display
     iteration and, past the limit, snapshots at that iteration and
@@ -995,7 +1022,7 @@ def train_loop(cfg: Config, model, state: TrainState, batch_iter, points, extent
     chief = mesh is None or mesh.rank == 0
     if not chief:
         log_fn, snapshot_fn = (lambda it_num, metrics: None), None
-    start = state.step
+    start = state.step if step.continues_numbering else 0
     if start >= max_iters and chief:
         print(f"train_loop: restored step {start} >= max_iters {max_iters}; nothing to do "
               "(raise --iters to continue training)", flush=True)
@@ -1066,6 +1093,7 @@ class SegTrainStep(TrainStep):
     `label` (B, H, W). No dropout: the JAX step passes no keep rate."""
 
     host_rss_handoff = False
+    continues_numbering = False
 
     def __init__(self, cfg: Config, model):
         super().__init__(cfg, model, None, None, None)
@@ -1115,6 +1143,7 @@ class VideoTrainStep(TrainStep):
     on a batch of sequences {image, depth, meta, label}, time-major."""
 
     host_rss_handoff = False
+    continues_numbering = False
 
     def __init__(self, cfg: Config, model):
         super().__init__(cfg, model, None, None, None)

@@ -67,8 +67,9 @@ def test_loop_hands_off_where_jax_does(monkeypatch, limit, rss, display):
         else:
             monkeypatch.setattr(ttrain, "host_rss_gb", read)
 
-            class Step:
+            class Step:  # the posecnn step's loop
                 host_rss_handoff = True
+                continues_numbering = True
 
                 def __call__(self, state, batch):
                     state.step += 1
@@ -93,8 +94,9 @@ def test_only_the_posecnn_step_hands_off(name):
 def test_the_other_loops_run_past_the_limit(monkeypatch):
     monkeypatch.setattr(ttrain, "host_rss_gb", lambda: 99.0)
 
-    class Step:
+    class Step:  # another family's loop
         host_rss_handoff = False
+        continues_numbering = False
 
         def __call__(self, state, batch):
             state.step += 1

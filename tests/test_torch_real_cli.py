@@ -10,9 +10,9 @@ the real extents).
   step of DEPTH and of NORMAL input; the pose bank asked for without a
   dataset raises;
 - `--resume`: the newest snapshot restored, the step continued, the
-  optimizer's count (and Adam's `step`) fast-forwarded to it
-  (`fastforward_opt_counts`), and the learning rate on the global step's
-  staircase, as JAX's schedule gives it;
+  optimizer fresh as the JAX CLI leaves it (count 0, Adam's `step` 0)
+  with `train.lr_step_offset` at the restored step, and the learning rate
+  on the global step's staircase, as JAX's schedule gives it;
 - `test_net --dataset lov` (COLOR, DEPTH, and RGBD with ICP), `--dataset
   linemod` (with ICP, LINEMOD's diameters, intrinsics and z-flip class)
   and NORMAL input on rendered frames, each on one checkpoint: the port's
@@ -153,22 +153,27 @@ def test_resume_restores_the_step_and_the_lr_staircase(lov, trained, tmp_path):
     shutil.copytree(out, resumed)
     state, args = run_train(lov, resumed, 4, "--resume")
     assert args.ckpt == str(resumed / "toy_iter_2.npz")
-    assert state.step == state.opt.count == 4  # fast-forwarded to 2, then 2 updates
+    # the step continued from 2; the optimizer's count from 0 (2 updates)
+    assert state.step == 4 and state.opt.count == 2
     metrics = read_jsonl(resumed / "metrics.jsonl")
     assert [m["iter"] for m in metrics] == [1, 2, 3, 4]
-    # staircase of stepsize 3 on the global step: steps 2 and 3 (logged as 3, 4)
-    jcfg = jax_cfg_from_dict({"train": {"learning_rate": 0.001, "stepsize": 3, "gamma": 0.1}})
-    want = [float(jax_lr_schedule(jcfg)(step)) for step in (2, 3)]
+    # staircase of stepsize 3 on the global step: steps 2 and 3 (logged as
+    # 3, 4), applied at counts 0 and 1 with lr_step_offset 2
+    jcfg = jax_cfg_from_dict({"train": {"learning_rate": 0.001, "stepsize": 3, "gamma": 0.1,
+                                        "lr_step_offset": 2}})
+    want = [float(jax_lr_schedule(jcfg)(count)) for count in (0, 1)]
     np.testing.assert_allclose([m["lr"] for m in metrics[2:]], want, rtol=1e-6)
+    np.testing.assert_allclose([state.opt.schedule(count) for count in (0, 1)], want, rtol=1e-6)
     assert want[1] == pytest.approx(want[0] * 0.1)
-    # an Adam run resumes with every parameter's step at the snapshot's
+    # an Adam run resumes fresh: count 0, every parameter's step 0, zero
+    # moments, the offset at the snapshot's step
     args = train_net.make_parser().parse_args(
         ["--device", "cpu", "--dataset", "lov", "--data_root", lov, "--output", str(out),
          "--resume", "--set", "input=RGBD", "train.optimizer=adam", *SMALL, *TRAIN])
     tr = train_net.build_trainer(args, train_net.load_config(args))
     tr.batches.close()
-    assert tr.state.step == tr.state.opt.count == 2
-    assert all(float(tr.state.opt.opt.state[p]["step"]) == 2 for p in tr.state.opt.params)
+    assert tr.state.step == tr.cfg.train.lr_step_offset == 2 and tr.state.opt.count == 0
+    assert all(not t.any() for t in tr.state.state_tensors())  # steps and moments
 
 
 def test_resume_without_snapshots_starts_fresh(lov, tmp_path):

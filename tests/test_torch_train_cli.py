@@ -77,12 +77,16 @@ def test_resume_continues_numbering_with_a_fresh_optimizer(trained, tmp_path):
     out, _ = trained
     state, _ = run_cli(tmp_path, 3, "train.stepsize=1", "train.gamma=0.5",
                        "--ckpt", str(out / "toy_iter_2.npz"))
-    # a fresh optimizer (zero moments) whose count is fast-forwarded to 2
-    assert state.step == 3 and state.opt.count == 3
+    # the JAX CLI's resume: a fresh optimizer (count 0, zero moments) that
+    # took one update, Adam's step 1 (its first, fully bias-corrected), the
+    # global step continued from 2
+    assert state.step == 3 and state.opt.count == 1
+    assert all(float(state.opt.opt.state[p]["step"]) == 1 for p in state.opt.params)
     lines = read_metrics(tmp_path)
     assert [m["iter"] for m in lines] == [3]
-    # the staircase follows the global step: 0.001 · 0.5^2 at step 2
-    assert lines[0]["lr"] == pytest.approx(0.001 * 0.25)
+    # the staircase follows the global step through lr_step_offset = 2:
+    # 0.001 · 0.5^2 at step 2, applied at count 0 and logged at step 2
+    assert state.opt.schedule(0) == lines[0]["lr"] == pytest.approx(0.001 * 0.25)
     assert os.path.exists(tmp_path / "toy_iter_3.npz")
 
 
@@ -99,7 +103,7 @@ def test_reinit_rerandomizes_only_the_named_module(trained, tmp_path):
     for name, value in tr.model.state_dict().items():
         want = fresh.state_dict()[name] if name.startswith("pose_head.") else saved[name]
         torch.testing.assert_close(value, want, rtol=0, atol=0, msg=name)
-    assert tr.state.step == tr.state.opt.count == 2 and tr.cfg.train.lr_step_offset == 0
+    assert tr.state.step == tr.cfg.train.lr_step_offset == 2 and tr.state.opt.count == 0
 
 
 @lru_cache(maxsize=1)
